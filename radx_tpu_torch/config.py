@@ -1,0 +1,93 @@
+"""Sort configuration for the PyTorch/CUDA port (counterpart of radx_tpu/config.py).
+
+The JAX package sizes its bitonic network in (rows, 128) VMEM tiles and keeps
+a per-TPU tuning table.  On Hopper the limits are a block's shared memory and
+registers, so the port names its tiles in elements:
+
+  * ``chunk_elems`` — the chunk-sort tile: one thread block sorts this many
+    keys in shared memory through bitonic stages 1..log2(chunk_elems).
+  * ``finish_elems`` — the finish tile: at every merge level, the distances
+    below this run inside one block's shared memory; the distances at or
+    above it run as cross passes over global memory.
+
+Both are powers of two with ``finish_elems >= chunk_elems``.  A CUDA launch
+also needs the tile to fit one block's shared memory (``MAX_TILE_ELEMS``);
+the plain PyTorch versions on the CPU take any size.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Largest power-of-two int32 tile that fits one H100 block's 227 KB of
+# dynamic shared memory: 2^15 keys = 128 KB (2^16 would need 256 KB).
+MAX_TILE_ELEMS = 1 << 15
+
+STRATEGIES = ("bitonic", "lax", "radix")
+
+
+def _is_pow2(x: int) -> bool:
+    return x > 0 and x & (x - 1) == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SortConfig:
+    """Configuration of the single-device sort.
+
+    Attributes:
+      strategy: ``"bitonic"`` (default) runs the hand-written CUDA bitonic
+        network (kernels/bitonic.py); ``"lax"`` maps to ``torch.sort``, the
+        counterpart of the JAX package's ``jax.lax.sort`` fallback;
+        ``"radix"`` (the distribution sort) is not ported yet.
+      chunk_elems: chunk-sort tile in keys (power of two).
+      finish_elems: finish tile in keys (power of two, >= chunk_elems).
+    """
+
+    strategy: str = "bitonic"
+    # 2^14 keys (64 KB of shared memory) for both tiles: the fastest pair of
+    # a chunk 2^11..2^14 x finish 2^13..2^15 sweep at 2^23 and 2^26 keys on
+    # one H100 (PERF.md).  A 2^15 finish tile (128 KB) leaves room for
+    # one block per SM and measured 9-16% slower end to end.
+    chunk_elems: int = 1 << 14
+    finish_elems: int = 1 << 14
+
+    def __post_init__(self):
+        if self.strategy not in STRATEGIES:
+            raise ValueError(f"unknown sort strategy {self.strategy!r}")
+        if self.strategy == "radix":
+            raise NotImplementedError(
+                'strategy="radix" (the distribution sort) is not ported yet: '
+                "ROADMAP.md Queue 1 item M8"
+            )
+        if not (_is_pow2(self.chunk_elems) and self.chunk_elems >= 2):
+            raise ValueError("chunk_elems must be a power of two >= 2")
+        if not _is_pow2(self.finish_elems):
+            raise ValueError("finish_elems must be a power of two")
+        if self.finish_elems < self.chunk_elems:
+            raise ValueError("finish_elems must be >= chunk_elems")
+
+
+# radx_tpu/kernels/bitonic.py FINISH_WIDTH: chunks fused into one finish pass.
+_JAX_FINISH_WIDTH = 16
+
+
+def config_from_jax(cfg) -> SortConfig:
+    """Map a ``radx_tpu.SortConfig`` onto the port's, cutting the network as
+    the JAX pipeline cuts it for one key plane.
+
+    The JAX chunk is ``chunk_rows * 128`` keys.  Its finish pass fuses the
+    last log2(W) cross distances of a level into the W-chunk finish (W =
+    FINISH_WIDTH, clamped by its VMEM budget to ``16384 // chunk_rows``), so
+    every distance below ``W * chunk`` runs in the finish: that product is
+    the port's ``finish_elems``.  The engine holds no weights; data passes
+    between the two packages as numpy arrays.
+    """
+    chunk = cfg.chunk_rows * 128
+    width = min(_JAX_FINISH_WIDTH, max(2, 16384 // cfg.chunk_rows))
+    width = 1 << (width.bit_length() - 1)
+    return SortConfig(
+        strategy=cfg.strategy, chunk_elems=chunk, finish_elems=chunk * width
+    )
+
+
+DEFAULT = SortConfig()

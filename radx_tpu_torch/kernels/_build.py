@@ -1,0 +1,125 @@
+"""Build and load the port's CUDA kernels (no counterpart in radx_tpu).
+
+The sources in ``radx_tpu_torch/csrc/`` expose a plain C interface, so they
+are compiled by ``nvcc`` alone into one shared library and bound with
+``ctypes`` — no PyTorch headers, which keeps a build to seconds.  The library
+is built at first use into ``radx_tpu_torch/_build/`` (git-ignored), named by
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is loaded as is.  A missing ``nvcc`` or a failed build raises
+with the compiler's output; nothing falls back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / shared memory / spills, kept in the log
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+_SIGNATURES = {
+    # x, n, log_c, invert, ascending, stream
+    "radx_chunk_sort": (_P, _I, _I, _I, _I, _P),
+    # x, n, j_low, f, kk, invert, stream
+    "radx_cross_stage": (_P, _I, _I, _I, _I, _I, _P),
+    # x, n, log_t, kk, invert, stream
+    "radx_finish": (_P, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or rejected the sources."""
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    raise BuildError(
+        "nvcc not found (PATH, CUDA_HOME): the CUDA kernels of "
+        "radx_tpu_torch cannot be built"
+    )
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for flag in (nvcc, *NVCC_FLAGS):
+        h.update(flag.encode() + b"\0")
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> tuple[pathlib.Path, pathlib.Path]:
+    """(shared library, compiler log) paths for the current sources."""
+    stem = BUILD_DIR / f"libradx_kernels_{_digest(_nvcc())}"
+    return stem.with_suffix(".so"), stem.with_suffix(".log")
+
+
+def build() -> pathlib.Path:
+    """Compile the sources unless the library for their hash exists."""
+    nvcc = _nvcc()
+    so, log = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise BuildError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and bound once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.radx_error_string.argtypes = (ctypes.c_int,)
+            lib.radx_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if code != 0:
+        msg = lib.radx_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,35 @@
+"""The port imports neither JAX nor Triton and touches no CUDA state when
+imported (it must load on machines without a card, and a test worker that
+imports it must not initialise CUDA)."""
+
+import subprocess
+import sys
+
+import pytest
+
+MODULES = (
+    "radx_tpu_torch",
+    "radx_tpu_torch.config",
+    "radx_tpu_torch.kernels.bitonic",
+    "radx_tpu_torch.kernels._build",
+    "radx_tpu_torch.ops.sort",
+    "radx_tpu_torch.utils.timing",
+    "radx_tpu_torch.bench",
+)
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_is_backend_free(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "import torch\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'triton') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized(), 'CUDA initialised at import'\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
