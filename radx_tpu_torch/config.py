@@ -11,8 +11,14 @@ registers, so the port names its tiles in elements:
     above it run as cross passes over global memory.
 
 Both are powers of two with ``finish_elems >= chunk_elems``.  A CUDA launch
-also needs the tile to fit one block's shared memory (``MAX_TILE_ELEMS``);
-the plain PyTorch versions on the CPU take any size.
+also needs the tile to fit one block's shared memory (``MAX_TILE_ELEMS``
+keys, half that with a rider plane); the plain PyTorch versions on the CPU
+take any size.  The relational paths have tiles of their own:
+
+  * ``rider_chunk_elems`` / ``rider_finish_elems`` — the same two tiles for
+    the (key, rider) sort of group-by (two planes in shared memory);
+  * ``compact_elems`` — keys per block of the mask compaction;
+  * ``scan_elems`` — keys per block of the segmented scan.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import dataclasses
 # Largest power-of-two int32 tile that fits one H100 block's 227 KB of
 # dynamic shared memory: 2^15 keys = 128 KB (2^16 would need 256 KB).
 MAX_TILE_ELEMS = 1 << 15
+# One H100 block's dynamic shared memory, in bytes.
+MAX_SMEM_BYTES = 227 * 1024
 
 STRATEGIES = ("bitonic", "lax", "radix")
 
@@ -41,6 +49,11 @@ class SortConfig:
         ``"radix"`` (the distribution sort) is not ported yet.
       chunk_elems: chunk-sort tile in keys (power of two).
       finish_elems: finish tile in keys (power of two, >= chunk_elems).
+      rider_chunk_elems, rider_finish_elems: the same tiles for the
+        two-plane (key, rider) sort (powers of two, finish >= chunk).
+      compact_elems: rows per block of the mask compaction (power of two).
+      scan_elems: rows per block of the segmented scan (power of two
+        >= 256).
     """
 
     strategy: str = "bitonic"
@@ -50,6 +63,12 @@ class SortConfig:
     # one block per SM and measured 9-16% slower end to end.
     chunk_elems: int = 1 << 14
     finish_elems: int = 1 << 14
+    # Two planes of 2^13 keys are 64 KB of shared memory, the footprint of
+    # the keys-only 2^14 tile; 2^14 (128 KB) leaves one block per SM.
+    rider_chunk_elems: int = 1 << 13
+    rider_finish_elems: int = 1 << 13
+    compact_elems: int = 1 << 12
+    scan_elems: int = 1 << 11
 
     def __post_init__(self):
         if self.strategy not in STRATEGIES:
@@ -65,28 +84,48 @@ class SortConfig:
             raise ValueError("finish_elems must be a power of two")
         if self.finish_elems < self.chunk_elems:
             raise ValueError("finish_elems must be >= chunk_elems")
+        if not (_is_pow2(self.rider_chunk_elems) and self.rider_chunk_elems >= 2):
+            raise ValueError("rider_chunk_elems must be a power of two >= 2")
+        if not _is_pow2(self.rider_finish_elems):
+            raise ValueError("rider_finish_elems must be a power of two")
+        if self.rider_finish_elems < self.rider_chunk_elems:
+            raise ValueError("rider_finish_elems must be >= rider_chunk_elems")
+        if not _is_pow2(self.compact_elems):
+            raise ValueError("compact_elems must be a power of two")
+        if not (_is_pow2(self.scan_elems) and self.scan_elems >= 256):
+            raise ValueError("scan_elems must be a power of two >= 256")
 
 
 # radx_tpu/kernels/bitonic.py FINISH_WIDTH: chunks fused into one finish pass.
 _JAX_FINISH_WIDTH = 16
 
 
+def _jax_tiles(chunk_rows: int, n_planes: int) -> tuple[int, int]:
+    chunk = chunk_rows * 128
+    width = min(_JAX_FINISH_WIDTH, max(2, 16384 // (chunk_rows * n_planes)))
+    width = 1 << (width.bit_length() - 1)
+    return chunk, chunk * width
+
+
 def config_from_jax(cfg) -> SortConfig:
     """Map a ``radx_tpu.SortConfig`` onto the port's, cutting the network as
-    the JAX pipeline cuts it for one key plane.
+    the JAX pipeline cuts it.
 
     The JAX chunk is ``chunk_rows * 128`` keys.  Its finish pass fuses the
     last log2(W) cross distances of a level into the W-chunk finish (W =
-    FINISH_WIDTH, clamped by its VMEM budget to ``16384 // chunk_rows``), so
-    every distance below ``W * chunk`` runs in the finish: that product is
-    the port's ``finish_elems``.  The engine holds no weights; data passes
-    between the two packages as numpy arrays.
+    FINISH_WIDTH, clamped by its VMEM budget to ``16384 // (chunk_rows *
+    planes)``), so every distance below ``W * chunk`` runs in the finish:
+    that product is the port's finish tile.  The keys-only tiles come from
+    ``chunk_rows``, the rider tiles from ``rider_chunk_rows`` (two planes)
+    and the compaction block from ``compact_chunk_rows``.  The engine holds
+    no weights; data passes between the two packages as numpy arrays.
     """
-    chunk = cfg.chunk_rows * 128
-    width = min(_JAX_FINISH_WIDTH, max(2, 16384 // cfg.chunk_rows))
-    width = 1 << (width.bit_length() - 1)
+    chunk, finish = _jax_tiles(cfg.chunk_rows, 1)
+    r_chunk, r_finish = _jax_tiles(cfg.rider_chunk_rows, 2)
     return SortConfig(
-        strategy=cfg.strategy, chunk_elems=chunk, finish_elems=chunk * width
+        strategy=cfg.strategy, chunk_elems=chunk, finish_elems=finish,
+        rider_chunk_elems=r_chunk, rider_finish_elems=r_finish,
+        compact_elems=cfg.compact_chunk_rows * 128,
     )
 
 

@@ -1,16 +1,19 @@
 """Build and load the port's CUDA kernels (no counterpart in radx_tpu).
 
 The sources in ``radx_tpu_torch/csrc/`` expose a plain C interface, so they
-are compiled by ``nvcc`` alone into one shared library and bound with
-``ctypes`` — no PyTorch headers, which keeps a build to seconds.  The library
-is built at first use into ``radx_tpu_torch/_build/`` (git-ignored), named by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is loaded as is.  A missing ``nvcc`` or a failed build raises
-with the compiler's output; nothing falls back to another implementation.
+are compiled by ``nvcc`` alone and bound with ``ctypes`` — no PyTorch
+headers, which keeps a build to seconds.  Each source compiles to an object
+in its own ``nvcc`` process, all started together, and one more ``nvcc``
+links the objects into one shared library.  The library is built at first
+use into ``radx_tpu_torch/_build/`` (git-ignored), named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+loaded as is.  A missing ``nvcc`` or a failed build raises with the
+compiler's output; nothing falls back to another implementation.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -25,18 +28,25 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills, kept in the log
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
-    # x, n, log_c, invert, ascending, stream
-    "radx_chunk_sort": (_P, _I, _I, _I, _I, _P),
-    # x, n, j_low, f, kk, invert, stream
-    "radx_cross_stage": (_P, _I, _I, _I, _I, _I, _P),
-    # x, n, log_t, kk, invert, stream
-    "radx_finish": (_P, _I, _I, _I, _I, _P),
+    # keys, rider (or null), n, log_c, invert, ascending, stream
+    "radx_chunk_sort": (_P, _P, _I, _I, _I, _I, _P),
+    # keys, rider, n, j_low, f, kk, invert, stream
+    "radx_cross_stage": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # keys, rider, n, log_t, kk, invert, stream
+    "radx_finish": (_P, _P, _I, _I, _I, _I, _P),
+    # mask, n, log_tile, counts, stream
+    "radx_compact_count": (_P, _I, _I, _P, _P),
+    # mask, n, log_tile, inclusive counts, ins, outs, planes, stream
+    "radx_compact_write": (_P, _I, _I, _P, _P, _P, _I, _P),
+    # phase, keys, n, log_tile, vals, flags, outs, out_flags, scratch, op,
+    # dtype, m, stream
+    "radx_segscan": (_I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -82,22 +92,39 @@ def library_path() -> tuple[pathlib.Path, pathlib.Path]:
     return stem.with_suffix(".so"), stem.with_suffix(".log")
 
 
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
 def build() -> pathlib.Path:
-    """Compile the sources unless the library for their hash exists."""
+    """Compile the sources unless the library for their hash exists: one
+    ``nvcc -c`` per source, all at once, then one link."""
     nvcc = _nvcc()
     so, log = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for obj, src in zip(objs, sources())]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise BuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+        done = list(zip(cmds, pool.map(_run, cmds)))
+    if all(proc.returncode == 0 for _, proc in done):
+        done.append((link, _run(link)))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log.write_text("\n".join(" ".join(cmd) + "\n" + proc.stdout + proc.stderr
+                             for cmd, proc in done))
+    for _, proc in done:
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise BuildError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
     os.replace(tmp, so)
     return so
 

@@ -83,6 +83,32 @@ def _sort_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor:
     return _unbias(plane, n)
 
 
+def _sort_rider(keys: torch.Tensor, payload: torch.Tensor, cfg: SortConfig,
+                n: int, neutral: int):
+    """Unstable (key, rider) sort over the whole padded array — the port of
+    ``_sort_rider_jit`` (radx_tpu/ops/sort.py:145-176): two planes, one
+    compare, for commutative consumers (aggregation) that need grouping but
+    not stability.
+
+    ``keys`` are uint32, ``payload`` int32 bit patterns of the same length.
+    Pads carry key 0xFFFFFFFF and the rider ``neutral`` (an int32 bit
+    pattern): they sort into the real 0xFFFFFFFF group, if there is one, so
+    the consumer's neutral element keeps that group's aggregate exact.  All
+    ``_pad_len(n)`` rows are real rows here.  Returns the full padded
+    (uint32 keys, int32 riders); tied keys' riders come in no set order."""
+    total = _pad_len(n)
+    kp = _key_plane(keys, total)
+    pp = torch.full((total,), neutral, dtype=torch.int32, device=keys.device)
+    pp[:n] = payload
+    if cfg.strategy == "lax":
+        kp, order = torch.sort(kp)
+        pp = pp[order]
+    else:
+        bitonic.sort_planes(kp, cfg.rider_chunk_elems, cfg.rider_finish_elems,
+                            rider=pp)
+    return _unbias(kp, total), pp
+
+
 def _decompose_blocks(n: int, block_elems: int):
     """Binary piece decomposition for arbitrary N: blocks = ceil(n/C)
     rounded up to at most 5 significant bits (pad overhead <= 1/16 + C/n),

@@ -87,3 +87,156 @@ def test_sort_any_matches_torch_sort(cuda):
     for descending in (False, True):
         want = torch.sort(x, descending=descending).values
         assert torch.equal(sort_any(x, descending), want)
+
+
+# --- slice 2: rider mode of K1-K3, compact (K7), segscan (K6), the ops ------
+
+from radx_tpu_torch import filter_columns, groupby, unique  # noqa: E402
+from radx_tpu_torch.kernels import compact as tc  # noqa: E402
+from radx_tpu_torch.kernels import segscan as tsg  # noqa: E402
+
+R_T = CFG.rider_finish_elems
+R_LOG_T = R_T.bit_length() - 1
+R_C = CFG.rider_chunk_elems
+
+RIDER_CASES = {
+    "chunk_sort": (lambda x, r: tb.chunk_sort(x, R_C, rider=r),
+                   lambda x, r: tb.chunk_sort_ref(x, R_C, rider=r)),
+    "chunk_sort_ascending": (
+        lambda x, r: tb.chunk_sort(x, R_C, ascending=True, rider=r),
+        lambda x, r: tb.chunk_sort_ref(x, R_C, ascending=True, rider=r)),
+    **{f"cross_stage<{f}>": (
+        lambda x, r, f=f: tb.cross_stage(x, R_LOG_T, f, R_LOG_T + f,
+                                         f % 2 == 0, rider=r),
+        lambda x, r, f=f: tb.cross_stage_ref(x, R_LOG_T, f, R_LOG_T + f,
+                                             f % 2 == 0, rider=r))
+       for f in tb.CROSS_FUSION},
+    "finish": (lambda x, r: tb.finish(x, R_T, 20, True, rider=r),
+               lambda x, r: tb.finish_ref(x, R_T, 20, True, rider=r)),
+}
+
+
+@pytest.mark.parametrize("case", list(RIDER_CASES))
+def test_rider_kernel_matches_plain(cuda, case):
+    """Keys in [0, 16): ties everywhere; both planes bit-equal."""
+    kernel, ref = RIDER_CASES[case]
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(rng.integers(0, 16, N).astype(np.int32)).to(cuda)
+    rider = torch.arange(N, dtype=torch.int32, device=cuda)
+    x, r = keys.clone(), rider.clone()
+    kernel(x, r)
+    wk, wr = ref(keys, rider)
+    torch.cuda.synchronize()
+    assert torch.equal(x, wk) and torch.equal(r, wr)
+    assert torch.equal(torch.sort(r).values, rider)  # no rider lost
+
+
+@pytest.mark.parametrize("planes", [1, 2, 3])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+def test_compact_matches_plain(cuda, planes, density):
+    rng = np.random.default_rng(planes)
+    n = N + 17
+    mask = torch.from_numpy((rng.random(n) < density).astype(np.int32)).to(cuda)
+    ps = [_keys(cuda, n, seed=p) for p in range(planes)]
+    outs, count = tc.compact(mask, ps, CFG.compact_elems)
+    want, wcount = tc.compact_ref(mask, ps)
+    torch.cuda.synchronize()
+    c = int(wcount)
+    assert int(count) == c
+    for o, w in zip(outs, want):
+        assert torch.equal(o[:c], w[:c])
+
+
+def _sorted_keys(cuda, n, groups, seed=0):
+    rng = np.random.default_rng(seed)
+    k = np.sort(rng.integers(0, groups, n).astype(np.uint32))
+    return torch.from_numpy(k.view(np.int32)).to(cuda)
+
+
+def _values(cuda, n, dtype, seed=1):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.float32:
+        v = rng.standard_normal(n).astype(np.float32)
+        v[::97] = 0.0
+        v[::89] = -0.0
+        return torch.from_numpy(v.view(np.int32)).to(cuda)
+    v = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+    return torch.from_numpy(v).to(cuda)
+
+
+@pytest.mark.parametrize("tile", [256, CFG.scan_elems])
+@pytest.mark.parametrize("groups", [1, 7, 5000])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32])
+def test_segscan_matches_plain(cuda, tile, groups, op, dtype):
+    """One run over every tile, runs across many tiles, short runs; tile 256
+    gives > 1024 tiles (several rounds of segscan_carry)."""
+    n = N + 33
+    k = _sorted_keys(cuda, n, groups)
+    v = _values(cuda, n, dtype)
+    got = tsg.segscan_planes(k, v, op, dtype, tile)
+    want = tsg.segscan_ref(k, v, op, dtype)
+    torch.cuda.synchronize()
+    if op == "sum" and dtype == torch.float32:
+        # |got - want| <= 1e-5 * (running sum of |v| over the run so far)
+        absv = tsg.segscan_ref(k, (v.view(torch.float32).abs()).view(
+            torch.int32), "sum", torch.float32).view(torch.float32)
+        err = (got.view(torch.float32) - want.view(torch.float32)).abs()
+        assert bool((err <= 1e-5 * absv).all())
+    else:
+        assert torch.equal(got, want)
+
+
+def test_segscan_fill_matches_plain(cuda):
+    n = N + 5
+    k = _sorted_keys(cuda, n, 300)
+    rng = np.random.default_rng(9)
+    vals = [_values(cuda, n, torch.int32, seed=j) for j in range(2)]
+    flags = [torch.from_numpy((rng.random(n) < 0.01).astype(np.int32)).to(cuda)
+             for _ in range(2)]
+    got_v, got_h = tsg.segscan_planes(k, vals, "fill", torch.int32,
+                                      CFG.scan_elems, flags)
+    want_v, want_h = tsg.segscan_ref(k, vals, "fill", torch.int32, flags)
+    torch.cuda.synchronize()
+    for a, b in zip(got_v + got_h, want_v + want_h):
+        assert torch.equal(a, b)
+
+
+def _group_ref(keys, vals):
+    """torch.sort + unique_consecutive + int64 sums at the run ends."""
+    order = torch.sort(keys.view(torch.int32) ^ (-(1 << 31)), stable=True)
+    sk = order.values
+    sv = vals.view(torch.int32).to(torch.int64)[order.indices] & 0xFFFFFFFF
+    uk, counts = torch.unique_consecutive(sk, return_counts=True)
+    ends = torch.cumsum(counts, 0) - 1
+    sums = torch.cumsum(sv, 0)[ends]
+    sums = sums - torch.cat((sums.new_zeros(1), sums[:-1]))
+    return (uk ^ (-(1 << 31))), counts, sums & 0xFFFFFFFF
+
+
+def test_filter_groupby_unique_match_torch(cuda):
+    rng = np.random.default_rng(11)
+    n = 3_000_017
+    key = torch.from_numpy(rng.integers(0, 1 << 16, n, dtype=np.uint32)).to(cuda)
+    val = torch.from_numpy(rng.integers(0, 1 << 11, n, dtype=np.uint32)).to(cuda)
+    pred = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda)
+    mask = pred.view(torch.int32) >= 0  # pred < 2^31
+    (fk, fv), count = filter_columns(mask, [key, val])
+    c = int(count)
+    i32 = torch.int32  # (no uint32 indexing on the card)
+    assert torch.equal(fk[:c].view(i32), key.view(i32)[mask])
+    assert torch.equal(fv[:c].view(i32), val.view(i32)[mask])
+    fk, fv = fk[:c], fv[:c]
+    uk_want, cnt_want, sum_want = _group_ref(fk, fv)
+    g = uk_want.numel()
+    for agg in ("sum", "count"):
+        uk, out, ng = groupby(fk, fv, agg)
+        assert int(ng) == g
+        assert torch.equal(uk[:g].view(torch.int32), uk_want)
+        want = sum_want if agg == "sum" else cnt_want
+        assert torch.equal(out[:g].view(torch.int32).to(torch.int64) & 0xFFFFFFFF,
+                           want)
+    vals, cnts, cu = unique(fk, return_counts=True)
+    assert int(cu) == g
+    assert torch.equal(vals[:g].view(torch.int32), uk_want)
+    assert torch.equal(cnts[:g].to(torch.int64), cnt_want)

@@ -11,8 +11,13 @@ MODULES = (
     "radx_tpu_torch",
     "radx_tpu_torch.config",
     "radx_tpu_torch.kernels.bitonic",
+    "radx_tpu_torch.kernels.compact",
+    "radx_tpu_torch.kernels.segscan",
     "radx_tpu_torch.kernels._build",
     "radx_tpu_torch.ops.sort",
+    "radx_tpu_torch.ops.filter",
+    "radx_tpu_torch.ops.groupby",
+    "radx_tpu_torch.ops.distinct",
     "radx_tpu_torch.utils.timing",
     "radx_tpu_torch.bench",
 )
