@@ -7,25 +7,37 @@ Phases, one line each (any failure raises and exits nonzero):
   1. the card: name, count, torch and CUDA versions, nvidia-smi name and
      power limit;
   2. build the kernels from radx_tpu_torch/csrc/ with nvcc (sm_90a, one
-     process per source) and print ptxas's register / shared-memory report
-     for each kernel, keys-only and two-plane (rider) bitonic alike;
+     process per source) and print ptxas's register / shared-memory / spill
+     report for every instantiated kernel (a spill fails the run);
   3. every kernel against its plain PyTorch version on the card: the bitonic
-     kernels on 2^23 keys (keys only; and with a rider on keys in [0, 16),
-     both planes bit-equal), compact for 1-3 planes at densities 0, 0.5 and
-     1 on a ragged n, segscan for every op x value dtype over 5000, 7 and
-     1 groups and fill with two plane pairs (integers and float min/max
-     bit-equal, float sums within 1e-5 of the run's sum of magnitudes);
-  4. the slices through the public entry points, each driven with the
-     launch counts set to 0 just before it and read just after (>= 1 for
-     every kernel of the slice, 0 plain-version calls):
+     kernels on 2^23 rows (keys only; a rider on keys in [0, 16); and the
+     lexicographic mode for 2..8 planes on keys in [0, 16) with a unique
+     tie plane, every plane bit-equal), compact for 1-3 planes at densities
+     0, 0.5 and 1 on a ragged n, segscan for every op x value dtype, the
+     dense aggregates (sums for 128 / 256 / 8192 / 65536 bins, extrema for
+     128 / 256 / 8192) at 2^26 rows with a ragged n_valid on uniform,
+     one-key, Zipf and out-of-range keys;
+  4. the paths through the public entry points, each in a window of its
+     own (``window``): the launch counts are set to 0 just before the path
+     and read just after it, and every kernel the path runs must show >= 1
+     launch, with 0 plain-version calls:
        a. ``sort`` / ``sort_any`` (slice 1), bit-equal to ``torch.sort``;
-       b. the config-3 query at 2^28 rows (``filter_columns`` then
-          ``groupby`` sum / count / min / max), a 256-group digit bucket at
-          2^26, key 0xFFFFFFFF present and absent, int32 and float32 keys
-          and values, and ``unique`` with counts at 2^26, all against plain
-          torch references on the card; the 2^28 run's peak device memory;
-  5. timings (CUDA events): the sort, group-by, filter and query metrics,
-     each kernel beside its plain version, ``torch.sort`` as context.
+       b. the sort-based config-3 query at 2^28 rows and the other group-by
+          / unique inputs (slice 2), against plain torch references;
+       c. slice 3: BASELINE config 3 at 2^30 rows through LazyTable and the
+          dense group-by under ``torch.cuda.set_sync_debug_mode("error")``
+          until ``collect()`` (peak device memory printed), then K8 / K9
+          against their plain versions on that path's own inputs; config 4,
+          ``Table.join`` of two 10^8-row tables, inner and left (float32
+          build values); the multi-match join at 2^24 with ``truncated``;
+          config 2, stable ``sort_pairs`` of 2^28 pairs and
+          ``assume_unique`` on a permutation; ``argsort`` (also at a
+          non-power-of-two n on the arbitrary-N path), ``sort_multi``,
+          ``sort_u64``, 64-bit ``sort_any``, ``top_k``; the query_pipeline
+          example at 2^26 rows, eager and lazy — all exactly equal to plain
+          torch (or numpy) references;
+  5. timings (CUDA events): every kernel beside its plain version, and the
+     metrics of radx_tpu_torch/bench.py.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -34,6 +46,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import sys
@@ -54,13 +67,19 @@ def _fail(msg):
     raise SystemExit(1)
 
 
+def _suffix(ncmp, planes):
+    return f"/lex{planes}" if ncmp == 2 else ("/rider" if planes == 2 else "")
+
+
 def _ptxas_name(kernel, args):
     """Readable name of a compiled kernel from its template arguments."""
-    a = [int(x) for x in re.findall(r"Li(\d+)E", args or "")]
+    a = [int(x) for x in re.findall(r"L[ib](\d+)E", args or "")]
     if kernel == "cross_stage":
-        return f"cross_stage<{a[0]}>" + ("/rider" if a[1] == 2 else "")
+        return f"cross_stage<{a[0]}>" + _suffix(a[1], a[2])
     if kernel in ("chunk_sort", "finish"):
-        return kernel + ("/rider" if a[0] == 2 else "")
+        return kernel + _suffix(a[0], a[1])
+    if kernel == "dense_extrema":
+        return f"dense_extrema<{'min' if a[0] else 'max'}>"
     if kernel.startswith("segscan"):
         op = ("sum", "min", "max", "fill")[a[0]]
         dt = ("u32", "i32", "f32")[a[1]]
@@ -95,6 +114,359 @@ def _float_group_ref(enc_keys, vals):
     return uk, counts, sums, abss, mins, maxs
 
 
+def _i32(x):
+    return x.view(torch.int32)
+
+
+def _biased_order(bits):
+    """Stable order of int32 sign-biased keys (torch.sort)."""
+    return torch.sort(bits, stable=True).indices
+
+
+AGGS = ("sum", "count", "min", "max")
+TOTAL_LAUNCHES: dict[str, int] = {}  # launches of every path, summed
+ERR: dict[str, float] = {}  # max |kernel - plain version| per kernel
+
+
+def record(names, e, ok, **case):
+    """One kernel-vs-plain comparison: keep its error, fail if it differs."""
+    for name in names:
+        ERR[name] = max(ERR.get(name, 0.0), e)
+    _line("kernel", name="+".join(names), equal=ok, max_abs_err=e, **case)
+    if not ok:
+        _fail(f"{names} differ from the plain version ({case})")
+
+
+def _kernel_modules():
+    from radx_tpu_torch.kernels import aggregate, bitonic, compact, segscan
+
+    return bitonic, compact, segscan, aggregate
+
+
+@contextlib.contextmanager
+def window(name, required):
+    """Drive one path inside the block: every launch count is set to 0 just
+    before it and read just after it.  Fails unless every kernel of
+    ``required`` launched at least once and no plain version ran."""
+    mods = _kernel_modules()
+    torch.cuda.synchronize()
+    for m in mods:
+        m.reset_counts()
+    yield
+    torch.cuda.synchronize()
+    launches, plain = {}, {}
+    for m in mods:
+        launches.update(m.LAUNCHES)
+        plain.update(m.PLAIN_CALLS)
+    for k, v in launches.items():
+        TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + v
+    _line("counts", path=name, launches={k: v for k, v in launches.items() if v},
+          plain_calls=plain)
+    missing = [k for k in required if launches[k] < 1]
+    if missing or any(plain.values()):
+        _fail(f"kernels not launched by the {name} path: {missing}; "
+              f"plain calls {plain}")
+
+
+def _lex(*planes):
+    from radx_tpu_torch.kernels import bitonic as B
+
+    return tuple(k for p in planes for k in B.mode_kernels(2, p))
+
+
+def _dense_ref_slabs(keys, vals, n_valid, is_min=None, slab=1 << 27):
+    """The plain dense_sums (is_min None) or dense_extrema over ``slab``-row
+    slabs, each with its share of ``n_valid``, combined: (int64 sums or
+    int32 extrema, int64 counts)."""
+    from radx_tpu_torch.kernels import aggregate as AG
+
+    acc = cnt = None
+    for s in range(0, keys.numel(), slab):
+        k, v = keys[s: s + slab], vals[s: s + slab]
+        nv = (n_valid - s).clamp(0, k.numel()).to(torch.int32)
+        if is_min is None:
+            out, c = AG.dense_sums_ref(k, v, 256, nv)
+            out = _i32(out).long() & 0xFFFFFFFF
+            acc = out if acc is None else (acc + out) & 0xFFFFFFFF
+        else:
+            out, c = AG.dense_extrema_ref(k, v, 256, is_min, nv)
+            acc = out if acc is None else (
+                torch.minimum(acc, out) if is_min else torch.maximum(acc, out))
+        cnt = c.long() if cnt is None else cnt + c.long()
+    return acc, cnt
+
+
+def dense_path(dev, card):
+    """BASELINE config 3 at 2^30 rows through LazyTable: filter(pred < 2^31),
+    then the dense group-by (256 buckets) for every aggregate, under the
+    sync guard until ``collect()``; then K8 / K9 held against their plain
+    versions on the path's own inputs (2^30 rows, the kept count as
+    n_valid)."""
+    from radx_tpu_torch import bench
+    from radx_tpu_torch.examples.query_pipeline import no_sync
+    from radx_tpu_torch.kernels import aggregate as AG
+    from radx_tpu_torch.kernels import compact as CP
+
+    table = bench.query_dense_data(1 << 30)
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    with window("config3_dense_lazy_2e30", (*AG.KERNELS, *CP.KERNELS)):
+        with no_sync(dev):  # raises on any sync until collect()
+            lt = table.lazy()
+            kept = lt.filter(_i32(lt.column("pred")) >= 0)
+            lazies = {agg: kept.groupby("bucket", "value", agg, bins=256)
+                      for agg in AGGS}
+        dense = {agg: t.collect() for agg, t in lazies.items()}
+    _line("memory", what="config-3 dense query at 2^30 through LazyTable "
+          "(3 input columns, filter, 4 group-bys)",
+          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+          input_column_bytes=3 * 4 * table.num_rows,
+          free_total_before=free0, **card)
+    kept_rows = int(kept.count)
+    ref = bench.query_dense_ref(table)
+    if kept_rows != int(ref[0].sum()):
+        _fail("the dense query kept another row count than the reference")
+    for agg in AGGS:
+        g = bench.check_query_dense(dense[agg], ref, agg)
+        _line("slice", input=f"config3_dense_lazy_n{table.num_rows}", agg=agg,
+              kept=kept_rows, groups=g, sync_guard="error until collect()",
+              equal_reference=True)
+    del dense, lazies, ref
+
+    keys, vals, nv = kept.column("bucket"), kept.column("value"), kept.count
+    case = dict(n=keys.numel(), n_valid=kept_rows, bins=256,
+                keys="config3_bucket")
+    got_s, got_c = AG.dense_sums(keys, vals, 256, nv)
+    want_s, want_c = _dense_ref_slabs(keys, vals, nv)
+    e = max(int((_i32(got_s).long() & 0xFFFFFFFF).sub(want_s).abs().max()),
+            int((got_c.long() - want_c).abs().max()))
+    record(["dense_sums"], e, e == 0, **case)
+    for is_min in (True, False):
+        got_e, got_c = AG.dense_extrema(keys, vals, 256, is_min, nv)
+        want_e, want_c = _dense_ref_slabs(keys, vals, nv, is_min)
+        e = max(int((got_e.long() - want_e.long()).abs().max()),
+                int((got_c.long() - want_c).abs().max()))
+        record(["dense_extrema"], e, e == 0, op="min" if is_min else "max",
+               **case)
+    del table, kept, keys, vals
+    torch.cuda.empty_cache()
+
+
+def join_path(dev):
+    """Config 4 (``Table.join`` of two 10^8-row tables, inner and left with
+    float32 build values) and the multi-match join at 2^24, each exactly
+    against a plain torch reference."""
+    from radx_tpu_torch import Table
+    from radx_tpu_torch import bench
+    from radx_tpu_torch.kernels import compact as CP
+    from radx_tpu_torch.kernels import segscan as SG
+    from radx_tpu_torch.ops import join as J
+
+    join_kernels = (*_lex(4), *SG.KERNELS, *CP.KERNELS)
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def rand32(n):
+        return torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                             generator=gen, device=dev)
+
+    n8 = 10**8
+    build, probe = bench._join_tables(n8)
+    want = bench.torch_join_ref(build.column("k"), build.column("w"),
+                                probe.column("k"), probe.column("v"))
+    with window("config4_join_inner_1e8", join_kernels):
+        inner = probe.join(build, "k", "v", "w")
+    bench.check_join(inner, "k", "v", "w", want)
+    _line("slice", input=f"config4_join_inner_n{n8}x{n8}", rows=inner.num_rows,
+          equal_reference=True)
+    del inner, want
+    build_f = Table({"k": build.column("k"),
+                     "w": build.column("w").view(torch.float32)})
+    with window("config4_join_left_float32_1e8", join_kernels):
+        left = probe.join(build_f, "k", "v", "w", how="left", missing=-1.5)
+    bench.check_join(left, "k", "v", "w", bench.torch_join_ref(
+        build.column("k"), build.column("w"), probe.column("k"),
+        probe.column("v"), how="left",
+        missing_bits=int(np.float32(-1.5).view(np.int32))))
+    if left.num_rows != n8 or left.column("w").dtype != torch.float32:
+        _fail("the left join lost probe rows or the build dtype")
+    _line("slice", input=f"config4_join_left_float32_n{n8}x{n8}",
+          rows=left.num_rows, equal_reference=True, build_bits_kept=True)
+    del build, probe, build_f, left
+
+    # the multi-match join: every build key 4 times, one key 5 times
+    n24 = 1 << 24
+    base_keys = bench._distinct_u32(0, n24 // 4, dev)
+    bk = _i32(base_keys).repeat_interleave(4)
+    bk[-1] = _i32(base_keys)[0]
+    bk = bk[torch.randperm(n24, generator=gen, device=dev)].view(torch.uint32)
+    bv = rand32(n24).view(torch.uint32)
+    hit = _i32(base_keys)[torch.randint(0, n24 // 4, (n24 * 9 // 10,),
+                                        generator=gen, device=dev)]
+    miss = _i32(bench._distinct_u32(n24, n24 - hit.numel(), dev))
+    pk = torch.cat((hit, miss))[torch.randperm(n24, generator=gen,
+                                               device=dev)].view(torch.uint32)
+    pv = rand32(n24).view(torch.uint32)
+    with window("join_multi_2e24", join_kernels):
+        truncated = {m: J.join_merge_multi(bk, bv, pk, pv, m)[4]
+                     for m in (4, 6)}
+        multi = Table({"k": pk, "v": pv}).join(
+            Table({"k": bk, "w": bv}), "k", "v", "w", max_matches=6)
+    truncated = {m: bool(t) for m, t in truncated.items()}
+    if truncated != {4: True, 6: False}:
+        _fail(f"join_merge_multi truncated flags {truncated}")
+    bs = torch.sort(_i32(bk) ^ SIGN, stable=True)
+    po = torch.sort(_i32(pk) ^ SIGN, stable=True).indices
+    pb = (_i32(pk) ^ SIGN)[po]
+    lo = torch.searchsorted(bs.values, pb)
+    cnt = torch.searchsorted(bs.values, pb, right=True) - lo
+    j = torch.arange(6, device=dev)
+    valid = j < cnt[:, None]
+    idx = (lo[:, None] + j).clamp(max=n24 - 1)
+    want = [(pb ^ SIGN)[:, None].expand(-1, 6)[valid],
+            _i32(bv)[bs.indices[idx]][valid],
+            _i32(pv)[po][:, None].expand(-1, 6)[valid]]
+    bench.check_join(multi, "k", "v", "w", want)
+    _line("slice", input=f"join_multi_n{n24}_max6", rows=multi.num_rows,
+          truncated=truncated, equal_reference=True)
+    del bk, bv, pk, pv, multi, bs, po, pb, lo, cnt, valid, idx, want, hit, miss
+    torch.cuda.empty_cache()
+
+
+def sort_path(dev):
+    """Config 2 (stable ``sort_pairs`` of 2^28 pairs), ``assume_unique`` on
+    a permutation, ``argsort`` (also on the arbitrary-N path),
+    ``sort_multi``, ``sort_u64``, 64-bit ``sort_any`` and ``top_k``, each
+    exactly against torch (or numpy)."""
+    from radx_tpu_torch import (SortConfig, argsort, sort_any, sort_pairs,
+                                sort_u64, top_k)
+    from radx_tpu_torch import bench
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.ops import sort as S
+
+    i32 = torch.int32
+    gen = torch.Generator(device=dev).manual_seed(32)
+
+    def rand32(n, lo=-(2**31), hi=2**31):
+        return torch.randint(lo, hi, (n,), dtype=i32, generator=gen,
+                             device=dev)
+
+    n28 = 1 << 28
+    keys, payload = bench.pairs_data(n28)
+    with window("config2_sort_pairs_stable_2e28", _lex(3)):
+        got = sort_pairs(keys, payload)
+    want = bench.torch_sort_pairs(keys, payload)
+    if not all(torch.equal(_i32(a), _i32(b)) for a, b in zip(got, want)):
+        _fail("sort_pairs differs from torch.sort(stable=True)")
+    _line("slice", input=f"config2_sort_pairs_stable_n{n28}",
+          equal_reference=True)
+    del got, want, keys
+    perm = torch.randperm(n28, generator=gen, device=dev).to(i32)
+    with window("sort_pairs_assume_unique_2e28", B.RIDER_KERNELS):
+        gk, gp = sort_pairs(perm.view(torch.uint32), payload,
+                            assume_unique=True)
+    wp = torch.empty_like(_i32(payload))
+    wp[perm.long()] = _i32(payload)
+    if not (torch.equal(_i32(gk), torch.arange(n28, dtype=i32, device=dev))
+            and torch.equal(_i32(gp), wp)):
+        _fail("sort_pairs(assume_unique=True) differs on a permutation")
+    _line("slice", input=f"sort_pairs_assume_unique_n{n28}",
+          equal_reference=True)
+    del perm, payload, gk, gp, wp
+
+    n26, n_odd, small = 1 << 26, 3 * (1 << 22) + 7, 1 << 22
+    k26 = rand32(n26, 0, 1 << 20)
+    if not S._use_decomposition(n_odd, SortConfig()):
+        _fail(f"n = {n_odd} does not take the arbitrary-N path")
+    with window("argsort_2e26_and_arbitrary_n", _lex(2)):
+        got = argsort(k26.view(torch.uint32))
+        got_odd = argsort(k26[:n_odd].view(torch.uint32))
+    if not torch.equal(got.long(), _biased_order(k26)):
+        _fail("argsort differs from torch.sort(stable=True)")
+    if not torch.equal(got_odd.long(), _biased_order(k26[:n_odd])):
+        _fail("argsort on the arbitrary-N path differs from torch.sort")
+    _line("slice", input="argsort_pow2_and_arbitrary_n", n=n26, n_odd=n_odd,
+          equal_reference=True)
+    del got, got_odd
+    pays = [rand32(n26) for _ in range(6)]
+    for m, size in ((5, n26), (3, small), (4, small), (6, small)):
+        with window(f"sort_multi_{m}_payloads", _lex(2 + m)):
+            sk, sp = S.sort_multi(k26[:size].view(torch.uint32),
+                                  [p[:size].view(torch.float32)
+                                   for p in pays[:m]])
+        o = _biased_order(k26[:size])
+        if not (torch.equal(_i32(sk), k26[o]) and all(
+                torch.equal(_i32(a), p[:size][o]) for a, p in zip(sp, pays))):
+            _fail(f"sort_multi with {m} payloads differs at n={size}")
+        _line("slice", input=f"sort_multi_{m}_payloads", n=size, planes=2 + m,
+              equal_reference=True)
+    del sk, sp, o
+    hi, lo_ = pays[0], pays[1]
+    with window("sort_u64_2e26", _lex(2)):
+        sh, sl = sort_u64(hi.view(torch.uint32), lo_.view(torch.uint32))
+    packed = ((hi ^ SIGN).long() << 32) | (lo_.long() & 0xFFFFFFFF)
+    ws = torch.sort(packed).values
+    if not (torch.equal(_i32(sh) ^ SIGN, (ws >> 32).to(i32)) and
+            torch.equal(_i32(sl).long() & 0xFFFFFFFF, ws & 0xFFFFFFFF)):
+        _fail("sort_u64 differs from torch.sort of the packed 64-bit keys")
+    _line("slice", input="sort_u64", n=n26, equal_reference=True)
+    del sh, sl, packed, ws, pays
+
+    rng64 = np.random.default_rng(40)
+    inputs = (("int64", rng64.integers(-(2**63), 2**63 - 1, small,
+                                       dtype=np.int64)),
+              ("float64", rng64.standard_normal(small)))
+    with window("sort_any_64bit_2e22", _lex(2)):
+        got = {(name, desc): sort_any(x, desc, device=dev)
+               for name, x in inputs for desc in (False, True)}
+    for name, x in inputs:
+        for desc in (False, True):
+            want = np.sort(x)[::-1] if desc else np.sort(x)
+            if not np.array_equal(got[name, desc], want):
+                _fail(f"64-bit sort_any ({name}, descending={desc}) differs")
+    _line("slice", input="sort_any_64bit", n=small,
+          dtypes=["int64", "float64"], equal_numpy=True)
+
+    # top_k on float keys with NaN and ties
+    fkeys = torch.randn(n26, generator=gen, device=dev)
+    fkeys[torch.randint(0, n26, (n26 // 1000,), generator=gen,
+                        device=dev)] = float("nan")
+    fkeys[: n26 // 4] = torch.round(fkeys[: n26 // 4] * 4) / 4  # ties
+    cases = [(k, largest) for k in (1, 100, 10_000) for largest in (True, False)]
+    with window("top_k_2e26", _lex(2)):
+        got = {c: top_k(fkeys, *c) for c in cases}
+    fb = _i32(fkeys)
+    enc = torch.where(fb < 0, ~fb ^ SIGN, fb)  # order-isomorphic int32
+    for k, largest in cases:
+        v, ix = got[k, largest]
+        o = _biased_order(~enc if largest else enc)[:k]
+        if not (torch.equal(ix.long(), o) and torch.equal(_i32(v), fb[o])):
+            _fail(f"top_k(k={k}, largest={largest}) differs")
+    _line("slice", input="top_k_float32_nan", n=n26, k=[1, 100, 10_000],
+          equal_reference=True)
+    del k26, fkeys, fb, enc, got
+    torch.cuda.empty_cache()
+
+
+def example_path(dev):
+    """The query_pipeline example at 2^26 sales rows and 2^16 stores, eager
+    and lazy (sync guard in the lazy one), checked against numpy."""
+    from radx_tpu_torch.examples import query_pipeline
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import compact as CP
+    from radx_tpu_torch.kernels import segscan as SG
+
+    # filter, sort-based group-by (rider sort, segscan), joins and distinct
+    # (four planes), sort_by of three columns (five planes), top_k's chunk
+    # pass (its final sort of 24 candidates fits one chunk)
+    required = (*CP.KERNELS, *SG.KERNELS, *B.RIDER_KERNELS, *_lex(4, 5),
+                "chunk_sort/lex2")
+    with window("query_pipeline_example", required):
+        ex = query_pipeline.run(1 << 26, 1 << 16, dev)
+    _line("slice", input="query_pipeline_example", **ex, eager=True,
+          lazy="sync guard until collect()", equal_numpy=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -104,6 +476,7 @@ def main():
                                 sort_any, unique)
     from radx_tpu_torch import bench
     from radx_tpu_torch.kernels import _build
+    from radx_tpu_torch.kernels import aggregate as AG
     from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.kernels import compact as CP
     from radx_tpu_torch.kernels import segscan as SG
@@ -120,18 +493,8 @@ def main():
     log_t = T.bit_length() - 1
     RC, RT = cfg.rider_chunk_elems, cfg.rider_finish_elems
     r_log_t = RT.bit_length() - 1
-    modules = (B, CP, SG)
-
-    def reset_counts():
-        for m in modules:
-            m.reset_counts()
-
-    def read_counts():
-        launches, plain = {}, {}
-        for m in modules:
-            launches.update(m.LAUNCHES)
-            plain.update(m.PLAIN_CALLS)
-        return launches, plain
+    all_kernels = (*B.KERNELS, *CP.KERNELS, *SG.KERNELS, *AG.KERNELS)
+    i32 = torch.int32
 
     # -- 1. the card ---------------------------------------------------------
     _line("device", name=torch.cuda.get_device_name(0),
@@ -148,16 +511,23 @@ def main():
         found = re.search(
             r"Compiling entry function .*?(chunk_sort|finish|cross_stage|"
             r"compact_count|compact_write|segscan_tile|segscan_carry|"
-            r"segscan_apply)_kernel(I(?:Li\d+E)+E)?", ln)
+            r"segscan_apply|dense_sums_smem|dense_sums_global|dense_extrema)"
+            r"_kernel(I(?:L[ib]\d+E)+E)?", ln)
         if found:
             kernel = _ptxas_name(found.group(1), found.group(2))
         elif kernel and ("Used" in ln or "spill" in ln):
             info = ln.split(":", 1)[-1] if "ptxas info" in ln else ln
             ptxas[kernel] = f"{ptxas.get(kernel, '')} {info.strip()}".strip()
+    spills = {k: v for k, v in ptxas.items()
+              if re.search(r"[1-9]\d* bytes spill", v)}
     _line("build", seconds=time.perf_counter() - t0, library=so.name,
-          ptxas=ptxas, dynamic_smem_bytes={
-              "chunk_sort": 4 * C, "finish": 4 * T,
-              "chunk_sort/rider": 8 * RC, "finish/rider": 8 * RT})
+          kernels_compiled=len(ptxas), ptxas=ptxas, spills=spills,
+          dynamic_smem_bytes={"chunk_sort/finish": 4 * max(C, T),
+                              "rider": 8 * max(RC, RT),
+                              **{f"lex{p}": 4 * p * max(cfg.lex_tiles(p))
+                                 for p in B.LEX_PLANES}})
+    if spills:
+        _fail(f"ptxas reports spills: {spills}")
 
     # -- 3. kernel vs plain version on the card ------------------------------
     n = 1 << 23
@@ -166,15 +536,7 @@ def main():
         rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
     ).to(dev)
     ties = torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)).to(dev)
-    iota = torch.arange(n, dtype=torch.int32, device=dev)
-    err = {k: 0.0 for k in (*B.KERNELS, *CP.KERNELS, *SG.KERNELS)}
-
-    def record(names, e, ok, **case):
-        for name in names:
-            err[name] = max(err[name], e)
-        _line("kernel", name="+".join(names), equal=ok, max_abs_err=e, **case)
-        if not ok:
-            _fail(f"{names} differ from the plain version ({case})")
+    iota = torch.arange(n, dtype=i32, device=dev)
 
     def check(name, kernel, ref, **case):
         x = base.clone()
@@ -226,6 +588,50 @@ def main():
         check_rider("finish", lambda x, r: B.finish(x, RT, kk, inv, r),
                     lambda x, r: B.finish_ref(x, RT, kk, inv, r), tile=RT,
                     kk=kk, invert=inv)
+
+    # the lexicographic mode: plane 0 in [0, 16), plane 1 a permutation (the
+    # stable sorts' index plane), the rest random riders
+    tie_plane = torch.randperm(n, device=dev).to(i32)
+    riders = [base.clone()] + [
+        torch.from_numpy(rng.integers(-(2**31), 2**31, n, dtype=np.int64)
+                         .astype(np.int32)).to(dev) for _ in range(5)]
+
+    def check_lex(p, name, kernel, ref, **case):
+        planes = [ties, tie_plane, *riders[: p - 2]]
+        got = [x.clone() for x in planes]
+        kernel(got[0], got[1:])
+        want = ref(planes[0], planes[1:])
+        torch.cuda.synchronize()
+        e = max(int((a.long() - b.long()).abs().max())
+                for a, b in zip(got, want))
+        kept = torch.equal(torch.sort(got[1]).values,
+                           torch.sort(tie_plane).values)
+        record([f"{name}/lex{p}"], e, e == 0 and kept, n=n, planes=p,
+               keys="[0,16)", **case)
+
+    for p in B.LEX_PLANES:
+        lc, lf = cfg.lex_tiles(p)
+        ll = lf.bit_length() - 1
+        check_lex(p, "chunk_sort", lambda x, lx: B.chunk_sort(x, lc, lex=lx),
+                  lambda x, lx: B.chunk_sort_ref(x, lc, lex=lx), tile=lc)
+        check_lex(p, "chunk_sort",
+                  lambda x, lx: B.chunk_sort(x, lc, ascending=True, lex=lx),
+                  lambda x, lx: B.chunk_sort_ref(x, lc, ascending=True,
+                                                 lex=lx),
+                  tile=lc, ascending=True)
+        for f in range(1, B.max_fusion(p) + 1):
+            kk, inv = ll + f + 1, f % 2 == 0
+            check_lex(p, f"cross_stage<{f}>",
+                      lambda x, lx: B.cross_stage(x, ll, f, kk, inv, lex=lx),
+                      lambda x, lx: B.cross_stage_ref(x, ll, f, kk, inv,
+                                                      lex=lx),
+                      j_low=ll, kk=kk, invert=inv)
+        for kk, inv in ((ll + 1, True), (23, False)):
+            check_lex(p, "finish",
+                      lambda x, lx: B.finish(x, lf, kk, inv, lex=lx),
+                      lambda x, lx: B.finish_ref(x, lf, kk, inv, lex=lx),
+                      tile=lf, kk=kk, invert=inv)
+    del tie_plane, riders
 
     ragged = n + 4097
     planes = [torch.from_numpy(rng.integers(-(2**31), 2**31, ragged,
@@ -282,7 +688,51 @@ def main():
             zip(gv + gh, wv + wh))
     record(list(SG.KERNELS), e, e == 0, n=scan_n, op="fill", planes=2)
     del base, ties, iota, keys, vals, got, want, flags, fvals, gv, gh, wv, wh
+
+    # the dense aggregates at 2^26 rows, a ragged n_valid
+    n26 = 1 << 26
+    gen = torch.Generator(device=dev).manual_seed(21)
+    zipf = torch.from_numpy(np.minimum(
+        np.random.default_rng(22).zipf(1.3, n26), 1 << 17).astype(np.int32)
+        - 1).to(dev)
+    avals = torch.randint(-(2**31), 2**31, (n26,), dtype=i32, generator=gen,
+                          device=dev)
+    n_valid = torch.full((), n26 - 12345, dtype=i32, device=dev)
+    for bins in (128, 256, 8192, 65536):
+        oob = torch.randint(0, 2 * bins, (n26,), dtype=i32, generator=gen,
+                            device=dev)
+        high = torch.rand(n26, generator=gen, device=dev) < 0.05
+        dists = {
+            "uniform": torch.randint(0, bins, (n26,), dtype=i32,
+                                     generator=gen, device=dev),
+            "one_key": torch.full((n26,), 3, dtype=i32, device=dev),
+            "zipf": zipf.clamp(max=bins - 1),
+            "out_of_range": torch.where(high, oob | SIGN, oob),
+        }
+        for dist, k in dists.items():
+            ku = k.view(torch.uint32)
+            got = AG.dense_sums(ku, avals, bins, n_valid)
+            want = AG.dense_sums_ref(ku, avals, bins, n_valid)
+            torch.cuda.synchronize()
+            e = max(int((_i32(a).long() - _i32(b).long()).abs().max())
+                    for a, b in zip(got, want))
+            record(["dense_sums"], e, e == 0, n=n26, n_valid=n26 - 12345,
+                   bins=bins, keys=dist)
+            if bins > AG.MAX_EXTREMA_BINS:
+                continue
+            for is_min in (True, False):
+                got = AG.dense_extrema(ku, avals, bins, is_min, n_valid)
+                want = AG.dense_extrema_ref(ku, avals, bins, is_min, n_valid)
+                torch.cuda.synchronize()
+                e = max(int((a.long() - b.long()).abs().max())
+                        for a, b in zip(got, want))
+                record(["dense_extrema"], e, e == 0, n=n26,
+                       n_valid=n26 - 12345, bins=bins, keys=dist,
+                       op="min" if is_min else "max")
+        del oob, high, dists
+    del zipf, avals, got, want
     torch.cuda.empty_cache()
+    _line("elapsed", seconds=time.perf_counter() - t_start)
 
     # -- 4a. slice 1: sort / sort_any -----------------------------------------
     rng = np.random.default_rng(2)
@@ -293,9 +743,9 @@ def main():
     f32[rng.integers(0, f32.size, 5000)] = -np.inf
     f32[rng.integers(0, f32.size, 5000)] = 0.0
     f32[rng.integers(0, f32.size, 5000)] = -0.0
-    i32 = rng.integers(-(2**31), 2**31, 1_000_000, dtype=np.int64).astype(np.int32)
-    i32[:1000] = np.iinfo(np.int32).min
-    i32[1000:2000] = np.iinfo(np.int32).max
+    i32a = rng.integers(-(2**31), 2**31, 1_000_000, dtype=np.int64).astype(np.int32)
+    i32a[:1000] = np.iinfo(np.int32).min
+    i32a[1000:2000] = np.iinfo(np.int32).max
     u32_inputs = {
         "permutation_2e23": perm,
         "uniform_2e26": rng.integers(0, 2**32, 1 << 26, dtype=np.uint32),
@@ -310,21 +760,20 @@ def main():
     dev_inputs = {k: torch.from_numpy(v).to(dev) for k, v in u32_inputs.items()}
     any_inputs = {
         f"{name}_{'desc' if desc else 'asc'}": (torch.from_numpy(a).to(dev), desc)
-        for name, a in (("int32_1e6", i32), ("float32_1e6", f32))
+        for name, a in (("int32_1e6", i32a), ("float32_1e6", f32))
         for desc in (False, True)
     }
     torch.cuda.synchronize()
 
-    reset_counts()
-    outs = {k: sort(v) for k, v in dev_inputs.items()}
-    any_outs = {k: sort_any(x, descending=d) for k, (x, d) in any_inputs.items()}
-    torch.cuda.synchronize()
-    launches, plain = read_counts()
+    with window("sort", B.KEY_KERNELS):
+        outs = {k: sort(v) for k, v in dev_inputs.items()}
+        any_outs = {k: sort_any(x, descending=d)
+                    for k, (x, d) in any_inputs.items()}
 
     for k, x in dev_inputs.items():
         got, want = outs[k], bench.torch_sort_u32(x)
         ok = got.dtype == torch.uint32 and got.device == x.device and torch.equal(
-            got.view(torch.int32), want.view(torch.int32))
+            _i32(got), _i32(want))
         if k == "permutation_2e23":
             ok = ok and np.array_equal(got.cpu().numpy(), np.sort(u32_inputs[k]))
         _line("slice", input=k, n=x.numel(), equal_torch_sort=bool(ok))
@@ -343,22 +792,15 @@ def main():
             else:
                 signed[:n_neg] = -0.0
             want[zeros] = signed
-        ok = got.dtype == x.dtype and torch.equal(
-            got.view(torch.int32), want.view(torch.int32))
+        ok = got.dtype == x.dtype and torch.equal(_i32(got), _i32(want))
         _line("slice", input=f"sort_any_{k}", n=x.numel(),
               equal_torch_sort=bool(ok))
         if not ok:
             _fail(f"sort_any({k}) differs from torch.sort")
-    sort_launches = {k: launches[k] for k in B.KEY_KERNELS}
-    _line("counts", slice="sort", launches=sort_launches, plain_calls=plain)
-    missing = [k for k, v in sort_launches.items() if v < 1]
-    if missing or any(plain.values()):
-        _fail(f"kernels not launched by the sort slice: {missing}; "
-              f"plain calls {plain}")
     del dev_inputs, any_inputs, outs, any_outs
     torch.cuda.empty_cache()
 
-    # -- 4b. slice 2: the config-3 query and the other relational inputs -----
+    # -- 4b. slice 2: the sort-based config-3 query and the other group-bys --
     def check_groups(name, res, keys, vals, field):
         g = bench._check_groups(*res, keys, vals, field)
         _line("slice", input=name, n=keys.numel(), groups=g, agg=field,
@@ -394,31 +836,29 @@ def main():
                                           dtype=np.uint32)).to(dev)
     torch.cuda.synchronize()
 
-    reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    mask = pred.view(torch.int32) >= 0  # pred < 2^31
-    (qk, qv), qcount = filter_columns(mask, [key, value])
-    qc = int(qcount)
-    qk, qv = qk[:qc], qv[:qc]
-    q_res = {agg: groupby(qk, qv, agg) for agg in ("sum", "count", "min", "max")}
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    bucket = groupby(digits, bvals, "sum")
-    ff_res = {k: {agg: groupby(x, ff_vals, agg) for agg in ("min", "count")}
-              for k, x in ff.items()}
-    typed = {"int32_keys_int32_vals": {agg: groupby(ik, iv, agg)
-                                       for agg in ("sum", "min", "max")},
-             "float32_keys_float32_vals": {agg: groupby(fk, fv, agg)
-                                           for agg in ("sum", "min", "max")}}
-    uq = unique(ukeys, return_counts=True)
-    torch.cuda.synchronize()
-    launches, plain = read_counts()
+    with window("filter_groupby_unique",
+                (*B.KEY_KERNELS, *B.RIDER_KERNELS, *CP.KERNELS, *SG.KERNELS)):
+        mask = _i32(pred) >= 0  # pred < 2^31
+        (qk, qv), qcount = filter_columns(mask, [key, value])
+        qc = int(qcount)
+        qk, qv = qk[:qc], qv[:qc]
+        q_res = {agg: groupby(qk, qv, agg) for agg in AGGS}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        bucket = groupby(digits, bvals, "sum")
+        ff_res = {k: {agg: groupby(x, ff_vals, agg) for agg in ("min", "count")}
+                  for k, x in ff.items()}
+        typed = {"int32_keys_int32_vals": {agg: groupby(ik, iv, agg)
+                                           for agg in ("sum", "min", "max")},
+                 "float32_keys_float32_vals": {agg: groupby(fk, fv, agg)
+                                               for agg in ("sum", "min", "max")}}
+        uq = unique(ukeys, return_counts=True)
 
-    i32v = torch.int32
-    want_q = key.view(i32v)[mask]
+    want_q = _i32(key)[mask]
     if qc != want_q.numel() or not (
-            torch.equal(qk.view(i32v), want_q)
-            and torch.equal(qv.view(i32v), value.view(i32v)[mask])):
+            torch.equal(_i32(qk), want_q)
+            and torch.equal(_i32(qv), _i32(value)[mask])):
         _fail("filter_columns differs from boolean indexing at 2^28")
     _line("slice", input="query_filter_2e28", n=n28, kept=qc,
           equal_reference=True)
@@ -434,7 +874,7 @@ def main():
         for agg, r in res.items():
             check_groups(k, r, ff[k], ff_vals, fields[agg])
     # int32 keys / values: the uint32 reference on sign-flipped keys
-    flip = torch.tensor(SIGN, dtype=i32v, device=dev)
+    flip = torch.tensor(SIGN, dtype=i32, device=dev)
     for agg, (uk, out, ng) in typed["int32_keys_int32_vals"].items():
         if agg == "sum":
             g = bench._check_groups((uk ^ flip).view(torch.uint32), out, ng,
@@ -445,7 +885,7 @@ def main():
             group = torch.repeat_interleave(
                 torch.arange(uk_w.numel(), device=dev), cnt)
             init = torch.full(uk_w.shape, 2**31 - 1 if agg == "min" else SIGN,
-                              dtype=i32v, device=dev)
+                              dtype=i32, device=dev)
             want = init.scatter_reduce(0, group, iv[ref.indices],
                                        "amin" if agg == "min" else "amax")
             g = uk_w.numel()
@@ -455,12 +895,12 @@ def main():
         _line("slice", input="int32_keys_int32_vals", n=n_typed, agg=agg,
               groups=g, equal_reference=True)
     # float32 keys (no -0.0, no NaN here) / values: float64 reference
-    enc_f = torch.where(fk.view(i32v) < 0, ~fk.view(i32v), fk.view(i32v) ^ flip)
+    enc_f = torch.where(_i32(fk) < 0, ~_i32(fk), _i32(fk) ^ flip)
     uk_w, _, sums, abss, mins, maxs = _float_group_ref(enc_f ^ flip, fv)
     g = uk_w.numel()
     for agg, (uk, out, ng) in typed["float32_keys_float32_vals"].items():
-        got_enc = torch.where(uk[:g].view(i32v) < 0, ~uk[:g].view(i32v),
-                              uk[:g].view(i32v) ^ flip) ^ flip
+        got_enc = torch.where(_i32(uk[:g]) < 0, ~_i32(uk[:g]),
+                              _i32(uk[:g]) ^ flip) ^ flip
         ok = int(ng) == g and torch.equal(got_enc, uk_w)
         if agg == "sum":
             e = float((out[:g].double() - sums).abs().max())
@@ -475,23 +915,24 @@ def main():
         if not ok:
             _fail(f"float32 groupby {agg} differs from the reference")
     vals_u, cnts_u, cu = uq
-    ref = torch.sort(ukeys.view(i32v) ^ flip)
+    ref = torch.sort(_i32(ukeys) ^ flip)
     uk_w, cnt_w = torch.unique_consecutive(ref.values, return_counts=True)
     g = uk_w.numel()
-    if int(cu) != g or not (torch.equal(vals_u[:g].view(i32v) ^ flip, uk_w)
+    if int(cu) != g or not (torch.equal(_i32(vals_u[:g]) ^ flip, uk_w)
                             and torch.equal(cnts_u[:g].long(), cnt_w)):
         _fail("unique with counts differs from torch.unique_consecutive")
     _line("slice", input="unique_counts_2e26", n=n_bucket, groups=g,
           equal_reference=True)
-    _line("counts", slice="filter_groupby_unique", launches=launches,
-          plain_calls=plain)
-    missing = [k for k, v in launches.items() if v < 1]
-    if missing or any(plain.values()):
-        _fail(f"kernels not launched by the relational slice: {missing}; "
-              f"plain calls {plain}")
-    relational_launches = launches
     del key, value, pred, mask, qk, qv, q_res, digits, bvals, bucket, ff, ff_res
     del ik, iv, fk, fv, typed, ukeys, uq
+    torch.cuda.empty_cache()
+    _line("elapsed", seconds=time.perf_counter() - t_start)
+
+    # -- 4c. slice 3: the Table query path, one window per path ---------------
+    dense_path(dev, card)
+    join_path(dev)
+    sort_path(dev)
+    example_path(dev)
     torch.cuda.empty_cache()
     _line("elapsed", seconds=time.perf_counter() - t_start)
 
@@ -500,7 +941,7 @@ def main():
 
     def time_pair(name, log_n, kern, ref, iters=10):
         tk = timing.time_cuda(kern, iters=iters, repeats=5)
-        tp = timing.time_cuda(ref, iters=3, repeats=3, warmup=1)
+        tp = timing.time_cuda(ref, iters=2, repeats=2, warmup=1)
         rows.setdefault(name, {})[log_n] = (tk.seconds * 1e3, tp.seconds * 1e3)
         _line("kernel_time", name=name, n=1 << log_n, ms=tk.seconds * 1e3,
               spread_pct=tk.spread_pct, plain_ms=tp.seconds * 1e3,
@@ -532,9 +973,8 @@ def main():
         del x, keys
 
     log_n = 26
-    n26 = 1 << log_n
     x = torch.from_numpy(rng.integers(0, 10007, n26).astype(np.int32)).to(dev)
-    r = torch.arange(n26, dtype=torch.int32, device=dev)
+    r = torch.arange(n26, dtype=i32, device=dev)
     time_pair("chunk_sort/rider", log_n, lambda: B.chunk_sort(x, RC, rider=r),
               lambda: B.chunk_sort_ref(x, RC, rider=r))
     for f in B.CROSS_FUSION:
@@ -546,6 +986,28 @@ def main():
     time_pair("finish/rider", log_n, lambda: B.finish(x, RT, log_n, rider=r),
               lambda: B.finish_ref(x, RT, log_n, rider=r))
     del x, r
+
+    # the lexicographic mode at 2^23 rows: keys < 2^20, a unique tie plane
+    x = torch.randint(0, 1 << 20, (n,), dtype=i32, generator=gen, device=dev)
+    lex = [torch.randperm(n, generator=gen, device=dev).to(i32)] + [
+        torch.randint(-(2**31), 2**31, (n,), dtype=i32, generator=gen,
+                      device=dev) for _ in range(6)]
+    for p in B.LEX_PLANES:
+        lc, lf = cfg.lex_tiles(p)
+        ll = lf.bit_length() - 1
+        lx = lex[: p - 1]
+        time_pair(f"chunk_sort/lex{p}", 23,
+                  lambda: B.chunk_sort(x, lc, lex=lx),
+                  lambda: B.chunk_sort_ref(x, lc, lex=lx))
+        for f in range(1, B.max_fusion(p) + 1):
+            kk = ll + f
+            time_pair(f"cross_stage<{f}>/lex{p}", 23,
+                      lambda f=f, kk=kk: B.cross_stage(x, ll, f, kk, lex=lx),
+                      lambda f=f, kk=kk: B.cross_stage_ref(x, ll, f, kk,
+                                                           lex=lx))
+        time_pair(f"finish/lex{p}", 23, lambda: B.finish(x, lf, 23, lex=lx),
+                  lambda: B.finish_ref(x, lf, 23, lex=lx))
+    del x, lex
 
     mask = torch.from_numpy((rng.integers(0, 2, n26)).astype(np.int32)).to(dev)
     col = torch.from_numpy(rng.integers(-(2**31), 2**31, n26, dtype=np.int64
@@ -570,16 +1032,31 @@ def main():
         time_pair(name, log_n, lambda phase=phase: launch.run(phase),
                   plain_scan)
     del skeys, svals, launch
+
+    # the dense aggregates at 2^26 rows, 256 bins (the config-3 shape)
+    dk = torch.randint(0, 256, (n26,), dtype=i32, generator=gen,
+                       device=dev).view(torch.uint32)
+    dvals = torch.randint(0, 1 << 11, (n26,), dtype=i32, generator=gen,
+                          device=dev)
+    time_pair("dense_sums", log_n, lambda: AG.dense_sums(dk, dvals, 256),
+              lambda: AG.dense_sums_ref(dk, dvals, 256))
+    time_pair("dense_extrema", log_n,
+              lambda: AG.dense_extrema(dk, dvals, 256, True),
+              lambda: AG.dense_extrema_ref(dk, dvals, 256, True))
+    del dk, dvals
     torch.cuda.empty_cache()
 
     for m in (bench.measure_groupby(), bench.measure_filter(),
-              bench.measure_query()):
+              bench.measure_query(), bench.measure_sort_pairs(),
+              bench.measure_join(), bench.measure_query_dense()):
         _line("metric", **{m["metric"]: m["value"]}, ms=m["ms"],
               spread_pct=m["spread_pct"], **card)
+        torch.cuda.empty_cache()
 
     source = {"bitonic": "radx_tpu_torch/csrc/bitonic.cu",
               "compact": "radx_tpu_torch/csrc/compact.cu",
-              "segscan": "radx_tpu_torch/csrc/segscan.cu"}
+              "segscan": "radx_tpu_torch/csrc/segscan.cu",
+              "dense": "radx_tpu_torch/csrc/aggregate.cu"}
     replaces = {
         "chunk_sort": "radx_tpu/kernels/bitonic.py:198",
         "cross_stage<1>": "radx_tpu/kernels/bitonic.py:465",
@@ -589,26 +1066,31 @@ def main():
         "finish": "radx_tpu/kernels/bitonic.py:427",
         "compact": "radx_tpu/kernels/compact.py:54",
         "segscan": "radx_tpu/kernels/segscan.py:78",
+        "dense_sums": "radx_tpu/kernels/aggregate.py:47",
+        "dense_extrema": "radx_tpu/kernels/aggregate.py:164",
     }
 
     def entry(name):
         family = name.split("/")[0]
         if name in B.KERNELS:
             src, rep = source["bitonic"], replaces[family]
+        elif name in AG.KERNELS:
+            src, rep = source["dense"], replaces[name]
         else:
             kind = name.split("_")[0]
             src, rep = source[kind], replaces[kind]
         times = rows[name]
-        log_n = 23 if 23 in times else 26
+        log_n = min(times)
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": relational_launches[name], "max_abs_err": err[name],
+             "launches": TOTAL_LAUNCHES.get(name, 0),
+             "max_abs_err": ERR.get(name, 0.0),
              "ms": times[log_n][0], "plain_ms": times[log_n][1],
              "n": 1 << log_n}
-        if log_n == 23:
+        if log_n != 26 and 26 in times:
             e.update(ms_n2e26=times[26][0], plain_ms_n2e26=times[26][1])
         return e
 
-    kernels = [entry(k) for k in (*B.KERNELS, *CP.KERNELS, *SG.KERNELS)]
+    kernels = [entry(k) for k in all_kernels]
     _line("elapsed", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

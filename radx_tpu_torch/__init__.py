@@ -11,13 +11,30 @@ builds its CUDA kernels (``csrc/``) with nvcc at their first launch.
   * ``groupby`` — sort-based sum / count / min / max per key (rider sort,
     ``kernels/segscan.py``, compaction);
   * ``unique`` — sorted distinct keys, with counts on request;
+  * ``argsort`` / ``sort_pairs`` / ``sort_pairs_any`` / ``sort_u64`` — the
+    stable and lexicographic sorts (the network's lexicographic mode);
+  * ``top_k`` — the k largest or smallest keys with their indices;
+  * ``groupby_dense`` — GROUP BY over a bounded key space on the dense
+    aggregate kernels (``kernels/aggregate.py``);
+  * ``Table`` / ``LazyTable`` — the columnar query surface (filter,
+    group-by, join, sort, top_k, distinct), eager or with one host sync;
   * ``SortConfig`` — strategy and shared-memory tile sizes.
 """
 
 from radx_tpu_torch.config import SortConfig  # noqa: F401
 from radx_tpu_torch.ops.distinct import unique  # noqa: F401
 from radx_tpu_torch.ops.filter import filter_columns  # noqa: F401
-from radx_tpu_torch.ops.groupby import groupby  # noqa: F401
-from radx_tpu_torch.ops.sort import sort, sort_any  # noqa: F401
+from radx_tpu_torch.ops.groupby import groupby, groupby_dense  # noqa: F401
+from radx_tpu_torch.ops.lazy import LazyTable  # noqa: F401
+from radx_tpu_torch.ops.sort import (  # noqa: F401
+    argsort,
+    sort,
+    sort_any,
+    sort_pairs,
+    sort_pairs_any,
+    sort_u64,
+)
+from radx_tpu_torch.ops.table import Table  # noqa: F401
+from radx_tpu_torch.ops.topk import top_k  # noqa: F401
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 
     python -m radx_tpu_torch.bench                 # every metric below
     python -m radx_tpu_torch.bench sort groupby    # some of them
-    python -m radx_tpu_torch.bench sweep profile   # rider tiles; breakdown
+    python -m radx_tpu_torch.bench sweep profile   # tile sweeps; breakdowns
 
 Metrics (what is timed is the user's entry point on tensors already on the
 card; ``utils.timing.time_cuda``: CUDA events, warm-up, least of the
@@ -20,9 +20,22 @@ plain torch reference on the card):
   * ``query_filter_groupby_rows_per_s_n2e28`` — the config-3 query: three
     uint32 columns (key < 2^20, value < 2^11, predicate), ``filter_columns
     (pred < 2^31, [key, value])`` then ``groupby`` sum of the kept rows (one
-    host read of the kept count, to cut the columns).
+    host read of the kept count, to cut the columns);
+  * ``sort_pairs_u32_pairs_per_s_n2e28`` — stable ``sort_pairs`` of 2^28
+    uint32 keys below 2^24 with uint32 payloads (BASELINE config 2);
+  * ``join_rows_per_s_n1e8`` — ``Table.join`` (inner) of two 10^8-row
+    tables, input rows of both sides per second: distinct uint32 build
+    keys, 90% of the probe keys drawn from them (BASELINE config 4);
+  * ``query_filter_groupby_dense_rows_per_s_n2e30`` — BASELINE config 3 at
+    its own size through ``LazyTable``: ``filter(pred < 2^31)`` then
+    ``groupby(bucket, value, "sum", bins=256)`` over 2^30 rows, one host
+    sync.
 
-Inputs are made with numpy from fixed seeds (the card has no JAX, so the
+``sweep`` runs the rider and lexicographic tile sweeps, ``profile`` the
+group-by and join breakdowns by layer (torch.profiler).
+
+Inputs are made from fixed seeds, with numpy or, for the large slice-3
+inputs, with a seeded generator on the card (the card has no JAX, so the
 reference's ``radx_tpu.runtime`` generators are not used).  With no CUDA
 device every measure raises.
 """
@@ -38,7 +51,7 @@ import torch
 from radx_tpu_torch.config import SortConfig
 from radx_tpu_torch.ops.filter import filter_columns
 from radx_tpu_torch.ops.groupby import groupby
-from radx_tpu_torch.ops.sort import sort
+from radx_tpu_torch.ops.sort import argsort, sort, sort_pairs
 from radx_tpu_torch.utils import timing
 
 N = 1 << 23
@@ -77,7 +90,10 @@ def permutation_keys(n: int) -> np.ndarray:
 
 def _name(n: int) -> str:
     log_n = n.bit_length() - 1
-    return f"n2e{log_n}" if n == 1 << log_n else f"n{n}"
+    if n == 1 << log_n:
+        return f"n2e{log_n}"
+    e = len(str(n)) - 1
+    return f"n1e{e}" if n == 10**e else f"n{n}"
 
 
 def _row(metric, n, t, unit="rows/s", **extra):
@@ -200,19 +216,265 @@ def _layer(name: str) -> str:
 
 
 def profile_groupby(n: int = 1 << 26, calls: int = 5) -> dict:
-    """Device time per ``groupby`` sum call by layer (torch.profiler) and
-    the device's idle share of the profiled wall time."""
+    """``groupby`` sum by layer: rider sort, segscan, compact, elementwise."""
+    keys, vals = groupby_data(n)
+    return _profile(lambda: groupby(keys, vals, "sum"), calls, _layer,
+                    f"groupby sum n={n}, ms of device time per call")
+
+
+# --- slice 3: stable pairs (config 2), join (config 4), the dense query
+# (config 3 at its own size) -----------------------------------------------
+
+
+def _generator(seed: int) -> torch.Generator:
+    return torch.Generator(device=timing.require_cuda()).manual_seed(seed)
+
+
+def _randint(lo, hi, n, gen):
+    """n int32 values in [lo, hi) made on the card (lo >= -2^31, hi <=
+    2^31)."""
+    return torch.randint(lo, hi, (n,), dtype=torch.int32, generator=gen,
+                         device=gen.device)
+
+
+def pairs_data(n: int, seed: int = 7):
+    """Config 2: n uint32 keys below 2^24 (ties everywhere) and uint32
+    payloads, made on the card."""
+    g = _generator(seed)
+    keys = _randint(0, 1 << 24, n, g).view(torch.uint32)
+    return keys, _randint(-(2**31), 2**31, n, g).view(torch.uint32)
+
+
+def torch_sort_pairs(keys, payload):
+    """Plain reference: ``torch.sort(stable=True)`` of sign-biased keys, the
+    payload gathered through its indices."""
+    order = torch.sort(keys.view(torch.int32) ^ _SIGN, stable=True)
+    return ((order.values ^ _SIGN).view(torch.uint32),
+            payload.view(torch.int32)[order.indices].view(payload.dtype))
+
+
+def measure_sort_pairs(n: int = 1 << 28, cfg: SortConfig | None = None) -> dict:
+    keys, payload = pairs_data(n)
+    got, want = sort_pairs(keys, payload, cfg), torch_sort_pairs(keys, payload)
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want)):
+        raise AssertionError("sort_pairs differs from torch.sort(stable=True)")
+    del got, want
+    t = timing.time_cuda(lambda: sort_pairs(keys, payload, cfg), iters=2,
+                         repeats=3, warmup=1)
+    return _row(f"sort_pairs_u32_pairs_per_s_{_name(n)}", n, t,
+                unit="pairs/s")
+
+
+_MIX = 2654435761  # odd: i -> (i * _MIX + _OFF) mod 2^32 is a bijection
+_OFF = 0x9E3779B9
+
+
+def _distinct_u32(start: int, n: int, device) -> torch.Tensor:
+    """The images of start .. start+n-1 under a bijection of Z/2^32:
+    distinct uint32 keys in a scrambled order."""
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    x = (i * _MIX + _OFF) & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).view(
+        torch.uint32)
+
+
+def join_data(nb: int, np_: int, seed: int = 11, hit: float = 0.9):
+    """Config 4: nb distinct uint32 build keys with uint32 values; np_ probe
+    keys, a share ``hit`` of them drawn from the build keys (with
+    repetition) and the rest absent from the build side, in random order,
+    with uint32 values.  Made on the card."""
+    g = _generator(seed)
+    dev = g.device
+    bk = _distinct_u32(0, nb, dev)
+    bv = _randint(-(2**31), 2**31, nb, g).view(torch.uint32)
+    n_hit = int(np_ * hit)
+    drawn = bk.view(torch.int32)[torch.randint(0, nb, (n_hit,), generator=g,
+                                               device=dev)]
+    absent = _distinct_u32(nb, np_ - n_hit, dev).view(torch.int32)
+    pk = torch.cat((drawn, absent))[torch.randperm(np_, generator=g,
+                                                   device=dev)]
+    pv = _randint(-(2**31), 2**31, np_, g).view(torch.uint32)
+    return bk, bv, pk.view(torch.uint32), pv
+
+
+def torch_join_ref(bk, bv, pk, pv, how="inner", missing_bits=0):
+    """Plain reference of ``join_merge`` with distinct build keys: a stable
+    sort of the build side, ``torch.searchsorted``, a gather; rows in key
+    order (probe order within a key).  Returns int32 (keys, build values,
+    probe values)."""
+    i32 = torch.int32
+    bs = torch.sort(bk.view(i32) ^ _SIGN, stable=True)
+    pb = pk.view(i32) ^ _SIGN
+    po = torch.sort(pb, stable=True).indices
+    pb = pb[po]
+    pos = torch.searchsorted(bs.values, pb).clamp(max=bk.numel() - 1)
+    hit = bs.values[pos] == pb
+    b = bv.view(i32)[bs.indices[pos]]
+    k, p = pb ^ _SIGN, pv.view(i32)[po]
+    if how == "left":
+        return k, torch.where(hit, b, missing_bits), p
+    return k[hit], b[hit], p[hit]
+
+
+def check_join(table, on, value, other_value, want):
+    got = [table.column(c).view(torch.int32) for c in (on, other_value, value)]
+    if not all(a.shape == b.shape and torch.equal(a, b)
+               for a, b in zip(got, want)):
+        raise AssertionError("join differs from the torch reference")
+
+
+def _join_tables(n: int):
+    from radx_tpu_torch.ops.table import Table
+
+    bk, bv, pk, pv = join_data(n, n)
+    return Table({"k": bk, "w": bv}), Table({"k": pk, "v": pv})
+
+
+def measure_join(n: int = 10**8, cfg: SortConfig | None = None) -> dict:
+    """``Table.join`` of two n-row tables (inner); rows/s counts the input
+    rows of both sides."""
+    build, probe = _join_tables(n)
+    want = torch_join_ref(build.column("k"), build.column("w"),
+                          probe.column("k"), probe.column("v"))
+    check_join(probe.join(build, "k", "v", "w", cfg=cfg), "k", "v", "w", want)
+    del want
+    t = timing.time_cuda(lambda: probe.join(build, "k", "v", "w", cfg=cfg),
+                         iters=2, repeats=3, warmup=1)
+    return _row(f"join_rows_per_s_{_name(n)}", 2 * n, t)
+
+
+def query_dense_data(n: int, seed: int = 13):
+    """Config 3 at its own size: uniform uint32 key, value < 2^11, uniform
+    uint32 predicate, bucket = key >> 24; the table holds (bucket, value,
+    pred).  Made on the card."""
+    from radx_tpu_torch.ops.table import Table
+
+    g = _generator(seed)
+    key = _randint(-(2**31), 2**31, n, g)
+    bucket = ((key >> 24) & 0xFF).view(torch.uint32)
+    del key
+    value = _randint(0, 1 << 11, n, g).view(torch.uint32)
+    pred = _randint(-(2**31), 2**31, n, g).view(torch.uint32)
+    return Table({"bucket": bucket, "value": value, "pred": pred})
+
+
+def run_query_dense(table, agg="sum", cfg=None, lazy=None):
+    """``filter(pred < 2^31)`` then ``groupby(bucket, value, agg, bins=
+    256)`` through LazyTable (one host sync, in ``collect``)."""
+    lt = lazy if lazy is not None else table.lazy(cfg)
+    kept = lt.filter(lt.column("pred").view(torch.int32) >= 0)
+    return kept.groupby("bucket", "value", agg, bins=256).collect()
+
+
+def query_dense_ref(table, slab: int = 1 << 27):
+    """Plain reference of the dense query, in slabs: (counts, sums, mins,
+    maxs) per bucket as int64."""
+    dev = table.device
+    counts = torch.zeros(257, dtype=torch.int64, device=dev)
+    sums = torch.zeros(257, dtype=torch.int64, device=dev)
+    mins = torch.full((257,), 1 << 40, dtype=torch.int64, device=dev)
+    maxs = torch.full((257,), -1, dtype=torch.int64, device=dev)
+    for s in range(0, table.num_rows, slab):
+        keep = table.column("pred")[s: s + slab].view(torch.int32) >= 0
+        b = torch.where(keep, table.column("bucket")[s: s + slab].view(
+            torch.int32), 256).long()
+        v = table.column("value")[s: s + slab].view(torch.int32).long()
+        counts.index_add_(0, b, torch.ones_like(b))
+        sums.index_add_(0, b, v)
+        mins.scatter_reduce_(0, b, v, "amin")
+        maxs.scatter_reduce_(0, b, v, "amax")
+    return counts[:256], sums[:256] & 0xFFFFFFFF, mins[:256], maxs[:256]
+
+
+def check_query_dense(result, ref, agg):
+    """Hold a collected dense-query Table against ``query_dense_ref``."""
+    counts, sums, mins, maxs = ref
+    present = (counts > 0).nonzero().flatten()
+    want = {"count": counts, "sum": sums, "min": mins, "max": maxs}[agg][present]
+    got_k = result.column("bucket").view(torch.int32).long()
+    got = result.column(agg).view(torch.int32).long()
+    if agg != "count":
+        got &= 0xFFFFFFFF
+    if not (torch.equal(got_k, present) and torch.equal(got, want)):
+        raise AssertionError(f"dense query ({agg}) differs from the torch "
+                             "reference")
+    return present.numel()
+
+
+def measure_query_dense(n: int = 1 << 30, cfg: SortConfig | None = None,
+                        table=None) -> dict:
+    table = table if table is not None else query_dense_data(n)
+    g = check_query_dense(run_query_dense(table, "sum", cfg),
+                          query_dense_ref(table), "sum")
+    t = timing.time_cuda(lambda: run_query_dense(table, "sum", cfg), iters=2,
+                         repeats=3, warmup=1)
+    return _row(f"query_filter_groupby_dense_rows_per_s_{_name(n)}", n, t,
+                groups=g)
+
+
+def sweep_lex_tiles(n: int = 1 << 26):
+    """The lexicographic tiles (``stable_*``, stated at two and three
+    planes): ``argsort`` (two planes), ``sort_pairs`` (three planes) and the
+    join's tagged-union sort (four planes, n/2 rows a side); chunk x finish
+    in {2^11 .. 2^14} within one block's shared memory; one row each."""
+    from radx_tpu_torch.ops import join as join_ops
+    from radx_tpu_torch.ops.sort import _encode_keys
+
+    keys, payload = pairs_data(n)
+    want = torch_sort_pairs(keys, payload)
+    bk, bv, pk, pv = join_data(n // 2, n // 2)
+    rows = []
+    for c in (12, 13, 14):
+        for f in range(c, 15):
+            cfg = SortConfig(stable_chunk_elems=1 << c,
+                             stable_finish_elems=1 << f)
+            if not torch.equal(argsort(keys, cfg).long(), torch.sort(
+                    keys.view(torch.int32), stable=True).indices):
+                raise AssertionError("argsort differs from torch.sort")
+            t = timing.time_cuda(lambda: argsort(keys, cfg), iters=3,
+                                 repeats=3)
+            rows.append(_row(f"argsort_rows_per_s_{_name(n)}", n, t,
+                             stable_chunk_elems=1 << c,
+                             stable_finish_elems=1 << f))
+    for c in (11, 12, 13):
+        for f in range(c, 14):
+            cfg = SortConfig(stable_chunk_elems=1 << c,
+                             stable_finish_elems=1 << f)
+            got = sort_pairs(keys, payload, cfg)
+            if not torch.equal(got[1].view(torch.int32),
+                               want[1].view(torch.int32)):
+                raise AssertionError("sort_pairs differs from torch.sort")
+            t = timing.time_cuda(lambda: sort_pairs(keys, payload, cfg),
+                                 iters=3, repeats=3)
+            rows.append(_row(f"sort_pairs_u32_pairs_per_s_{_name(n)}", n, t,
+                             stable_chunk_elems=1 << c,
+                             stable_finish_elems=1 << f))
+
+            def union():
+                return join_ops.tagged_union(_encode_keys(bk), bv,
+                                             _encode_keys(pk), pv, cfg)
+
+            t = timing.time_cuda(union, iters=3, repeats=3)
+            rows.append(_row(f"join_union_sort_rows_per_s_{_name(n)}", n, t,
+                             stable_chunk_elems=1 << c,
+                             stable_finish_elems=1 << f))
+    return rows
+
+
+def _profile(fn, calls: int, layer_of, what: str) -> dict:
+    """Device time per call by layer (torch.profiler) and the device's idle
+    share of the profiled wall time."""
     import time
 
-    keys, vals = groupby_data(n)
-    groupby(keys, vals, "sum")
+    fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            groupby(keys, vals, "sum")
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     layers: dict[str, float] = {}
@@ -224,11 +486,10 @@ def profile_groupby(n: int = 1 << 26, calls: int = 5) -> dict:
         if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kernels[ev.key] = dev_us / 1e3 / calls
-        layer = _layer(ev.key)
+        layer = layer_of(ev.key)
         layers[layer] = layers.get(layer, 0.0) + dev_us / 1e3 / calls
     busy = sum(layers.values())
-    return {"what": f"groupby sum n={n}, ms of device time per call",
-            "layers_ms": layers, "busy_ms": busy,
+    return {"what": what, "layers_ms": layers, "busy_ms": busy,
             "wall_ms_per_call": wall * 1e3 / calls,
             "idle_pct": 100.0 * (1 - busy / (wall * 1e3 / calls)),
             "top_kernels_ms": dict(sorted(kernels.items(),
@@ -236,19 +497,35 @@ def profile_groupby(n: int = 1 << 26, calls: int = 5) -> dict:
             "device": timing.device_info()}
 
 
+def profile_join(n: int = 10**8, calls: int = 2) -> dict:
+    """``Table.join`` (inner) of two n-row tables by layer: the four-plane
+    lexicographic sort, segscan, compact, elementwise (union assembly,
+    masks, copies)."""
+    build, probe = _join_tables(n)
+
+    def layer_of(name):
+        return "lex_sort" if _layer(name) == "rider_sort" else _layer(name)
+
+    return _profile(lambda: probe.join(build, "k", "v", "w"), calls, layer_of,
+                    f"Table.join inner n={n} x {n}, ms of device time per call")
+
+
 MEASURES = {
     "sort": lambda: [measure(N), measure(1 << 26)],
     "groupby": lambda: [measure_groupby()],
     "filter": lambda: [measure_filter()],
     "query": lambda: [measure_query()],
-    "sweep": sweep_rider_tiles,
-    "profile": lambda: [profile_groupby()],
+    "pairs": lambda: [measure_sort_pairs()],
+    "join": lambda: [measure_join()],
+    "dense": lambda: [measure_query_dense()],
+    "sweep": lambda: sweep_rider_tiles() + sweep_lex_tiles(),
+    "profile": lambda: [profile_groupby(), profile_join()],
 }
 
 
 def main(argv=None):
     names = (argv if argv is not None else sys.argv[1:]) or [
-        "sort", "groupby", "filter", "query"]
+        "sort", "groupby", "filter", "query", "pairs", "join", "dense"]
     for name in names:
         if name not in MEASURES:
             raise SystemExit(f"unknown measure {name!r}; one of {list(MEASURES)}")

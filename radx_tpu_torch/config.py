@@ -11,12 +11,18 @@ registers, so the port names its tiles in elements:
     above it run as cross passes over global memory.
 
 Both are powers of two with ``finish_elems >= chunk_elems``.  A CUDA launch
-also needs the tile to fit one block's shared memory (``MAX_TILE_ELEMS``
-keys, half that with a rider plane); the plain PyTorch versions on the CPU
+also needs the tile to fit one block's shared memory (4 bytes x planes x
+tile <= ``MAX_SMEM_BYTES``); the plain PyTorch versions on the CPU
 take any size.  The relational paths have tiles of their own:
 
   * ``rider_chunk_elems`` / ``rider_finish_elems`` — the same two tiles for
     the (key, rider) sort of group-by (two planes in shared memory);
+  * ``stable_chunk_elems`` / ``stable_finish_elems`` — the tiles of the
+    lexicographic sorts of 2..8 planes (argsort, stable pairs, sort_u64,
+    sort_multi, join, Table), stated at two and three planes and halved as
+    the planes grow so the footprint in shared memory stays within that of
+    three (``lex_tiles``);
+  * ``topk_chunk_elems`` — top_k's per-chunk (key, index) sort;
   * ``compact_elems`` — keys per block of the mask compaction;
   * ``scan_elems`` — keys per block of the segmented scan.
 """
@@ -25,10 +31,8 @@ from __future__ import annotations
 
 import dataclasses
 
-# Largest power-of-two int32 tile that fits one H100 block's 227 KB of
-# dynamic shared memory: 2^15 keys = 128 KB (2^16 would need 256 KB).
-MAX_TILE_ELEMS = 1 << 15
-# One H100 block's dynamic shared memory, in bytes.
+# One H100 block's dynamic shared memory, in bytes: 2^15 int32 keys of one
+# plane (128 KB) fit, 2^16 (256 KB) do not.
 MAX_SMEM_BYTES = 227 * 1024
 
 STRATEGIES = ("bitonic", "lax", "radix")
@@ -51,6 +55,11 @@ class SortConfig:
       finish_elems: finish tile in keys (power of two, >= chunk_elems).
       rider_chunk_elems, rider_finish_elems: the same tiles for the
         two-plane (key, rider) sort (powers of two, finish >= chunk).
+      stable_chunk_elems, stable_finish_elems: the tiles of 2..8-plane
+        lexicographic sorts at two and three planes, halved at 4-6 planes and
+        quartered at 7-8 (powers of two, the chunk >= 8, finish >= chunk).
+      topk_chunk_elems: rows per chunk of top_k's selection pass (power of
+        two >= 2); k <= topk_chunk_elems // 2 takes the selection route.
       compact_elems: rows per block of the mask compaction (power of two).
       scan_elems: rows per block of the segmented scan (power of two
         >= 256).
@@ -67,8 +76,24 @@ class SortConfig:
     # the keys-only 2^14 tile; 2^14 (128 KB) leaves one block per SM.
     rider_chunk_elems: int = 1 << 13
     rider_finish_elems: int = 1 << 13
+    # Lexicographic tiles, from a sweep on one H100 (PERF.md): 2^13 rows at
+    # two planes (64 KB) and at three (96 KB); from four planes on the tile
+    # halves so it stays within 96 KB (2^12 rows at 4-6 planes, 2^11 at
+    # 7-8): the four-plane join sort measured 8% slower at 2^13 (128 KB).
+    stable_chunk_elems: int = 1 << 13
+    stable_finish_elems: int = 1 << 13
+    topk_chunk_elems: int = 1 << 13
     compact_elems: int = 1 << 12
     scan_elems: int = 1 << 11
+
+    def lex_tiles(self, planes: int) -> tuple[int, int]:
+        """(chunk, finish) tiles of a lexicographic sort of ``planes``
+        planes."""
+        shrink = 1
+        while planes > 3 * shrink:
+            shrink *= 2
+        return (self.stable_chunk_elems // shrink,
+                self.stable_finish_elems // shrink)
 
     def __post_init__(self):
         if self.strategy not in STRATEGIES:
@@ -90,6 +115,15 @@ class SortConfig:
             raise ValueError("rider_finish_elems must be a power of two")
         if self.rider_finish_elems < self.rider_chunk_elems:
             raise ValueError("rider_finish_elems must be >= rider_chunk_elems")
+        chunk, fin = self.stable_chunk_elems, self.stable_finish_elems
+        if not (_is_pow2(chunk) and chunk >= 8 and _is_pow2(fin)):
+            raise ValueError("stable_chunk_elems / _finish_elems must be "
+                             "powers of two, the chunk >= 8")
+        if fin < chunk:
+            raise ValueError("stable_finish_elems must be >= "
+                             "stable_chunk_elems")
+        if not (_is_pow2(self.topk_chunk_elems) and self.topk_chunk_elems >= 2):
+            raise ValueError("topk_chunk_elems must be a power of two >= 2")
         if not _is_pow2(self.compact_elems):
             raise ValueError("compact_elems must be a power of two")
         if not (_is_pow2(self.scan_elems) and self.scan_elems >= 256):
@@ -116,15 +150,22 @@ def config_from_jax(cfg) -> SortConfig:
     FINISH_WIDTH, clamped by its VMEM budget to ``16384 // (chunk_rows *
     planes)``), so every distance below ``W * chunk`` runs in the finish:
     that product is the port's finish tile.  The keys-only tiles come from
-    ``chunk_rows``, the rider tiles from ``rider_chunk_rows`` (two planes)
-    and the compaction block from ``compact_chunk_rows``.  The engine holds
-    no weights; data passes between the two packages as numpy arrays.
+    ``chunk_rows``, the rider tiles from ``rider_chunk_rows`` (two planes),
+    the lexicographic ones from ``stable_chunk_rows`` (cut as at three
+    planes; the JAX ``stable2_chunk_rows`` has no counterpart, since the
+    port's two-plane sorts take the same tiles),
+    top_k's chunk from ``topk_chunk_rows`` and the compaction block
+    from ``compact_chunk_rows``.  The engine holds no weights; data passes
+    between the two packages as numpy arrays.
     """
     chunk, finish = _jax_tiles(cfg.chunk_rows, 1)
     r_chunk, r_finish = _jax_tiles(cfg.rider_chunk_rows, 2)
+    s_chunk, s_finish = _jax_tiles(cfg.stable_chunk_rows, 3)
     return SortConfig(
         strategy=cfg.strategy, chunk_elems=chunk, finish_elems=finish,
         rider_chunk_elems=r_chunk, rider_finish_elems=r_finish,
+        stable_chunk_elems=s_chunk, stable_finish_elems=s_finish,
+        topk_chunk_elems=cfg.topk_chunk_rows * 128,
         compact_elems=cfg.compact_chunk_rows * 128,
     )
 

@@ -1,0 +1,2 @@
+"""Examples of the port (run as modules, e.g.
+``python -m radx_tpu_torch.examples.query_pipeline --device cuda``)."""

@@ -34,12 +34,16 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
-    # keys, rider (or null), n, log_c, invert, ascending, stream
-    "radx_chunk_sort": (_P, _P, _I, _I, _I, _I, _P),
-    # keys, rider, n, j_low, f, kk, invert, stream
-    "radx_cross_stage": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # keys, rider, n, log_t, kk, invert, stream
-    "radx_finish": (_P, _P, _I, _I, _I, _I, _P),
+    # planes, np, ncmp, n, log_c, invert, ascending, stream
+    "radx_chunk_sort": (_P, _I, _I, _I, _I, _I, _I, _P),
+    # planes, np, ncmp, n, j_low, f, kk, invert, stream
+    "radx_cross_stage": (_P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # planes, np, ncmp, n, log_t, kk, invert, stream
+    "radx_finish": (_P, _I, _I, _I, _I, _I, _I, _P),
+    # keys, values, n, bins, n_valid (or null), sums, counts, stream
+    "radx_dense_sums": (_P, _P, _I, _I, _P, _P, _P, _P),
+    # keys, ovals, n, bins, is_min, n_valid (or null), ext, counts, stream
+    "radx_dense_extrema": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     # mask, n, log_tile, counts, stream
     "radx_compact_count": (_P, _I, _I, _P, _P),
     # mask, n, log_tile, inclusive counts, ins, outs, planes, stream

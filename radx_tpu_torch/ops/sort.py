@@ -1,17 +1,21 @@
-"""Single-device sort API over uint32 keys — port of radx_tpu/ops/sort.py
-(keys-only path).
+"""Single-device sort API over uint32 keys — port of radx_tpu/ops/sort.py.
 
 It owns buffer preparation — the sign bias that maps unsigned order onto
-signed int32 order, and the sentinel pads up to a power of two — and
-dispatches to a strategy:
+signed int32 order, the sentinel pads up to a power of two, the index plane
+that makes a sort stable — and dispatches to a strategy:
 
   * ``"bitonic"`` (default) — the hand-written CUDA bitonic network
-    (kernels/bitonic.py);
-  * ``"lax"`` — ``torch.sort``, the counterpart of the JAX package's
-    ``jax.lax.sort`` fallback.
+    (kernels/bitonic.py): keys only, (key, rider), or lexicographic over
+    (key, index) with payload planes riding along;
+  * ``"lax"`` — ``torch.sort`` (``stable=True`` where the JAX package calls
+    ``jax.lax.sort(num_keys=2)`` over (key, index)), the counterpart of the
+    JAX package's ``jax.lax.sort`` fallback.
 
-Keys are uint32 tensors, or numpy arrays with an explicit ``device``.  A
-tensor is sorted on the device it lies on and the result stays there.  Inside,
+Entry points: ``sort``, ``sort_any`` (uint32 / int32 / float32 tensors, and
+uint64 / int64 / float64 numpy arrays), ``argsort``, ``sort_pairs`` (stable,
+or ``assume_unique``), ``sort_pairs_any``, ``sort_multi`` and ``sort_u64``.
+Keys are tensors, or numpy arrays with an explicit ``device``.  A tensor is
+sorted on the device it lies on and the result stays there.  Inside,
 everything is sign-biased int32: PyTorch has no uint32 comparisons on the CPU.
 """
 
@@ -208,12 +212,29 @@ def _flip(enc: torch.Tensor) -> torch.Tensor:
     return (~enc.view(torch.int32)).view(torch.uint32)
 
 
+_NP64 = (np.dtype(np.uint64), np.dtype(np.int64), np.dtype(np.float64))
+
+
+def _numpy64(keys):
+    """``keys`` as a 1-D numpy array when it is a uint64 / int64 / float64
+    numpy array (the 64-bit branches), else None."""
+    if isinstance(keys, np.ndarray) and keys.dtype in _NP64:
+        if keys.ndim != 1:
+            raise ValueError("keys must be 1-D")
+        return keys
+    return None
+
+
 def sort_any(keys, descending: bool = False, cfg: SortConfig | None = None,
-             *, device=None) -> torch.Tensor:
+             *, device=None):
     """Sort uint32 / int32 / float32 keys, ascending or descending, through
-    order-preserving uint32 encodings over ``sort``.  Returns a tensor of the
-    keys' dtype on their device.  (64-bit keys wait for the two-plane
-    ``sort_u64``.)"""
+    order-preserving uint32 encodings over ``sort``: returns a tensor of the
+    keys' dtype on their device.  uint64 / int64 / float64 numpy keys (as in
+    the JAX package) split into (hi, lo) uint32 halves sorted by the
+    lexicographic ``sort_u64`` on ``device``: returns a numpy array."""
+    np64 = _numpy64(keys)
+    if np64 is not None:
+        return _sort_any64(np64, descending, cfg, device)
     keys = _as_tensor(keys, device)
     if keys.dtype not in _KEY_DTYPES:
         raise TypeError(f"unsupported key dtype {keys.dtype}")
@@ -226,3 +247,253 @@ def sort_any(keys, descending: bool = False, cfg: SortConfig | None = None,
     if descending:
         out = _flip(out)
     return _decode_keys(out, keys.dtype)
+
+
+# --- stable and lexicographic sorts (radx_tpu/ops/sort.py:110-141, 248-301,
+# 329-621) ---------------------------------------------------------------------
+
+
+def _iota(total: int, device) -> torch.Tensor:
+    return torch.arange(total, dtype=torch.int32, device=device)
+
+
+def _payload_plane(p: torch.Tensor, total: int) -> torch.Tensor:
+    """32-bit payload -> a new int32 bit plane of ``total`` rows, zero pads."""
+    plane = torch.zeros(total, dtype=torch.int32, device=p.device)
+    plane[: p.numel()] = p.contiguous().view(torch.int32)
+    return plane
+
+
+def _lex_sort(planes, cfg: SortConfig, descending: bool = False) -> None:
+    """Sort int32 planes in place by (planes[0], planes[1]), the rest riding
+    along, on the bitonic network's lexicographic mode; more than 8 planes
+    run as several sorts of copies of the two compare planes, each carrying
+    the next payloads (the order is total, so every pass gives the same
+    permutation)."""
+    head, rest = planes[:2], planes[2:]
+    step = bitonic.MAX_PLANES - 2
+    groups = [rest[i: i + step] for i in range(0, len(rest), step)] or [[]]
+    for i, group in enumerate(groups):
+        cmp = head if i == len(groups) - 1 else [p.clone() for p in head]
+        chunk, fin = cfg.lex_tiles(2 + len(group))
+        bitonic.sort_planes(cmp[0], chunk, fin, descending,
+                            lex=[cmp[1], *group])
+
+
+def _stable_planes(keys: torch.Tensor, payloads, cfg: SortConfig, total: int):
+    """(key, index, payloads...) planes of ``total`` rows, sorted stably by
+    key: ``torch.sort(stable=True)`` under ``"lax"``, else the network."""
+    planes = [_key_plane(keys, total), _iota(total, keys.device),
+              *(_payload_plane(p, total) for p in payloads)]
+    if cfg.strategy == "lax":
+        order = torch.sort(planes[0], stable=True).indices
+        return [p[order] for p in planes]
+    _lex_sort(planes, cfg)
+    return planes
+
+
+def _sort_arbn_stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):
+    """Arbitrary-N stable sort (port of ``_sort_arbn_stable_jit``): the piece
+    + valley-merge scheme of ``_sort_arbn_keys`` on (key, index, payloads)
+    planes.  Pieces other than the last sort descending (every direction
+    flipped); the folds merge ascending.  (key, original index) is a total
+    order, so the result is the unique stable permutation however the input
+    was cut.  Returns the sorted planes (``blocks * chunk`` rows)."""
+    chunk, fin = cfg.lex_tiles(2 + len(payloads))
+    blocks, sizes = _decompose_blocks(n, chunk)
+    total = blocks * chunk
+    planes = [_key_plane(keys, total), _iota(total, keys.device),
+              *(_payload_plane(p, total) for p in payloads)]
+    if len(planes) > bitonic.MAX_PLANES:
+        raise ValueError(f"the arbitrary-N path takes at most "
+                         f"{bitonic.MAX_PLANES - 2} payloads")
+    offsets = []
+    off = 0
+    for idx, sz in enumerate(sizes):
+        piece = [p[off: off + sz * chunk] for p in planes]
+        bitonic.sort_planes(piece[0], chunk, fin, idx != len(sizes) - 1,
+                            lex=piece[1:])
+        offsets.append(off)
+        off += sz * chunk
+    for off in reversed(offsets[:-1]):
+        bitonic.merge_valley_ascending(planes[0][off:], chunk, fin,
+                                       lex=[p[off:] for p in planes[1:]])
+    return planes
+
+
+def _stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):
+    """Stably sorted (key, index, payloads...) planes of the n keys, by the
+    arbitrary-N path where ``_use_decomposition`` routes there (at most one
+    payload, as in the JAX package), else padded to a power of two."""
+    if len(payloads) <= 1 and _use_decomposition(n, cfg):
+        return _sort_arbn_stable(keys, payloads, cfg, n)
+    return _stable_planes(keys, payloads, cfg, _pad_len(n))
+
+
+def _check_payload(p: torch.Tensor, keys: torch.Tensor, what="payload"):
+    if p.shape != keys.shape:
+        raise ValueError(f"{what} must match keys shape")
+    if p.element_size() != 4:
+        raise TypeError(f"{what} must be a 32-bit dtype")
+
+
+def argsort(keys, cfg: SortConfig | None = None, *, device=None):
+    """Stable argsort of uint32 keys: an int32 permutation, ties in their
+    original order."""
+    cfg = cfg or DEFAULT
+    keys = _as_u32(keys, device)
+    n = keys.numel()
+    if n <= 1:
+        return torch.zeros(n, dtype=torch.int32, device=keys.device)
+    return _stable(keys, [], cfg, n)[1][:n]
+
+
+def sort_pairs(keys, payload, cfg: SortConfig | None = None,
+               assume_unique: bool = False, *, device=None):
+    """Stable key + payload sort of uint32 keys and a 32-bit payload;
+    returns (sorted keys, payload in its dtype).
+
+    ``assume_unique=True``: the caller asserts the keys are unique and none
+    is 0xFFFFFFFF (the pad sentinel).  The index plane is then dropped: two
+    planes in the one-compare rider mode instead of three lexicographic
+    ones.  Violating the contract mis-attaches payloads among equal keys; it
+    is an assertion, not a hint."""
+    cfg = cfg or DEFAULT
+    keys = _as_u32(keys, device)
+    payload = _as_tensor(payload, device if device is not None else keys.device)
+    _check_payload(payload, keys)
+    n = keys.numel()
+    if n <= 1:
+        return keys.clone(), payload.clone()
+    if assume_unique:
+        total = _pad_len(n)
+        kp, pp = _key_plane(keys, total), _payload_plane(payload, total)
+        if cfg.strategy == "lax":
+            kp, order = torch.sort(kp, stable=True)
+            pp = pp[order]
+        else:
+            bitonic.sort_planes(kp, cfg.rider_chunk_elems,
+                                cfg.rider_finish_elems, rider=pp)
+        return _unbias(kp, n), pp[:n].view(payload.dtype)
+    planes = _stable(keys, [payload], cfg, n)
+    return _unbias(planes[0], n), planes[2][:n].view(payload.dtype)
+
+
+def sort_multi(keys, payloads, cfg: SortConfig | None = None, *, device=None):
+    """Stable sort of uint32 keys carrying any number of 32-bit payload
+    columns through the network (no gather).  Returns (sorted keys, list of
+    payloads in their dtypes)."""
+    cfg = cfg or DEFAULT
+    keys = _as_u32(keys, device)
+    payloads = [_as_tensor(p, device if device is not None else keys.device)
+                for p in payloads]
+    for p in payloads:
+        _check_payload(p, keys, "payloads")
+    n = keys.numel()
+    if n <= 1:
+        return keys.clone(), [p.clone() for p in payloads]
+    planes = _stable_planes(keys, payloads, cfg, _pad_len(n))
+    return _unbias(planes[0], n), [o[:n].view(p.dtype)
+                                   for o, p in zip(planes[2:], payloads)]
+
+
+def sort_u64(hi, lo, cfg: SortConfig | None = None, *, device=None):
+    """Sort 64-bit keys given as (hi, lo) uint32 halves: one two-plane
+    lexicographic sort.  Returns sorted (hi, lo)."""
+    cfg = cfg or DEFAULT
+    hi = _as_u32(hi, device)
+    lo = _as_u32(lo, device if device is not None else hi.device)
+    if hi.shape != lo.shape:
+        raise ValueError("hi/lo must match")
+    n = hi.numel()
+    if n <= 1:
+        return hi.clone(), lo.clone()
+    total = _pad_len(n)
+    hp, lp = _key_plane(hi, total), _key_plane(lo, total)
+    _lex_sort([hp, lp], cfg)
+    return _unbias(hp, n), _unbias(lp, n)
+
+
+_SIGN64 = np.uint64(0x8000000000000000)
+
+
+def _encode_keys64(keys: np.ndarray) -> np.ndarray:
+    """Order-preserving uint64 encoding of 64-bit numpy keys: uint64
+    identity, int64 sign-bit flip, float64 sign-magnitude to lexicographic
+    (-inf < ... < -0.0 < +0.0 < ... < +inf < nan)."""
+    if keys.dtype == np.uint64:
+        return keys
+    if keys.dtype == np.int64:
+        return keys.view(np.uint64) ^ _SIGN64
+    bits = keys.view(np.uint64)
+    return np.where((bits & _SIGN64) != 0, ~bits, bits | _SIGN64)
+
+
+def _decode_keys64(enc: np.ndarray, dtype) -> np.ndarray:
+    if dtype == np.uint64:
+        return enc
+    if dtype == np.int64:
+        return (enc ^ _SIGN64).view(np.int64)
+    bits = np.where((enc & _SIGN64) != 0, enc ^ _SIGN64, ~enc)
+    return bits.view(np.float64)
+
+
+def _halves(enc: np.ndarray):
+    return ((enc >> np.uint64(32)).astype(np.uint32),
+            (enc & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def _join64(hi: torch.Tensor, lo: torch.Tensor) -> np.ndarray:
+    return ((hi.cpu().numpy().astype(np.uint64) << np.uint64(32))
+            | lo.cpu().numpy().astype(np.uint64))
+
+
+def _sort_any64(keys: np.ndarray, descending: bool, cfg, device) -> np.ndarray:
+    """64-bit sort: uint64 encoding, (hi, lo) halves, ``sort_u64``, joined
+    and decoded.  Descending complements the encoding."""
+    enc = _encode_keys64(keys)
+    if descending:
+        enc = ~enc
+    out = _join64(*sort_u64(*_halves(enc), cfg, device=device))
+    if descending:
+        out = ~out
+    return _decode_keys64(out, keys.dtype)
+
+
+def _sort_pairs_any64(keys: np.ndarray, payload, descending: bool, cfg,
+                      device):
+    """Stable 64-bit-key pairs: a stable sort by the low half carrying (hi,
+    payload), then a stable sort by the high half carrying (lo, payload) —
+    the LSD composition of the JAX package."""
+    enc = _encode_keys64(keys)
+    if descending:
+        enc = ~enc
+    hi, lo = _halves(enc)
+    lo_s, (hi_s, p_s) = sort_multi(lo, [hi, payload], cfg, device=device)
+    hi_f, (lo_f, p_f) = sort_multi(hi_s, [lo_s, p_s], cfg)
+    out = _join64(hi_f, lo_f)
+    if descending:
+        out = ~out
+    return _decode_keys64(out, keys.dtype), p_f
+
+
+def sort_pairs_any(keys, payload, descending: bool = False,
+                   cfg: SortConfig | None = None, *, device=None):
+    """Stable key + payload sort for uint32 / int32 / float32 keys (tensors
+    back), plus uint64 / int64 / float64 numpy keys (numpy keys back, the
+    payload a tensor on ``device``).  ±0.0 float keys order as -0.0 < +0.0."""
+    np64 = _numpy64(keys)
+    if np64 is not None:
+        return _sort_pairs_any64(np64, payload, descending, cfg, device)
+    keys = _as_tensor(keys, device)
+    if keys.dtype not in _KEY_DTYPES:
+        raise TypeError(f"unsupported key dtype {keys.dtype}")
+    if keys.dim() != 1:
+        raise ValueError("keys must be 1-D")
+    enc = _encode_keys(keys)
+    if descending:
+        enc = _flip(enc)
+    k, p = sort_pairs(enc, payload, cfg, device=device)
+    if descending:
+        k = _flip(k)
+    return _decode_keys(k, keys.dtype), p

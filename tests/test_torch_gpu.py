@@ -240,3 +240,102 @@ def test_filter_groupby_unique_match_torch(cuda):
     assert int(cu) == g
     assert torch.equal(vals[:g].view(torch.int32), uk_want)
     assert torch.equal(cnts[:g].to(torch.int64), cnt_want)
+
+
+# --- slice 3: the lexicographic mode of K1-K3, the dense aggregates (K8, K9),
+# the Table query path ---------------------------------------------------------
+
+from radx_tpu_torch import LazyTable, Table, sort_pairs  # noqa: E402
+from radx_tpu_torch.examples.query_pipeline import no_sync  # noqa: E402
+from radx_tpu_torch.kernels import aggregate as tag  # noqa: E402
+
+
+def _lex_cases():
+    cases = {}
+    for p in tb.LEX_PLANES:
+        c, f = CFG.lex_tiles(p)
+        lt = f.bit_length() - 1
+        cases[f"chunk_sort/lex{p}"] = (
+            p, lambda x, lx, c=c: tb.chunk_sort(x, c, lex=lx),
+            lambda x, lx, c=c: tb.chunk_sort_ref(x, c, lex=lx))
+        cases[f"finish/lex{p}"] = (
+            p, lambda x, lx, f=f: tb.finish(x, f, 20, True, lex=lx),
+            lambda x, lx, f=f: tb.finish_ref(x, f, 20, True, lex=lx))
+        for fu in range(1, tb.max_fusion(p) + 1):
+            cases[f"cross_stage<{fu}>/lex{p}"] = (
+                p, lambda x, lx, lt=lt, fu=fu: tb.cross_stage(
+                    x, lt, fu, lt + fu + 1, fu % 2 == 0, lex=lx),
+                lambda x, lx, lt=lt, fu=fu: tb.cross_stage_ref(
+                    x, lt, fu, lt + fu + 1, fu % 2 == 0, lex=lx))
+    return cases
+
+
+LEX_CASES = _lex_cases()
+
+
+@pytest.mark.parametrize("case", list(LEX_CASES))
+def test_lex_kernel_matches_plain(cuda, case):
+    """Keys in [0, 16), a unique tie plane, riders: every plane bit-equal."""
+    planes, kernel, ref = LEX_CASES[case]
+    rng = np.random.default_rng(planes)
+    base = [torch.from_numpy(rng.integers(0, 16, N).astype(np.int32)).to(cuda),
+            torch.randperm(N, device=cuda).to(torch.int32)]
+    base += [_keys(cuda, N, seed=j) for j in range(planes - 2)]
+    got = [p.clone() for p in base]
+    kernel(got[0], got[1:])
+    want = ref(base[0], base[1:])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bins", [128, 256, 8192, 65536])
+@pytest.mark.parametrize("dist", ["uniform", "one_key", "out_of_range"])
+def test_dense_aggregates_match_plain(cuda, bins, dist):
+    rng = np.random.default_rng(bins)
+    n = N + 77
+    if dist == "uniform":
+        k = rng.integers(0, bins, n, dtype=np.uint32)
+    elif dist == "one_key":
+        k = np.full(n, 5, np.uint32)
+    else:
+        k = rng.integers(0, 2**32, n, dtype=np.uint32)
+        k[::3] %= bins
+    k, v = torch.from_numpy(k).to(cuda), _keys(cuda, n, seed=2)
+    nv = torch.full((), n - 1001, dtype=torch.int32, device=cuda)
+    got, want = tag.dense_sums(k, v, bins, nv), tag.dense_sums_ref(k, v, bins, nv)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    if bins <= tag.MAX_EXTREMA_BINS:
+        for is_min in (True, False):
+            got = tag.dense_extrema(k, v, bins, is_min, nv)
+            want = tag.dense_extrema_ref(k, v, bins, is_min, nv)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_sort_pairs_and_lazy_dense_query(cuda):
+    """Stable pairs against torch.sort; the dense LazyTable query under the
+    sync guard against a plain reference."""
+    rng = np.random.default_rng(12)
+    n = 3_000_017
+    k = torch.from_numpy(rng.integers(0, 1 << 12, n, dtype=np.uint32)).to(cuda)
+    p = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda)
+    gk, gp = sort_pairs(k, p)
+    o = torch.sort(k.view(torch.int32), stable=True)
+    assert torch.equal(gk.view(torch.int32), o.values)
+    assert torch.equal(gp.view(torch.int32), p.view(torch.int32)[o.indices])
+    t = Table({"b": (k.view(torch.int32) & 255).view(torch.uint32), "v": p})
+    with no_sync(cuda):
+        lt = t.lazy()
+        assert isinstance(lt, LazyTable)
+        lazy = lt.filter(lt.column("v").view(torch.int32) >= 0).groupby(
+            "b", "v", "count", bins=256)
+    got = lazy.collect()
+    keep = p.view(torch.int32) >= 0
+    want = torch.bincount(t.column("b").view(torch.int32)[keep].long(),
+                          minlength=256)
+    assert torch.equal(got.column("b").view(torch.int32).long(),
+                       want.nonzero().flatten())
+    assert torch.equal(got.column("count").long(), want[want > 0])

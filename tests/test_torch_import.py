@@ -13,11 +13,17 @@ MODULES = (
     "radx_tpu_torch.kernels.bitonic",
     "radx_tpu_torch.kernels.compact",
     "radx_tpu_torch.kernels.segscan",
+    "radx_tpu_torch.kernels.aggregate",
     "radx_tpu_torch.kernels._build",
     "radx_tpu_torch.ops.sort",
     "radx_tpu_torch.ops.filter",
     "radx_tpu_torch.ops.groupby",
     "radx_tpu_torch.ops.distinct",
+    "radx_tpu_torch.ops.topk",
+    "radx_tpu_torch.ops.join",
+    "radx_tpu_torch.ops.table",
+    "radx_tpu_torch.ops.lazy",
+    "radx_tpu_torch.examples.query_pipeline",
     "radx_tpu_torch.utils.timing",
     "radx_tpu_torch.bench",
 )

@@ -106,8 +106,8 @@ def test_sort_any_uint32_and_total_order():
     np.testing.assert_array_equal(
         sort_any(u, True, device="cpu").numpy(), np.sort(u)[::-1]
     )
-    with pytest.raises(TypeError):
-        sort_any(np.zeros(4, np.int64), device="cpu")
+    with pytest.raises(TypeError):  # 64-bit keys come as numpy arrays
+        sort_any(torch.zeros(4, dtype=torch.int64))
 
 
 # n -> (pow2 path / decomposition) routing table, incl. the 2^22 threshold
