@@ -12,11 +12,15 @@ Phases, one line each (any failure raises and exits nonzero):
   3. every kernel against its plain PyTorch version on the card: the bitonic
      kernels on 2^23 rows (keys only; a rider on keys in [0, 16); and the
      lexicographic mode for 2..8 planes on keys in [0, 16) with a unique
-     tie plane, every plane bit-equal), compact for 1-3 planes at densities
-     0, 0.5 and 1 on a ragged n, segscan for every op x value dtype, the
-     dense aggregates (sums for 128 / 256 / 8192 / 65536 bins, extrema for
-     128 / 256 / 8192) at 2^26 rows with a ragged n_valid on uniform,
-     one-key, Zipf and out-of-range keys;
+     tie plane, every plane bit-equal; the cross / finish passes with a
+     direction span), compact for 1-3 planes at densities 0, 0.5 and 1 on a
+     ragged n, segscan for every op x value dtype, the dense aggregates
+     (sums for 128 / 256 / 8192 / 65536 bins, extrema for 128 / 256 / 8192)
+     at 2^26 rows with a ragged n_valid on uniform, one-key, Zipf and
+     out-of-range keys; the radix kernels (``radix_checks``): radix_hist at
+     2^26 (K10's chunks and K14's tiles, ragged n, bias 0 and 0x80000000,
+     shifts 0 / 8 / 16 / 24), and K4, K11, K12, K5, K13 at the radix
+     geometry of 2^26 keys in the keys, rider, lex2 and lex3 modes;
   4. the paths through the public entry points, each in a window of its
      own (``window``): the launch counts are set to 0 just before the path
      and read just after it, and every kernel the path runs must show >= 1
@@ -36,8 +40,19 @@ Phases, one line each (any failure raises and exits nonzero):
           ``sort_u64``, 64-bit ``sort_any``, ``top_k``; the query_pipeline
           example at 2^26 rows, eager and lazy — all exactly equal to plain
           torch (or numpy) references;
-  5. timings (CUDA events): every kernel beside its plain version, and the
-     metrics of radx_tpu_torch/bench.py.
+       d. slice 4 (``radix_path``), under ``SortConfig(strategy="radix")``:
+          ``sort`` at 2^26 and 2^28, ``sort`` at 2^26 on presorted, reverse,
+          clustered and low-cardinality keys, stable ``sort_pairs`` at 2^28
+          (lex3), ``argsort`` at 2^26 (lex2), ``groupby`` sum at 3 * 2^24
+          (the rider mode, n_valid = total: a quarter of the rows are pads),
+          all-equal keys at 2^23 (the overflow
+          fallback to the network) and ``tile_histograms`` (K14) at 2^26,
+          each window printing its overflow count, every result exact;
+  5. timings (CUDA events): every kernel beside its plain version, its bound
+     (bytes over 3.35 TB/s or operations over 67 T/s, the larger) and, where
+     one PyTorch call computes the same function, that call; then the
+     metrics of radx_tpu_torch/bench.py, the radix ones with the bitonic rate
+     beside them and the radix breakdown by kernel.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -56,6 +71,9 @@ import numpy as np
 import torch
 
 SIGN = -(1 << 31)
+PAD = 0x7FFFFFFF
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
+OPS_PER_S = 67e12  # H100 SXM peak non-tensor float32 rate
 
 
 def _line(tag, **fields):
@@ -76,7 +94,8 @@ def _ptxas_name(kernel, args):
     a = [int(x) for x in re.findall(r"L[ib](\d+)E", args or "")]
     if kernel == "cross_stage":
         return f"cross_stage<{a[0]}>" + _suffix(a[1], a[2])
-    if kernel in ("chunk_sort", "finish"):
+    if kernel in ("chunk_sort", "finish", "chunk_sort_cyclic", "slot_merge",
+                  "radix_pack", "radix_concat"):
         return kernel + _suffix(a[0], a[1])
     if kernel == "dense_extrema":
         return f"dense_extrema<{'min' if a[0] else 'max'}>"
@@ -138,9 +157,285 @@ def record(names, e, ok, **case):
 
 
 def _kernel_modules():
-    from radx_tpu_torch.kernels import aggregate, bitonic, compact, segscan
+    from radx_tpu_torch.kernels import (aggregate, bitonic, compact, msd, radix,
+                                        segscan)
 
-    return bitonic, compact, segscan, aggregate
+    return bitonic, compact, segscan, aggregate, radix, msd
+
+
+def bound(bytes_, ops=0):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    this many bytes moved and 32-bit operations done."""
+    tb, to = bytes_ / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def _cx_ops(n, substages, planes):
+    """32-bit operations of ``substages`` compare-exchange substages over n
+    rows: a min and a max per pair with one plane; one compare and two
+    selects per plane with more."""
+    per_pair = 2 if planes == 1 else 1 + 2 * planes
+    return n // 2 * substages * per_pair
+
+
+MODES = {"keys": (1, 1), "rider": (1, 2), "lex2": (2, 2), "lex3": (2, 3)}
+# sizes of the radix phases: the checks and most windows, the large
+# windows, the all-equal window
+RADIX_N, RADIX_N_BIG, RADIX_N_EQUAL = 1 << 26, 1 << 28, 1 << 23
+
+
+def radix_required(ncmp, planes):
+    """Every kernel a radix sort of one mode launches when no bucket
+    overflows: the mode's cross / finish passes (spans), K4, K5, K10-K13,
+    and the keys-only chunk sort of the >= 2^17 splitter samples (K4 takes
+    the place of the mode's own chunk sort)."""
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import msd as M
+
+    return (*B.mode_kernels(ncmp, planes)[1:], *B.radix_kernels(ncmp, planes),
+            *M.mode_kernels(ncmp, planes), "radix_hist", "radix_rank",
+            "chunk_sort")
+
+
+def radix_overflows(ncmp, planes):
+    """(radix sorts, overflowed ones) of the last window: every sort ranks
+    its splitters once and packs only when no slot overflowed."""
+    from radx_tpu_torch.kernels import msd as M
+
+    ranks = M.LAUNCHES["radix_rank"]
+    return ranks, ranks - M.LAUNCHES[M.mode_kernels(ncmp, planes)[0]]
+
+
+def _mode_planes(dev, mode, n, gen):
+    """Planes of a mode at n rows: keys with ties (a quarter drawn from n /
+    2^14 values spread over the key range, 4096 copies each, so no digit
+    holds a cluster that overflows a slot), 1% 0xFFFFFFFF keys in the rider
+    mode (they skip the buckets); the index plane of the stable sorts in the
+    lex modes; random riders."""
+    ncmp, p = MODES[mode]
+    keys = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                         generator=gen, device=dev)
+    values = n >> 14
+    keys[: n // 4] = (torch.randint(0, values, (n // 4,), generator=gen,
+                                    device=dev) * ((1 << 32) // values)
+                      - 2**31).to(torch.int32)
+    if mode == "rider":
+        keys[n // 4: n // 4 + n // 100] = PAD
+    keys = keys[torch.randperm(n, generator=gen, device=dev)]
+    planes = [keys]
+    if ncmp == 2:
+        planes.append(torch.arange(n, dtype=torch.int32, device=dev))
+    while len(planes) < p:
+        planes.append(torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                                    generator=gen, device=dev))
+    return planes
+
+
+def _max_err(got, want):
+    return max(int((a.long() - b.long()).abs().max()) for a, b in
+               zip(got, want))
+
+
+def radix_checks(dev):
+    """Phase 3 for the radix kernels, every output bit-equal to its plain
+    version: radix_hist at 2^26 (K10's 2^19-key chunks and K14's 1024-key
+    tiles, a ragged n, bias 0 and 0x80000000, shifts 0 / 8 / 16 / 24), then
+    K4, K11, K12, K5 and K13 at the two radix geometries of the main path:
+    2^26 keys (C = 2^19, 128 chunks, slots of 4096, nb_pad 168) in the keys,
+    rider, lex2 and lex3 modes, and 2^28 keys (C = 2^19, 512 chunks, slots
+    of 1024) in the keys and lex3 modes."""
+    from radx_tpu_torch.kernels import radix as RX
+
+    n = RADIX_N
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, generator=gen,
+                      device=dev)
+    ragged = n - 12345
+    for bias in (0, 0x80000000):
+        for shift in (0, 8, 16, 24):
+            for tile in (RX.TILE, 1 << 19):
+                got = RX.histograms(x, tile, shift, bias, ragged)
+                want = RX.histograms_ref(x, tile, shift, bias, ragged)
+                torch.cuda.synchronize()
+                e = int((got - want).abs().max())
+                record(["radix_hist" if tile > RX.TILE else "radix_hist/tile"],
+                       e, e == 0, n=n, n_valid=ragged, tile=tile, shift=shift,
+                       bias=bias)
+    del x
+    geometries = [(RADIX_N, m) for m in MODES] + [
+        (RADIX_N_BIG, m) for m in ("keys", "lex3")]
+    for n, mode in geometries:
+        _radix_geometry_check(dev, n, mode, gen)
+        torch.cuda.empty_cache()
+
+
+def _radix_geometry_check(dev, n, mode, gen):
+    """K4, K11, K12, K5 and K13 of one mode at the radix geometry of n keys,
+    each on the input the sort's own stages give it, bit-equal to its plain
+    version; the concatenated output is the stable order of the keys."""
+    from radx_tpu_torch import SortConfig
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import msd as M
+    from radx_tpu_torch.kernels import radix_sort as RS
+
+    cfg = SortConfig(strategy="radix")
+    p = RS.plan(n, RS.pick_chunk(n, cfg.chunk_elems))
+    ncmp, np_ = MODES[mode]
+    planes = _mode_planes(dev, mode, n, gen)
+    c, f = cfg.mode_tiles(np_, ncmp)
+    t = min(max(f, c), p.C)
+    cyc, merge = B.radix_kernels(ncmp, np_)
+    pack, concat = M.mode_kernels(ncmp, np_)
+    case = dict(n=n, mode=mode, C=p.C, slot=p.slot, nb_pad=p.nb_pad)
+    out = [torch.empty_like(q) for q in planes]
+    B.chunk_sort_cyclic(planes, out, ncmp, p.C, c)
+    e = _max_err(out, B.chunk_sort_cyclic_ref(planes, ncmp, p.C, c))
+    record([cyc], e, e == 0, tile=c, **case)
+    del out
+    sorted_ = B.sort_chunks_ascending_cyclic(planes, ncmp, p.C, c, f)
+    tail = mode == "rider"
+    spl = RS.choose_splitters(sorted_[0], planes[0], p, n,
+                              cfg.mode_tiles(1, 1), tail)
+    if tail:
+        spl = torch.cat((spl, spl.new_full((1,), PAD)))
+    ranks = M.splitter_ranks(sorted_[0], spl, p.C)
+    e = _max_err([ranks], [M.splitter_ranks_ref(sorted_[0], spl, p.C)])
+    record(["radix_rank"], e, e == 0, splitters=spl.numel(), **case)
+    b = RS.run_bounds(ranks, p, n, tail)
+    if bool(b.overflow):
+        _fail(f"the radix geometry overflowed on the {mode} inputs")
+    packed = M.pack(sorted_, b.bounds, p.C, p.slot, p.nb_pad, ncmp)
+    e = _max_err(packed, M.pack_ref(sorted_, b.bounds, p.C, p.slot,
+                                    p.nb_pad, ncmp))
+    record([pack], e, e == 0, **case)
+    out = [torch.empty_like(q) for q in packed]
+    B.slot_merge(packed, out, ncmp, p.C, p.slot, t)
+    e = _max_err(out, B.slot_merge_ref(packed, ncmp, p.C, p.slot, t))
+    record([merge], e, e == 0, tile=t, **case)
+    del out
+    merged = B.merge_slots_ascending(packed, ncmp, p.C, p.slot, c, f)
+    del packed
+    out = [torch.empty_like(q) for q in planes]
+    src = sorted_ if tail else None
+    M.concat(merged, src, out, b.start, b.src, p.nb_pad, ncmp)
+    e = _max_err(out, M.concat_ref(merged, src, b.start, b.src, p.nb_pad,
+                                   n, ncmp))
+    order = _biased_order(planes[0])
+    ok = e == 0 and torch.equal(out[0], planes[0][order])
+    if ncmp == 2:  # (key, index): the stable order of the keys
+        ok = ok and torch.equal(out[1].long(), order)
+    record([concat], e, ok, tail_segments=b.src.numel() - p.nb_pad,
+           **case)
+
+
+def radix_path(dev):
+    """Slice 4: the radix distribution sort through the entry points under
+    ``SortConfig(strategy="radix")``, one window per path, each printing
+    its count of radix sorts and of overflows; every result exact."""
+    from radx_tpu_torch import SortConfig, argsort, groupby, sort, sort_pairs
+    from radx_tpu_torch import bench
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import radix as RX
+
+    cfg = SortConfig(strategy="radix")
+    gen = torch.Generator(device=dev).manual_seed(51)
+
+    def u32(n, lo=-(2**31), hi=2**31):
+        return torch.randint(lo, hi, (n,), dtype=torch.int32, generator=gen,
+                             device=dev).view(torch.uint32)
+
+    def flag_line(name, mode, **extra):
+        sorts, over = radix_overflows(*MODES[mode])
+        _line("radix", path=name, radix_sorts=sorts, overflows=over, **extra)
+        return over
+
+    n26, n28 = RADIX_N, RADIX_N_BIG
+    for n in (n26, n28):
+        keys = u32(n)
+        with window(f"radix_sort_2e{n.bit_length() - 1}", radix_required(1, 1)):
+            got = sort(keys, cfg)
+        ok = torch.equal(_i32(got), _i32(bench.torch_sort_u32(keys)))
+        flag_line(f"radix_sort_n{n}", "keys", equal_torch_sort=ok)
+        if not ok:
+            _fail(f"radix sort at n={n} differs from torch.sort")
+        del keys, got
+    base = bench.torch_sort_u32(u32(n26))
+    dists = {
+        "presorted": base,
+        "reverse": base.view(torch.int32).flip(0).view(torch.uint32),
+        "clustered": (torch.randint(0, 4, (n26,), dtype=torch.int32,
+                                    generator=gen, device=dev) * 0x10000000
+                      + torch.randint(0, 1000, (n26,), dtype=torch.int32,
+                                      generator=gen, device=dev)
+                      ).view(torch.uint32),
+        "lowcard": u32(n26, 0, 97),
+    }
+    for name, keys in dists.items():
+        # low-cardinality keys may overflow a slot: the network then sorts
+        required = (radix_required(1, 1) if name != "lowcard" else
+                    ("radix_hist", "radix_rank", "chunk_sort_cyclic",
+                     *B.KEY_KERNELS))
+        with window(f"radix_sort_{name}_2e26", required):
+            got = sort(keys, cfg)
+        ok = torch.equal(_i32(got), _i32(bench.torch_sort_u32(keys)))
+        flag_line(f"radix_sort_{name}_n{n26}", "keys", equal_torch_sort=ok)
+        if not ok:
+            _fail(f"radix sort of {name} keys differs from torch.sort")
+    del base, dists, keys, got
+    torch.cuda.empty_cache()
+
+    keys, payload = bench.pairs_data(n28)
+    with window("radix_sort_pairs_stable_2e28", radix_required(2, 3)):
+        got = sort_pairs(keys, payload, cfg)
+    want = bench.torch_sort_pairs(keys, payload)
+    ok = all(torch.equal(_i32(a), _i32(b)) for a, b in zip(got, want))
+    flag_line(f"radix_sort_pairs_n{n28}", "lex3", equal_reference=ok)
+    if not ok:
+        _fail("radix sort_pairs differs from torch.sort(stable=True)")
+    del keys, payload, got, want
+    torch.cuda.empty_cache()
+
+    k26 = u32(n26, 0, 1 << 20)
+    with window("radix_argsort_2e26", radix_required(2, 2)):
+        got = argsort(k26, cfg)
+    ok = torch.equal(got.long(), _biased_order(_i32(k26) ^ SIGN))
+    flag_line(f"radix_argsort_n{n26}", "lex2", equal_reference=ok)
+    if not ok:
+        _fail("radix argsort differs from torch.sort(stable=True)")
+    del k26, got
+    # 3/4 of 2^26 rows: the rider sort's last quarter is pads (key
+    # 0xFFFFFFFF, n_valid = total), which skip the buckets
+    n_g = n26 - n26 // 4
+    keys, vals = bench.groupby_data(n_g)
+    with window("radix_groupby_sum_3x2e24", radix_required(1, 2)):
+        res = groupby(keys, vals, "sum", cfg)
+    g = bench._check_groups(*res, keys, vals)
+    flag_line(f"radix_groupby_sum_n{n_g}", "rider", groups=g,
+              equal_reference=True)
+    del keys, vals, res
+
+    same = torch.full((RADIX_N_EQUAL,), 0x12345678, dtype=torch.int32,
+                      device=dev).view(torch.uint32)
+    with window("radix_sort_all_equal_2e23",
+                ("radix_hist", "radix_rank", "chunk_sort_cyclic",
+                 *B.KEY_KERNELS)):
+        got = sort(same, cfg)
+    ok = torch.equal(_i32(got), _i32(same))
+    if flag_line(f"radix_sort_all_equal_n{RADIX_N_EQUAL}", "keys",
+                 equal_torch_sort=ok) != 1 or not ok:
+        _fail("all-equal keys did not overflow, or were not sorted exactly")
+    x = u32(n26)
+    with window("tile_histograms_2e26", ("radix_hist/tile",)):
+        hists = {s: RX.tile_histograms(x, s) for s in (0, 8, 16, 24)}
+    for s, h in hists.items():
+        want = torch.bincount(((_i32(x).long() & 0xFFFFFFFF) >> s) & 255,
+                              minlength=256)
+        if not torch.equal(h.sum(0).long(), want):
+            _fail(f"tile_histograms at shift {s} differ from bincount")
+    _line("slice", input=f"tile_histograms_n{n26}", shifts=[0, 8, 16, 24],
+          equal_reference=True)
+    del same, got, x, hists
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -479,6 +774,9 @@ def main():
     from radx_tpu_torch.kernels import aggregate as AG
     from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.kernels import compact as CP
+    from radx_tpu_torch.kernels import msd as M
+    from radx_tpu_torch.kernels import radix as RX
+    from radx_tpu_torch.kernels import radix_sort as RS
     from radx_tpu_torch.kernels import segscan as SG
     from radx_tpu_torch.ops import sort as S
     from radx_tpu_torch.utils import timing
@@ -493,7 +791,13 @@ def main():
     log_t = T.bit_length() - 1
     RC, RT = cfg.rider_chunk_elems, cfg.rider_finish_elems
     r_log_t = RT.bit_length() - 1
-    all_kernels = (*B.KERNELS, *CP.KERNELS, *SG.KERNELS, *AG.KERNELS)
+    # the kernel instances the paths below drive (the radix ones in the
+    # keys, rider, lex2 and lex3 modes)
+    all_kernels = (*B.KEY_KERNELS, *B.RIDER_KERNELS, *B.LEX_KERNELS,
+                   *CP.KERNELS, *SG.KERNELS, *AG.KERNELS, *RX.KERNELS,
+                   "radix_rank",
+                   *(k for m in MODES.values() for k in
+                     (*B.radix_kernels(*m), *M.mode_kernels(*m))))
     i32 = torch.int32
 
     # -- 1. the card ---------------------------------------------------------
@@ -509,10 +813,11 @@ def main():
     ptxas, kernel = {}, None
     for ln in log.read_text().splitlines():
         found = re.search(
-            r"Compiling entry function .*?(chunk_sort|finish|cross_stage|"
-            r"compact_count|compact_write|segscan_tile|segscan_carry|"
-            r"segscan_apply|dense_sums_smem|dense_sums_global|dense_extrema)"
-            r"_kernel(I(?:L[ib]\d+E)+E)?", ln)
+            r"Compiling entry function .*?(chunk_sort_cyclic|slot_merge|"
+            r"chunk_sort|finish|cross_stage|radix_hist|radix_rank|radix_pack|"
+            r"radix_concat|compact_count|compact_write|segscan_tile|"
+            r"segscan_carry|segscan_apply|dense_sums_smem|dense_sums_global|"
+            r"dense_extrema)_kernel(I(?:L[ib]\d+E)+E)?", ln)
         if found:
             kernel = _ptxas_name(found.group(1), found.group(2))
         elif kernel and ("Used" in ln or "spill" in ln):
@@ -588,6 +893,16 @@ def main():
         check_rider("finish", lambda x, r: B.finish(x, RT, kk, inv, r),
                     lambda x, r: B.finish_ref(x, RT, kk, inv, r), tile=RT,
                     kk=kk, invert=inv)
+    # the radix sort's span passes: directions from the index within 2^19
+    span = 1 << 19
+    for f in B.CROSS_FUSION:
+        check(f"cross_stage<{f}>",
+              lambda x: B.cross_stage(x, log_t, f, 19, span=span),
+              lambda x: B.cross_stage_ref(x, log_t, f, 19, span=span),
+              j_low=log_t, kk=19, span=span)
+    check("finish", lambda x: B.finish(x, T, 19, span=span),
+          lambda x: B.finish_ref(x, T, 19, span=span), tile=T, kk=19,
+          span=span)
 
     # the lexicographic mode: plane 0 in [0, 16), plane 1 a permutation (the
     # stable sorts' index plane), the rest random riders
@@ -732,6 +1047,7 @@ def main():
         del oob, high, dists
     del zipf, avals, got, want
     torch.cuda.empty_cache()
+    radix_checks(dev)
     _line("elapsed", seconds=time.perf_counter() - t_start)
 
     # -- 4a. slice 1: sort / sort_any -----------------------------------------
@@ -936,16 +1252,33 @@ def main():
     torch.cuda.empty_cache()
     _line("elapsed", seconds=time.perf_counter() - t_start)
 
+    # -- 4d. slice 4: strategy="radix" ----------------------------------------
+    radix_path(dev)
+    _line("elapsed", seconds=time.perf_counter() - t_start)
+
     # -- 5. timings ------------------------------------------------------------
     rows = {}
 
-    def time_pair(name, log_n, kern, ref, iters=10):
+    def time_pair(name, log_n, kern, ref, bytes_, ops=0, lib=None, iters=10):
+        """Kernel and plain version, the bound of the kernel's work and,
+        where one PyTorch call computes the same function, that call."""
         tk = timing.time_cuda(kern, iters=iters, repeats=5)
         tp = timing.time_cuda(ref, iters=2, repeats=2, warmup=1)
-        rows.setdefault(name, {})[log_n] = (tk.seconds * 1e3, tp.seconds * 1e3)
-        _line("kernel_time", name=name, n=1 << log_n, ms=tk.seconds * 1e3,
-              spread_pct=tk.spread_pct, plain_ms=tp.seconds * 1e3,
-              plain_spread_pct=tp.spread_pct, **card)
+        tl = None if lib is None else timing.time_cuda(lib, iters=iters,
+                                                       repeats=5)
+        bound_ms, bound_by = bound(bytes_, ops)
+        row = {"ms": tk.seconds * 1e3, "plain_ms": tp.seconds * 1e3,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None if tl is None else tl.seconds * 1e3}
+        rows.setdefault(name, {})[log_n] = row
+        _line("kernel_time", name=name, n=1 << log_n, **row,
+              spread_pct=tk.spread_pct, plain_spread_pct=tp.spread_pct,
+              **card)
+
+    def tile_sort(x, tile):
+        """The library call of a tile sort: torch.sort of the (n / tile,
+        tile) view, every tile ascending."""
+        return lambda: torch.sort(x.view(-1, tile), dim=1)
 
     for log_n in (23, 26):
         m = bench.measure(1 << log_n)
@@ -961,30 +1294,39 @@ def main():
         x = torch.from_numpy(
             rng.integers(-(2**31), 2**31, 1 << log_n, dtype=np.int64).astype(np.int32)
         ).to(dev)
+        nx = x.numel()
+        log_c = C.bit_length() - 1
         time_pair("chunk_sort", log_n, lambda: B.chunk_sort(x, C),
-                  lambda: B.chunk_sort_ref(x, C))
+                  lambda: B.chunk_sort_ref(x, C), 8 * nx,
+                  _cx_ops(nx, log_c * (log_c + 1) // 2, 1), tile_sort(x, C))
         for f in B.CROSS_FUSION:
             kk = log_t + f
             time_pair(f"cross_stage<{f}>", log_n,
                       lambda f=f, kk=kk: B.cross_stage(x, log_t, f, kk),
-                      lambda f=f, kk=kk: B.cross_stage_ref(x, log_t, f, kk))
+                      lambda f=f, kk=kk: B.cross_stage_ref(x, log_t, f, kk),
+                      8 * nx, _cx_ops(nx, f, 1))
         time_pair("finish", log_n, lambda: B.finish(x, T, log_n),
-                  lambda: B.finish_ref(x, T, log_n))
+                  lambda: B.finish_ref(x, T, log_n), 8 * nx,
+                  _cx_ops(nx, log_t, 1))
         del x, keys
 
     log_n = 26
     x = torch.from_numpy(rng.integers(0, 10007, n26).astype(np.int32)).to(dev)
     r = torch.arange(n26, dtype=i32, device=dev)
+    log_rc = RC.bit_length() - 1
     time_pair("chunk_sort/rider", log_n, lambda: B.chunk_sort(x, RC, rider=r),
-              lambda: B.chunk_sort_ref(x, RC, rider=r))
+              lambda: B.chunk_sort_ref(x, RC, rider=r), 16 * n26,
+              _cx_ops(n26, log_rc * (log_rc + 1) // 2, 2))
     for f in B.CROSS_FUSION:
         kk = r_log_t + f
         time_pair(f"cross_stage<{f}>/rider", log_n,
                   lambda f=f, kk=kk: B.cross_stage(x, r_log_t, f, kk, rider=r),
                   lambda f=f, kk=kk: B.cross_stage_ref(x, r_log_t, f, kk,
-                                                       rider=r))
+                                                       rider=r),
+                  16 * n26, _cx_ops(n26, f, 2))
     time_pair("finish/rider", log_n, lambda: B.finish(x, RT, log_n, rider=r),
-              lambda: B.finish_ref(x, RT, log_n, rider=r))
+              lambda: B.finish_ref(x, RT, log_n, rider=r), 16 * n26,
+              _cx_ops(n26, r_log_t, 2))
     del x, r
 
     # the lexicographic mode at 2^23 rows: keys < 2^20, a unique tie plane
@@ -995,18 +1337,22 @@ def main():
     for p in B.LEX_PLANES:
         lc, lf = cfg.lex_tiles(p)
         ll = lf.bit_length() - 1
+        lcl = lc.bit_length() - 1
         lx = lex[: p - 1]
         time_pair(f"chunk_sort/lex{p}", 23,
                   lambda: B.chunk_sort(x, lc, lex=lx),
-                  lambda: B.chunk_sort_ref(x, lc, lex=lx))
+                  lambda: B.chunk_sort_ref(x, lc, lex=lx), 8 * p * n,
+                  _cx_ops(n, lcl * (lcl + 1) // 2, p))
         for f in range(1, B.max_fusion(p) + 1):
             kk = ll + f
             time_pair(f"cross_stage<{f}>/lex{p}", 23,
                       lambda f=f, kk=kk: B.cross_stage(x, ll, f, kk, lex=lx),
                       lambda f=f, kk=kk: B.cross_stage_ref(x, ll, f, kk,
-                                                           lex=lx))
+                                                           lex=lx),
+                      8 * p * n, _cx_ops(n, f, p))
         time_pair(f"finish/lex{p}", 23, lambda: B.finish(x, lf, 23, lex=lx),
-                  lambda: B.finish_ref(x, lf, 23, lex=lx))
+                  lambda: B.finish_ref(x, lf, 23, lex=lx), 8 * p * n,
+                  _cx_ops(n, ll, p))
     del x, lex
 
     mask = torch.from_numpy((rng.integers(0, 2, n26)).astype(np.int32)).to(dev)
@@ -1014,13 +1360,18 @@ def main():
                                         ).astype(np.int32)).to(dev)
     counts = CP.count_tiles(mask, cfg.compact_elems)
     inclusive = torch.cumsum(counts, 0)
+    kept = int(inclusive[-1])
+    bmask = mask.bool()
     plain_compact = lambda: CP.compact_ref(mask, [col])  # noqa: E731
     time_pair("compact_count", log_n,
-              lambda: CP.count_tiles(mask, cfg.compact_elems), plain_compact)
+              lambda: CP.count_tiles(mask, cfg.compact_elems), plain_compact,
+              4 * n26 + 8 * counts.numel(), n26,
+              lambda: torch.count_nonzero(mask.view(-1, cfg.compact_elems), 1))
     time_pair("compact_write", log_n,
               lambda: CP.write_tiles(mask, [col], inclusive, cfg.compact_elems),
-              plain_compact)
-    del mask, col, counts, inclusive
+              plain_compact, 8 * n26 + 8 * counts.numel() + 4 * kept, n26,
+              lambda: torch.masked_select(col, bmask))
+    del mask, col, counts, inclusive, bmask
 
     skeys = torch.from_numpy(np.sort(rng.integers(0, 10007, n26).astype(
         np.uint32)).view(np.int32)).to(dev)
@@ -1028,9 +1379,13 @@ def main():
                                           ).astype(np.int32)).to(dev)
     launch = SG.Launch(skeys, [svals], [], "sum", torch.uint32, cfg.scan_elems)
     plain_scan = lambda: SG.segscan_ref(skeys, svals, "sum", torch.uint32)  # noqa: E731
+    tiles_b = 16 * (n26 // cfg.scan_elems)  # per-tile tails and carries
+    scan_bytes = {"segscan_tile": 12 * n26 + tiles_b,
+                  "segscan_carry": 2 * tiles_b,
+                  "segscan_apply": 12 * n26 + tiles_b}
     for phase, name in enumerate(SG.KERNELS):
         time_pair(name, log_n, lambda phase=phase: launch.run(phase),
-                  plain_scan)
+                  plain_scan, scan_bytes[name], n26 if phase != 1 else 0)
     del skeys, svals, launch
 
     # the dense aggregates at 2^26 rows, 256 bins (the config-3 shape)
@@ -1038,25 +1393,119 @@ def main():
                        device=dev).view(torch.uint32)
     dvals = torch.randint(0, 1 << 11, (n26,), dtype=i32, generator=gen,
                           device=dev)
+    dk_long, dvals_long = _i32(dk).long(), dvals.long()
+    acc = torch.zeros(256, dtype=torch.int64, device=dev)
+    ext = torch.full((256,), 2**31 - 1, dtype=i32, device=dev)
     time_pair("dense_sums", log_n, lambda: AG.dense_sums(dk, dvals, 256),
-              lambda: AG.dense_sums_ref(dk, dvals, 256))
+              lambda: AG.dense_sums_ref(dk, dvals, 256), 8 * n26 + 8 * 256,
+              2 * n26, lambda: acc.index_add_(0, dk_long, dvals_long))
     time_pair("dense_extrema", log_n,
               lambda: AG.dense_extrema(dk, dvals, 256, True),
-              lambda: AG.dense_extrema_ref(dk, dvals, 256, True))
-    del dk, dvals
+              lambda: AG.dense_extrema_ref(dk, dvals, 256, True),
+              8 * n26 + 8 * 256, 2 * n26,
+              lambda: ext.scatter_reduce_(0, dk_long, dvals, "amin"))
+    del dk, dvals, dk_long, dvals_long, acc, ext
     torch.cuda.empty_cache()
+
+    # the radix kernels at the radix geometry of 2^26 keys, on the inputs
+    # the sort's own stages give them
+    rcfg = SortConfig(strategy="radix")
+    rp = RS.plan(n26, RS.pick_chunk(n26, rcfg.chunk_elems))
+    hx = torch.randint(-(2**31), 2**31, (n26,), dtype=i32, generator=gen,
+                       device=dev)
+    for name, tile, shift, bias in (("radix_hist", rp.C, 24, 0x80000000),
+                                    ("radix_hist/tile", RX.TILE, 8, 0)):
+        idx = ((torch.arange(n26, device=dev) // tile) * 256
+               + ((((_i32(hx).long() & 0xFFFFFFFF) ^ bias) >> shift) & 255))
+        time_pair(name, log_n,
+                  lambda tile=tile, s=shift, b=bias:
+                  RX.histograms(hx, tile, s, b, name=name),
+                  lambda tile=tile, s=shift, b=bias:
+                  RX.histograms_ref(hx, tile, s, b, n26),
+                  4 * n26 + 1024 * (n26 // tile), 3 * n26,
+                  lambda idx=idx, tile=tile: torch.bincount(
+                      idx, minlength=(n26 // tile) * 256))
+        del idx
+    del hx
+    gen_r = torch.Generator(device=dev).manual_seed(61)
+    for mode, (ncmp, np_) in MODES.items():
+        planes = _mode_planes(dev, mode, n26, gen_r)
+        c, f = rcfg.mode_tiles(np_, ncmp)
+        t = min(max(f, c), rp.C)
+        log_c = c.bit_length() - 1
+        cyc, merge = B.radix_kernels(ncmp, np_)
+        pack, concat = M.mode_kernels(ncmp, np_)
+        out = [torch.empty_like(q) for q in planes]
+        time_pair(cyc, log_n,
+                  lambda: B.chunk_sort_cyclic(planes, out, ncmp, rp.C, c),
+                  lambda: B.chunk_sort_cyclic_ref(planes, ncmp, rp.C, c),
+                  8 * np_ * n26, _cx_ops(n26, log_c * (log_c + 1) // 2, np_),
+                  tile_sort(planes[0], c) if mode == "keys" else None)
+        sorted_ = B.sort_chunks_ascending_cyclic(planes, ncmp, rp.C, c, f)
+        tail = mode == "rider"
+        spl = RS.choose_splitters(sorted_[0], planes[0], rp, n26,
+                                  rcfg.mode_tiles(1, 1), tail)
+        if tail:
+            spl = torch.cat((spl, spl.new_full((1,), PAD)))
+        m = spl.numel()
+        ranks = M.splitter_ranks(sorted_[0], spl, rp.C)
+        if mode == "keys":
+            view = sorted_[0].view(rp.n_chunks, rp.C)
+            spl2 = spl.expand(rp.n_chunks, m).contiguous()
+            log_cc = rp.C.bit_length() - 1
+            time_pair("radix_rank", log_n,
+                      lambda: M.splitter_ranks(sorted_[0], spl, rp.C),
+                      lambda: M.splitter_ranks_ref(sorted_[0], spl, rp.C),
+                      4 * rp.n_chunks * m * (log_cc + 2), rp.n_chunks * m *
+                      log_cc, lambda: torch.searchsorted(view, spl2))
+        b = RS.run_bounds(ranks, rp, n26, tail)
+        packed = M.pack(sorted_, b.bounds, rp.C, rp.slot, rp.nb_pad, ncmp)
+        slots = rp.nb_pad * rp.C
+        time_pair(pack, log_n,
+                  lambda: M.pack(sorted_, b.bounds, rp.C, rp.slot, rp.nb_pad,
+                                 ncmp),
+                  lambda: M.pack_ref(sorted_, b.bounds, rp.C, rp.slot,
+                                     rp.nb_pad, ncmp),
+                  4 * np_ * (n26 + slots) + 4 * b.bounds.numel())
+        mout = [torch.empty_like(q) for q in packed]
+        log_t = t.bit_length() - 1
+        log_s = rp.slot.bit_length() - 1
+        time_pair(merge, log_n,
+                  lambda: B.slot_merge(packed, mout, ncmp, rp.C, rp.slot, t),
+                  lambda: B.slot_merge_ref(packed, ncmp, rp.C, rp.slot, t),
+                  8 * np_ * slots,
+                  _cx_ops(slots, sum(range(log_s + 1, log_t + 1)), np_),
+                  tile_sort(packed[0], t) if mode == "keys" else None)
+        del mout
+        merged = B.merge_slots_ascending(packed, ncmp, rp.C, rp.slot, c, f)
+        del packed
+        src = sorted_ if tail else None
+        cout = [torch.empty_like(q) for q in planes]
+        time_pair(concat, log_n,
+                  lambda: M.concat(merged, src, cout, b.start, b.src,
+                                   rp.nb_pad, ncmp),
+                  lambda: M.concat_ref(merged, src, b.start, b.src, rp.nb_pad,
+                                       n26, ncmp),
+                  8 * np_ * n26 + 16 * b.src.numel())
+        del planes, out, sorted_, merged, cout, ranks, b, src
+        torch.cuda.empty_cache()
 
     for m in (bench.measure_groupby(), bench.measure_filter(),
               bench.measure_query(), bench.measure_sort_pairs(),
-              bench.measure_join(), bench.measure_query_dense()):
+              bench.measure_join(), bench.measure_query_dense(),
+              bench.measure_radix(1 << 26), bench.measure_radix(1 << 28)):
+        extra = {k: m[k] for k in ("bitonic_keys_per_s", "bitonic_ms",
+                                   "radix_over_bitonic", "overflow") if k in m}
         _line("metric", **{m["metric"]: m["value"]}, ms=m["ms"],
-              spread_pct=m["spread_pct"], **card)
+              spread_pct=m["spread_pct"], **extra, **card)
         torch.cuda.empty_cache()
+    _line("breakdown", **bench.profile_radix(1 << 26))
 
     source = {"bitonic": "radx_tpu_torch/csrc/bitonic.cu",
               "compact": "radx_tpu_torch/csrc/compact.cu",
               "segscan": "radx_tpu_torch/csrc/segscan.cu",
-              "dense": "radx_tpu_torch/csrc/aggregate.cu"}
+              "dense": "radx_tpu_torch/csrc/aggregate.cu",
+              "radix": "radx_tpu_torch/csrc/radix.cu"}
     replaces = {
         "chunk_sort": "radx_tpu/kernels/bitonic.py:198",
         "cross_stage<1>": "radx_tpu/kernels/bitonic.py:465",
@@ -1064,10 +1513,17 @@ def main():
         "cross_stage<3>": "radx_tpu/kernels/bitonic.py:374",
         "cross_stage<4>": "radx_tpu/kernels/bitonic.py:398",
         "finish": "radx_tpu/kernels/bitonic.py:427",
+        "chunk_sort_cyclic": "radx_tpu/kernels/bitonic.py:217",
+        "slot_merge": "radx_tpu/kernels/bitonic.py:261",
         "compact": "radx_tpu/kernels/compact.py:54",
         "segscan": "radx_tpu/kernels/segscan.py:78",
         "dense_sums": "radx_tpu/kernels/aggregate.py:47",
         "dense_extrema": "radx_tpu/kernels/aggregate.py:164",
+        "radix_hist": "radx_tpu/kernels/radix.py:104",
+        "radix_hist/tile": "radx_tpu/kernels/radix.py:38",
+        "radix_rank": "radx_tpu/kernels/msd.py:117",
+        "radix_pack": "radx_tpu/kernels/msd.py:194",
+        "radix_concat": "radx_tpu/kernels/msd.py:243",
     }
 
     def entry(name):
@@ -1076,6 +1532,8 @@ def main():
             src, rep = source["bitonic"], replaces[family]
         elif name in AG.KERNELS:
             src, rep = source["dense"], replaces[name]
+        elif family.startswith("radix"):
+            src, rep = source["radix"], replaces.get(name, replaces[family])
         else:
             kind = name.split("_")[0]
             src, rep = source[kind], replaces[kind]
@@ -1083,14 +1541,15 @@ def main():
         log_n = min(times)
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": TOTAL_LAUNCHES.get(name, 0),
-             "max_abs_err": ERR.get(name, 0.0),
-             "ms": times[log_n][0], "plain_ms": times[log_n][1],
+             "max_abs_err": ERR.get(name, 0.0), **times[log_n],
              "n": 1 << log_n}
         if log_n != 26 and 26 in times:
-            e.update(ms_n2e26=times[26][0], plain_ms_n2e26=times[26][1])
+            e.update({f"{k}_n2e26": v for k, v in times[26].items()})
         return e
 
     kernels = [entry(k) for k in all_kernels]
+    _line("unlaunched", kernels=[k["name"] for k in kernels
+                                 if k["launches"] < 1])
     _line("elapsed", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -29,7 +29,13 @@ plain torch reference on the card):
   * ``query_filter_groupby_dense_rows_per_s_n2e30`` — BASELINE config 3 at
     its own size through ``LazyTable``: ``filter(pred < 2^31)`` then
     ``groupby(bucket, value, "sum", bins=256)`` over 2^30 rows, one host
-    sync.
+    sync;
+  * ``sort_radix_u32_keys_per_s_n2e26`` / ``_n2e28`` — ``sort`` under
+    ``SortConfig(strategy="radix")`` on the permutation keys (the
+    ``sort_radix_64m`` / ``_268m`` rows of the JAX ``bench_suite``), gated on
+    ``torch.sort`` and on the overflow flag being False, with the bitonic
+    rate at the same n beside it (``python -m radx_tpu_torch.bench radix``,
+    which also prints ``profile_radix``, the breakdown by kernel).
 
 ``sweep`` runs the rider and lexicographic tile sweeps, ``profile`` the
 group-by and join breakdowns by layer (torch.profiler).
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from radx_tpu_torch.config import SortConfig
+from radx_tpu_torch.kernels import msd
 from radx_tpu_torch.ops.filter import filter_columns
 from radx_tpu_torch.ops.groupby import groupby
 from radx_tpu_torch.ops.sort import argsort, sort, sort_pairs
@@ -510,6 +517,52 @@ def profile_join(n: int = 10**8, calls: int = 2) -> dict:
                     f"Table.join inner n={n} x {n}, ms of device time per call")
 
 
+# --- slice 4: strategy="radix" ---------------------------------------------
+
+RADIX = SortConfig(strategy="radix")
+
+
+def measure_radix(n: int, cfg: SortConfig = RADIX) -> dict:
+    """``sort`` under strategy="radix" on n permutation keys, gated on
+    torch.sort and on the overflow flag; the bitonic ``sort`` of the same
+    keys timed in the same call."""
+    dev = timing.require_cuda()
+    keys = torch.from_numpy(permutation_keys(n)).to(dev)
+    msd.reset_counts()
+    if not torch.equal(sort(keys, cfg).view(torch.int32),
+                       torch_sort_u32(keys).view(torch.int32)):
+        raise AssertionError(f"radix sort of {n} keys differs from torch.sort")
+    if not msd.LAUNCHES["radix_rank"] == msd.LAUNCHES["radix_concat"] == 1:
+        raise AssertionError(f"radix overflow on {n} permutation keys")
+    msd.reset_counts()
+    t = timing.time_cuda(lambda: sort(keys, cfg), iters=3, repeats=5)
+    if msd.LAUNCHES["radix_concat"] != msd.LAUNCHES["radix_rank"]:
+        raise AssertionError("a timed radix sort fell back to the network")
+    tb = timing.time_cuda(lambda: sort(keys), iters=3, repeats=5)
+    return _row(f"sort_radix_u32_keys_per_s_{_name(n)}", n, t, unit="keys/s",
+                overflow=False, bitonic_keys_per_s=n / tb.seconds,
+                bitonic_ms=tb.seconds * 1e3,
+                radix_over_bitonic=tb.seconds / t.seconds)
+
+
+def _radix_layer(name: str) -> str:
+    for layer in ("chunk_sort_cyclic", "slot_merge", "radix_hist", "radix_rank",
+                  "radix_pack", "radix_concat", "cross_stage", "finish",
+                  "chunk_sort"):
+        if layer in name:
+            return layer
+    return "elementwise"
+
+
+def profile_radix(n: int = 1 << 26, calls: int = 3) -> dict:
+    """``sort`` under strategy="radix" by kernel: K4 (chunk_sort_cyclic),
+    K5 (slot_merge), the span passes of both and the sample sort
+    (cross_stage, finish, chunk_sort), K10-K13, elementwise."""
+    keys = torch.from_numpy(permutation_keys(n)).to(timing.require_cuda())
+    return _profile(lambda: sort(keys, RADIX), calls, _radix_layer,
+                    f"sort strategy=radix n={n}, ms of device time per call")
+
+
 MEASURES = {
     "sort": lambda: [measure(N), measure(1 << 26)],
     "groupby": lambda: [measure_groupby()],
@@ -520,6 +573,8 @@ MEASURES = {
     "dense": lambda: [measure_query_dense()],
     "sweep": lambda: sweep_rider_tiles() + sweep_lex_tiles(),
     "profile": lambda: [profile_groupby(), profile_join()],
+    "radix": lambda: [measure_radix(1 << 26), measure_radix(1 << 28),
+                      profile_radix()],
 }
 
 

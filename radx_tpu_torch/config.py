@@ -25,6 +25,11 @@ take any size.  The relational paths have tiles of their own:
   * ``topk_chunk_elems`` — top_k's per-chunk (key, index) sort;
   * ``compact_elems`` — keys per block of the mask compaction;
   * ``scan_elems`` — keys per block of the segmented scan.
+
+``strategy="radix"`` has no tile of its own: its chunk grows from the
+mode's chunk tile (kernels/radix_sort.pick_chunk), as the JAX chunk grows
+from ``chunk_rows`` and its siblings, and its sorts and merges run on the
+mode's tiles (``mode_tiles``).
 """
 
 from __future__ import annotations
@@ -50,7 +55,9 @@ class SortConfig:
       strategy: ``"bitonic"`` (default) runs the hand-written CUDA bitonic
         network (kernels/bitonic.py); ``"lax"`` maps to ``torch.sort``, the
         counterpart of the JAX package's ``jax.lax.sort`` fallback;
-        ``"radix"`` (the distribution sort) is not ported yet.
+        ``"radix"`` runs the radix distribution sort
+        (kernels/radix_sort.py) where its plan applies, falling back to the
+        network when a bucket overflows its slots.
       chunk_elems: chunk-sort tile in keys (power of two).
       finish_elems: finish tile in keys (power of two, >= chunk_elems).
       rider_chunk_elems, rider_finish_elems: the same tiles for the
@@ -95,14 +102,19 @@ class SortConfig:
         return (self.stable_chunk_elems // shrink,
                 self.stable_finish_elems // shrink)
 
+    def mode_tiles(self, planes: int, num_cmp: int) -> tuple[int, int]:
+        """(chunk, finish) tiles of a sort of ``planes`` planes with
+        ``num_cmp`` compare planes: keys only, (key, rider) or
+        lexicographic."""
+        if num_cmp == 2:
+            return self.lex_tiles(planes)
+        if planes == 2:
+            return self.rider_chunk_elems, self.rider_finish_elems
+        return self.chunk_elems, self.finish_elems
+
     def __post_init__(self):
         if self.strategy not in STRATEGIES:
             raise ValueError(f"unknown sort strategy {self.strategy!r}")
-        if self.strategy == "radix":
-            raise NotImplementedError(
-                'strategy="radix" (the distribution sort) is not ported yet: '
-                "ROADMAP.md Queue 1 item M8"
-            )
         if not (_is_pow2(self.chunk_elems) and self.chunk_elems >= 2):
             raise ValueError("chunk_elems must be a power of two >= 2")
         if not _is_pow2(self.finish_elems):

@@ -34,6 +34,21 @@
 //   finish      <- _finishw_kernel (:427).  Every distance of one level that
 //                  is below the finish tile T, inside each tile of T keys.
 //
+// Two more kernels carry the radix distribution sort (kernels/radix_sort.py):
+//
+//   chunk_sort_cyclic <- _chunk_sort_cyclic_kernel (:217).  Stages
+//                  1..log2(T) of an ascending sort of every radix chunk,
+//                  whose tiles of 1024 keys are taken block-cyclically.
+//   slot_merge  <- _slot_merge_kernel (:261).  Reverses the odd slots of
+//                  every radix chunk and merges the ascending slots up to
+//                  the tile.
+//
+// A radix chunk (2^17..2^20 keys on the card) is larger than a block's
+// shared memory, so its levels above the tile run on cross_stage / finish
+// with a direction span: the direction bit kk is read from the index within
+// the 2^log_span block (`dmask` = 2^log_span - 1), so the top level of the
+// span sorts ascending.  A span of the whole array is the plain network.
+//
 // The host side (radx_tpu_torch/kernels/bitonic.py) runs, per merge level,
 // the cross passes for distances >= T (greedy F = max_fusion(P) .. 1) and
 // then one finish pass.  Each entry point launches on the stream it is
@@ -45,17 +60,14 @@
 
 #include <algorithm>
 
+#include "planes.cuh"
+
 namespace {
 
-constexpr int kMaxTileThreads = 1024;  // chunk_sort / finish block size cap
+constexpr int kMaxTileThreads = 1024;  // tile kernels' block size cap
 constexpr int kCrossThreads = 256;
 constexpr int kStaticSmemBytes = 48 * 1024;
-constexpr int kMaxPlanes = 8;
-
-// The planes of one sort, passed to every kernel by value.
-struct Planes {
-  int* p[kMaxPlanes];
-};
+constexpr int kCyclicLog = 10;  // block-cyclic tile: 1024 keys (JAX t_rows=8)
 
 // Distances fused per cross pass at P planes: 2^F * P values live in
 // registers per thread, at most 48 (no spills; ptxas report in PERF.md).
@@ -92,12 +104,15 @@ __device__ __forceinline__ bool must_swap(int a0, int a1, int b0, int b1,
 // in shared memory (plane j at s + j * 2^log_t).  Pair p of the substage at
 // distance d = 2^dj has its low element at
 // lo = (p >> dj) << (dj + 1) | (p & (d - 1)); it ascends iff bit kk of
-// (gbase + lo) equals `invert`.  Each pair belongs to one thread.
+// ((gbase + lo) & dmask) equals `invert`.  Each pair belongs to one thread.
+// The tile lies inside one span (2^log_t <= the span, both aligned), so the
+// mask applies to gbase once: (gbase + lo) & dmask = (gbase & dmask) + lo.
 template <int NCMP, int P>
-__device__ void tile_substages(int* s, int log_t, int64_t gbase, int kk,
-                               int top, int invert) {
+__device__ void tile_substages(int* s, int log_t, int64_t gbase,
+                               int64_t dmask, int kk, int top, int invert) {
   const int pairs = 1 << (log_t - 1);
   const int t = 1 << log_t;
+  gbase &= dmask;
   for (int dj = top - 1; dj >= 0; --dj) {
     const int d = 1 << dj;
     for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
@@ -169,9 +184,77 @@ __global__ void chunk_sort_kernel(Planes x, int log_c, int invert,
   load_tile<P>(s, x, base, c);
   const int64_t gbase = ascending ? 0 : base;
   for (int kk = 1; kk <= log_c; ++kk) {
-    tile_substages<NCMP, P>(s, log_c, gbase, kk, kk, invert);
+    tile_substages<NCMP, P>(s, log_c, gbase, -1, kk, kk, invert);
   }
   store_tile<P>(x, base, s, c);
+}
+
+// chunk_sort_cyclic — replaces radx_tpu/kernels/bitonic.py::
+// _chunk_sort_cyclic_kernel (radix phase 1).
+// Bound on the card: shared memory, as chunk_sort.  Radix chunk c (2^log_c
+// keys) owns the tiles {g * n_chunks + c} of 1024 keys, so locally ordered
+// inputs spread evenly over the chunks.  One block per 2^log_t keys of a
+// chunk: it loads whole 1024-key tiles (coalesced) from their cyclic
+// places, runs stages 1..log_t with directions from the index within the
+// radix chunk, and writes the tile contiguously to `out` (out of place: the
+// cyclic input and the contiguous output overlap across blocks).  With
+// log_t == log_c the chunk ends ascending, as in the JAX kernel; a larger
+// chunk is finished by cross_stage / finish with a span of 2^log_c.
+template <int NCMP, int P>
+__global__ void chunk_sort_cyclic_kernel(Planes in, Planes out, int log_t,
+                                         int log_c, int64_t n_chunks) {
+  extern __shared__ int s[];
+  const int t = 1 << log_t;
+  const int64_t tile = blockIdx.x;
+  const int64_t c = tile >> (log_c - log_t);
+  const int64_t lb = (tile << log_t) & ((static_cast<int64_t>(1) << log_c) - 1);
+  constexpr int64_t kCyclic = static_cast<int64_t>(1) << kCyclicLog;
+  for (int i = threadIdx.x; i < t; i += blockDim.x) {
+    const int64_t e = lb + i;
+    const int64_t src = (((e >> kCyclicLog) * n_chunks + c) << kCyclicLog) |
+                        (e & (kCyclic - 1));
+#pragma unroll
+    for (int j = 0; j < P; ++j) s[j * t + i] = in.p[j][src];
+  }
+  __syncthreads();
+  const int64_t dmask = (static_cast<int64_t>(1) << log_c) - 1;
+  for (int kk = 1; kk <= log_t; ++kk) {
+    tile_substages<NCMP, P>(s, log_t, lb, dmask, kk, kk, 0);
+  }
+  store_tile<P>(out, (c << log_c) + lb, s, t);
+}
+
+// slot_merge — replaces radx_tpu/kernels/bitonic.py::_slot_merge_kernel
+// (radix phase C).
+// Bound on the card: shared memory above the slot, device memory at it.
+// Every radix chunk of 2^log_c keys holds ascending slots of 2^log_s keys
+// (the packed runs with their fill tails).  Reversing the odd slots gives
+// the bitonic invariant of level log_s; the JAX kernel reverses with lane
+// gathers and rolls, here the load itself reads x[i ^ (S - 1)] for odd
+// slots, at no extra pass.  Then levels log_s + 1 .. log_t run in shared
+// memory with directions from the index within the chunk, and the tile is
+// written to `out` (out of place: with S > T a tile reads another tile's
+// keys).  Levels above the tile run on cross_stage / finish with a span of
+// 2^log_c.
+template <int NCMP, int P>
+__global__ void slot_merge_kernel(Planes in, Planes out, int log_t, int log_s,
+                                  int log_c) {
+  extern __shared__ int s[];
+  const int t = 1 << log_t;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
+  const int64_t smask = (static_cast<int64_t>(1) << log_s) - 1;
+  for (int i = threadIdx.x; i < t; i += blockDim.x) {
+    const int64_t g = base + i;
+    const int64_t src = ((g >> log_s) & 1) ? (g ^ smask) : g;
+#pragma unroll
+    for (int j = 0; j < P; ++j) s[j * t + i] = in.p[j][src];
+  }
+  __syncthreads();
+  const int64_t dmask = (static_cast<int64_t>(1) << log_c) - 1;
+  for (int kk = log_s + 1; kk <= log_t; ++kk) {
+    tile_substages<NCMP, P>(s, log_t, base, dmask, kk, kk, 0);
+  }
+  store_tile<P>(out, base, s, t);
 }
 
 // finish — replaces radx_tpu/kernels/bitonic.py::_finishw_kernel.
@@ -180,15 +263,16 @@ __global__ void chunk_sort_kernel(Planes x, int log_c, int invert,
 // a W-chunk finish sized by VMEM; here every distance below the tile T runs
 // in one block's shared memory and the distances >= T are cross passes, so
 // a level costs one device-memory pass for its whole tail.  The direction
-// comes from bit kk of each key's global index, so a tile may hold several
-// merge groups of a low level.
+// comes from bit kk of each key's index within the span (dmask), so a tile
+// may hold several merge groups of a low level.
 template <int NCMP, int P>
-__global__ void finish_kernel(Planes x, int log_t, int kk, int invert) {
+__global__ void finish_kernel(Planes x, int log_t, int kk, int invert,
+                              int64_t dmask) {
   extern __shared__ int s[];
   const int t = 1 << log_t;
   const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
   load_tile<P>(s, x, base, t);
-  tile_substages<NCMP, P>(s, log_t, base, kk, min(log_t, kk), invert);
+  tile_substages<NCMP, P>(s, log_t, base, dmask, kk, min(log_t, kk), invert);
   store_tile<P>(x, base, s, t);
 }
 
@@ -205,13 +289,13 @@ __global__ void finish_kernel(Planes x, int log_t, int kk, int invert) {
 // F is capped by P (max_fusion) so the 2^F * P registers do not spill.
 template <int F, int NCMP, int P>
 __global__ void cross_stage_kernel(Planes x, int64_t groups, int j_low, int kk,
-                                   int invert) {
+                                   int invert, int64_t dmask) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= groups) return;
   const int64_t jmask = (static_cast<int64_t>(1) << j_low) - 1;
   const int64_t stride = jmask + 1;
   const int64_t i0 = ((t & ~jmask) << F) | (t & jmask);
-  const bool up = ((i0 >> kk) & 1) == invert;
+  const bool up = (((i0 & dmask) >> kk) & 1) == invert;
   constexpr int kW = 1 << F;
   int v[P][kW];
 #pragma unroll
@@ -251,7 +335,7 @@ __global__ void cross_stage_kernel(Planes x, int64_t groups, int j_low, int kk,
 
 template <int F, int NCMP, int P>
 cudaError_t launch_cross(const Planes& x, int64_t n, int j_low, int kk,
-                         int invert, cudaStream_t stream) {
+                         int invert, int64_t dmask, cudaStream_t stream) {
   if constexpr (F > max_fusion(P)) {
     return cudaErrorInvalidValue;
   } else {
@@ -259,7 +343,7 @@ cudaError_t launch_cross(const Planes& x, int64_t n, int j_low, int kk,
     const int64_t blocks = (groups + kCrossThreads - 1) / kCrossThreads;
     cross_stage_kernel<F, NCMP, P>
         <<<static_cast<unsigned>(blocks), kCrossThreads, 0, stream>>>(
-            x, groups, j_low, kk, invert);
+            x, groups, j_low, kk, invert, dmask);
     return cudaGetLastError();
   }
 }
@@ -296,7 +380,7 @@ cudaError_t chunk_sort(const Planes& x, int64_t n, int log_c, int invert,
 
 template <int NCMP, int P>
 cudaError_t finish(const Planes& x, int64_t n, int log_t, int kk, int invert,
-                   cudaStream_t stream) {
+                   int64_t dmask, cudaStream_t stream) {
   int threads;
   size_t smem;
   cudaError_t err = tile_launch_config(finish_kernel<NCMP, P>, P, log_t,
@@ -304,18 +388,57 @@ cudaError_t finish(const Planes& x, int64_t n, int log_t, int kk, int invert,
   if (err != cudaSuccess) return err;
   const int64_t blocks = n >> log_t;
   finish_kernel<NCMP, P><<<static_cast<unsigned>(blocks), threads, smem,
-                           stream>>>(x, log_t, kk, invert);
+                           stream>>>(x, log_t, kk, invert, dmask);
+  return cudaGetLastError();
+}
+
+template <int NCMP, int P>
+cudaError_t chunk_sort_cyclic(const Planes& in, const Planes& out, int64_t n,
+                              int log_t, int log_c, cudaStream_t stream) {
+  if (log_t > log_c || log_c < kCyclicLog || log_c > 62 ||
+      (n >> log_c) << log_c != n) {
+    return cudaErrorInvalidValue;
+  }
+  int threads;
+  size_t smem;
+  cudaError_t err = tile_launch_config(chunk_sort_cyclic_kernel<NCMP, P>, P,
+                                       log_t, &threads, &smem);
+  if (err != cudaSuccess) return err;
+  chunk_sort_cyclic_kernel<NCMP, P>
+      <<<static_cast<unsigned>(n >> log_t), threads, smem, stream>>>(
+          in, out, log_t, log_c, n >> log_c);
+  return cudaGetLastError();
+}
+
+template <int NCMP, int P>
+cudaError_t slot_merge(const Planes& in, const Planes& out, int64_t n,
+                       int log_t, int log_s, int log_c, cudaStream_t stream) {
+  if (log_t > log_c || log_s >= log_c || (n >> log_c) << log_c != n) {
+    return cudaErrorInvalidValue;
+  }
+  int threads;
+  size_t smem;
+  cudaError_t err = tile_launch_config(slot_merge_kernel<NCMP, P>, P, log_t,
+                                       &threads, &smem);
+  if (err != cudaSuccess) return err;
+  slot_merge_kernel<NCMP, P>
+      <<<static_cast<unsigned>(n >> log_t), threads, smem, stream>>>(
+          in, out, log_t, log_s, log_c);
   return cudaGetLastError();
 }
 
 template <int NCMP, int P>
 cudaError_t cross(const Planes& x, int64_t n, int j_low, int f, int kk,
-                  int invert, cudaStream_t stream) {
+                  int invert, int64_t dmask, cudaStream_t stream) {
   switch (f) {
-    case 1: return launch_cross<1, NCMP, P>(x, n, j_low, kk, invert, stream);
-    case 2: return launch_cross<2, NCMP, P>(x, n, j_low, kk, invert, stream);
-    case 3: return launch_cross<3, NCMP, P>(x, n, j_low, kk, invert, stream);
-    case 4: return launch_cross<4, NCMP, P>(x, n, j_low, kk, invert, stream);
+    case 1:
+      return launch_cross<1, NCMP, P>(x, n, j_low, kk, invert, dmask, stream);
+    case 2:
+      return launch_cross<2, NCMP, P>(x, n, j_low, kk, invert, dmask, stream);
+    case 3:
+      return launch_cross<3, NCMP, P>(x, n, j_low, kk, invert, dmask, stream);
+    case 4:
+      return launch_cross<4, NCMP, P>(x, n, j_low, kk, invert, dmask, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -336,10 +459,11 @@ struct FinishLaunch {
   Planes x;
   int64_t n;
   int log_t, kk, invert;
+  int64_t dmask;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    return finish<NCMP, P>(x, n, log_t, kk, invert, stream);
+    return finish<NCMP, P>(x, n, log_t, kk, invert, dmask, stream);
   }
 };
 
@@ -347,43 +471,39 @@ struct CrossLaunch {
   Planes x;
   int64_t n;
   int j_low, f, kk, invert;
+  int64_t dmask;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    return cross<NCMP, P>(x, n, j_low, f, kk, invert, stream);
+    return cross<NCMP, P>(x, n, j_low, f, kk, invert, dmask, stream);
   }
 };
 
-// Run `launch` with the template instance of (ncmp, np): (1, 1), (1, 2) or
-// (2, 2..8).
-template <typename Launch>
-cudaError_t dispatch(int ncmp, int np, const Launch& launch) {
-  if (ncmp == 1) {
-    switch (np) {
-      case 1: return launch.template operator()<1, 1>();
-      case 2: return launch.template operator()<1, 2>();
-      default: return cudaErrorInvalidValue;
-    }
+struct CyclicLaunch {
+  Planes in, out;
+  int64_t n;
+  int log_t, log_c;
+  cudaStream_t stream;
+  template <int NCMP, int P>
+  cudaError_t operator()() const {
+    return chunk_sort_cyclic<NCMP, P>(in, out, n, log_t, log_c, stream);
   }
-  if (ncmp != 2) return cudaErrorInvalidValue;
-  switch (np) {
-    case 2: return launch.template operator()<2, 2>();
-    case 3: return launch.template operator()<2, 3>();
-    case 4: return launch.template operator()<2, 4>();
-    case 5: return launch.template operator()<2, 5>();
-    case 6: return launch.template operator()<2, 6>();
-    case 7: return launch.template operator()<2, 7>();
-    case 8: return launch.template operator()<2, 8>();
-    default: return cudaErrorInvalidValue;
-  }
-}
+};
 
-bool make_planes(void* const* ptrs, int64_t np, Planes* out) {
-  if (np < 1 || np > kMaxPlanes) return false;
-  for (int j = 0; j < kMaxPlanes; ++j) {
-    out->p[j] = j < np ? static_cast<int*>(ptrs[j]) : nullptr;
+struct SlotMergeLaunch {
+  Planes in, out;
+  int64_t n;
+  int log_t, log_s, log_c;
+  cudaStream_t stream;
+  template <int NCMP, int P>
+  cudaError_t operator()() const {
+    return slot_merge<NCMP, P>(in, out, n, log_t, log_s, log_c, stream);
   }
-  return true;
+};
+
+// The direction mask of a span of 2^log_span keys.
+int64_t span_mask(int64_t log_span) {
+  return log_span >= 63 ? -1 : (static_cast<int64_t>(1) << log_span) - 1;
 }
 
 }  // namespace
@@ -406,21 +526,24 @@ int radx_chunk_sort(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }
 
+// log_span: directions from the index within blocks of 2^log_span keys.
 int radx_finish(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
-                int64_t log_t, int64_t kk, int64_t invert, void* stream) {
+                int64_t log_t, int64_t kk, int64_t invert, int64_t log_span,
+                void* stream) {
   FinishLaunch launch;
   if (!make_planes(planes, np, &launch.x)) return cudaErrorInvalidValue;
   launch.n = n;
   launch.log_t = static_cast<int>(log_t);
   launch.kk = static_cast<int>(kk);
   launch.invert = static_cast<int>(invert);
+  launch.dmask = span_mask(log_span);
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }
 
 int radx_cross_stage(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
                      int64_t j_low, int64_t f, int64_t kk, int64_t invert,
-                     void* stream) {
+                     int64_t log_span, void* stream) {
   CrossLaunch launch;
   if (!make_planes(planes, np, &launch.x)) return cudaErrorInvalidValue;
   launch.n = n;
@@ -428,6 +551,39 @@ int radx_cross_stage(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
   launch.f = static_cast<int>(f);
   launch.kk = static_cast<int>(kk);
   launch.invert = static_cast<int>(invert);
+  launch.dmask = span_mask(log_span);
+  launch.stream = static_cast<cudaStream_t>(stream);
+  return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
+}
+
+// `in` and `out` point to np planes each (distinct buffers); n keys per
+// plane, radix chunks of 2^log_c keys, shared-memory tiles of 2^log_t.
+int radx_chunk_sort_cyclic(void* const* in, void* const* out, int64_t np,
+                           int64_t ncmp, int64_t n, int64_t log_t,
+                           int64_t log_c, void* stream) {
+  CyclicLaunch launch;
+  if (!make_planes(in, np, &launch.in) || !make_planes(out, np, &launch.out)) {
+    return cudaErrorInvalidValue;
+  }
+  launch.n = n;
+  launch.log_t = static_cast<int>(log_t);
+  launch.log_c = static_cast<int>(log_c);
+  launch.stream = static_cast<cudaStream_t>(stream);
+  return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
+}
+
+// Slots of 2^log_s keys inside radix chunks of 2^log_c keys.
+int radx_slot_merge(void* const* in, void* const* out, int64_t np,
+                    int64_t ncmp, int64_t n, int64_t log_t, int64_t log_s,
+                    int64_t log_c, void* stream) {
+  SlotMergeLaunch launch;
+  if (!make_planes(in, np, &launch.in) || !make_planes(out, np, &launch.out)) {
+    return cudaErrorInvalidValue;
+  }
+  launch.n = n;
+  launch.log_t = static_cast<int>(log_t);
+  launch.log_s = static_cast<int>(log_s);
+  launch.log_c = static_cast<int>(log_c);
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }

@@ -5,7 +5,7 @@ Sales-style demo: filter rows, aggregate per store, join against a store
 dimension table, sort the result; then top_k, distinct and a left join; then
 the same query lazily, with one host sync.
 
-    python -m radx_tpu_torch.examples.query_pipeline --device cuda
+    python -m radx_tpu_torch.examples.query_pipeline               # on the card
     python -m radx_tpu_torch.examples.query_pipeline --device cpu
 
 On a CUDA device the lazy pipeline runs under
@@ -53,7 +53,7 @@ def _not_returned(t) -> torch.Tensor:
     return t.column("returned").view(torch.int32) == 0
 
 
-def run(n: int = 100_000, n_stores: int = 50, device="cpu",
+def run(n: int = 100_000, n_stores: int = 50, device="cuda",
         cfg: SortConfig | None = None, verbose: bool = False) -> dict:
     """Build the tables from numpy seed 0, run the eager and the lazy
     pipelines, check both against NumPy; returns row counts."""
@@ -142,7 +142,7 @@ def run(n: int = 100_000, n_stores: int = 50, device="cpu",
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--rows", type=int, default=100_000)
     ap.add_argument("--stores", type=int, default=50)
     args = ap.parse_args(argv)

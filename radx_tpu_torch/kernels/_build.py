@@ -36,10 +36,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     # planes, np, ncmp, n, log_c, invert, ascending, stream
     "radx_chunk_sort": (_P, _I, _I, _I, _I, _I, _I, _P),
-    # planes, np, ncmp, n, j_low, f, kk, invert, stream
-    "radx_cross_stage": (_P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # planes, np, ncmp, n, log_t, kk, invert, stream
-    "radx_finish": (_P, _I, _I, _I, _I, _I, _I, _P),
+    # planes, np, ncmp, n, j_low, f, kk, invert, log_span, stream
+    "radx_cross_stage": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # planes, np, ncmp, n, log_t, kk, invert, log_span, stream
+    "radx_finish": (_P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # in, out, np, ncmp, n, log_t, log_c, stream
+    "radx_chunk_sort_cyclic": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # in, out, np, ncmp, n, log_t, log_s, log_c, stream
+    "radx_slot_merge": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # keys, n, log_tile, shift, bias, out, stream
+    "radx_radix_hist": (_P, _I, _I, _I, _I, _P, _P),
+    # keys, n_chunks, log_c, splitters, m, ranks, stream
+    "radx_radix_rank": (_P, _I, _I, _P, _I, _P, _P),
+    # in, out, np, ncmp, n_chunks, log_c, bounds, nb_pad, log_slot, stream
+    "radx_radix_pack": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
+    # merged, sorted, out, np, ncmp, start, src, n_seg, n_merged, total,
+    # stream
+    "radx_radix_concat": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
     # keys, values, n, bins, n_valid (or null), sums, counts, stream
     "radx_dense_sums": (_P, _P, _I, _I, _P, _P, _P, _P),
     # keys, ovals, n, bins, is_min, n_valid (or null), ext, counts, stream
@@ -85,7 +98,7 @@ def _digest(nvcc: str) -> str:
     h = hashlib.sha256()
     for flag in (nvcc, *NVCC_FLAGS):
         h.update(flag.encode() + b"\0")
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return h.hexdigest()[:16]
 

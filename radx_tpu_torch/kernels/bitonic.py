@@ -21,23 +21,35 @@ direction), and its partner at distance d is ``index ^ d``.  The TPU's
 (rows, 128) lane tiling, FINISH_WIDTH / QUAD_FUSION and its VMEM width
 clamps are gone; the tiles are sized by a block's shared memory (config.py).
 
-Three kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
+Five kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
 
   * ``chunk_sort``  — stages 1..log2(C) inside every chunk of C rows
     (``_chunk_sort_kernel``);
   * ``cross_stage`` — F = 1..max_fusion(P) consecutive distances >= the
     finish tile in one device-memory pass (``_cross_stage{,2,3,4}_kernel``);
   * ``finish``      — every distance of a level below the finish tile T,
-    inside each tile of T rows (``_finishw_kernel``).
+    inside each tile of T rows (``_finishw_kernel``);
+  * ``chunk_sort_cyclic`` — the radix sort's phase 1: stages 1..log2(tile)
+    of an ascending sort of every radix chunk, whose 1024-row tiles are
+    taken block-cyclically (``_chunk_sort_cyclic_kernel``);
+  * ``slot_merge`` — the radix sort's phase C: odd slots reversed, then the
+    merge levels above the slot up to the tile (``_slot_merge_kernel``).
 
-Each wrapper works in place on a contiguous 1-D int32 tensor ``x`` (plane 0)
-and, with ``rider=`` one more plane or with ``lex=`` the list of planes
-1..P-1, all of its shape and device.  On a CUDA tensor it launches its kernel
-on the current stream, without synchronising, and raises if the launch
-fails; on a CPU tensor it runs the kernel's plain PyTorch version, which
-computes the same network one compare-exchange substage at a time.
-``LAUNCHES`` counts kernel launches by name and ``PLAIN_CALLS`` counts calls
-of the plain versions.
+A radix chunk is larger than a block's shared memory, so its levels above
+the tile run as cross / finish passes with a direction ``span``: the
+direction bit comes from the index within blocks of ``span`` rows, so every
+block ends ascending (``span=None``, the whole array, is the plain network).
+
+``chunk_sort``, ``cross_stage`` and ``finish`` work in place on a contiguous
+1-D int32 tensor ``x`` (plane 0) and, with ``rider=`` one more plane or with
+``lex=`` the list of planes 1..P-1, all of its shape and device;
+``chunk_sort_cyclic`` and ``slot_merge`` read one list of planes and write
+another (out of place).  On a CUDA tensor a wrapper launches its kernel on
+the current stream, without synchronising, and raises if the launch fails;
+on a CPU tensor it runs the kernel's plain PyTorch version, which computes
+the same network one compare-exchange substage at a time.  ``LAUNCHES``
+counts kernel launches by name and ``PLAIN_CALLS`` counts calls of the
+plain versions.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from radx_tpu_torch.kernels import _build
 
 MAX_PLANES = 8
 CROSS_FUSION = (1, 2, 3, 4)  # distances fused per cross pass
+CYCLIC_TILE = 1024  # rows per block-cyclic tile (the JAX t_rows = 8 rows)
 
 
 def max_fusion(planes: int) -> int:
@@ -74,13 +87,22 @@ def mode_kernels(ncmp: int, planes: int) -> tuple[str, ...]:
             f"finish{sfx}")
 
 
+def radix_kernels(ncmp: int, planes: int) -> tuple[str, ...]:
+    """Launch names of the two radix-phase kernels in one mode."""
+    sfx = _suffix(ncmp, planes)
+    return f"chunk_sort_cyclic{sfx}", f"slot_merge{sfx}"
+
+
 KEY_KERNELS = mode_kernels(1, 1)
 RIDER_KERNELS = mode_kernels(1, 2)
 LEX_PLANES = tuple(range(2, MAX_PLANES + 1))
 LEX_KERNELS = tuple(k for p in LEX_PLANES for k in mode_kernels(2, p))
-KERNELS = KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS
+MODES = ((1, 1), (1, 2), *((2, p) for p in LEX_PLANES))
+RADIX_KERNELS = tuple(k for m in MODES for k in radix_kernels(*m))
+KERNELS = KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS + RADIX_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
-PLAIN_CALLS = dict.fromkeys(("chunk_sort_ref", "cross_stage_ref", "finish_ref"), 0)
+PLAIN_CALLS = dict.fromkeys(("chunk_sort_ref", "cross_stage_ref", "finish_ref",
+                             "chunk_sort_cyclic_ref", "slot_merge_ref"), 0)
 
 
 def reset_counts() -> None:
@@ -165,6 +187,10 @@ def _substages_ref(planes, ncmp, djs, kk, invert, local_mask=None):
     return planes
 
 
+def _mask(span):
+    return None if span is None else span - 1
+
+
 def chunk_sort_ref(x, chunk, kk_range=None, invert=False, ascending=False,
                    rider=None, lex=None):
     """Plain version of ``chunk_sort`` (stages ``kk_range``, by default all
@@ -182,32 +208,64 @@ def chunk_sort_ref(x, chunk, kk_range=None, invert=False, ascending=False,
     return _result(planes, rider, lex)
 
 
-def cross_stage_ref(x, j_low, f, kk, invert=False, rider=None, lex=None):
+def cross_stage_ref(x, j_low, f, kk, invert=False, rider=None, lex=None,
+                    span=None):
     """Plain version of ``cross_stage``: distances 2^(j_low+f-1) .. 2^j_low."""
     PLAIN_CALLS["cross_stage_ref"] += 1
     planes, ncmp = _planes(x, rider, lex)
     planes = _substages_ref(planes, ncmp, range(j_low + f - 1, j_low - 1, -1),
-                            kk, invert)
+                            kk, invert, _mask(span))
     return _result(planes, rider, lex)
 
 
-def finish_ref(x, tile, kk, invert=False, rider=None, lex=None):
+def finish_ref(x, tile, kk, invert=False, rider=None, lex=None, span=None):
     """Plain version of ``finish``: level kk's distances below ``tile``."""
     PLAIN_CALLS["finish_ref"] += 1
     planes, ncmp = _planes(x, rider, lex)
     planes = _substages_ref(planes, ncmp,
-                            range(min(_log2(tile), kk) - 1, -1, -1), kk, invert)
+                            range(min(_log2(tile), kk) - 1, -1, -1), kk, invert,
+                            _mask(span))
     return _result(planes, rider, lex)
+
+
+def _cyclic_view(p, chunk):
+    """Radix chunk c's rows in order: tiles {g * n_chunks + c} of
+    CYCLIC_TILE rows."""
+    n_chunks = p.numel() // chunk
+    return (p.view(chunk // CYCLIC_TILE, n_chunks, CYCLIC_TILE)
+            .transpose(0, 1).reshape(-1))
+
+
+def chunk_sort_cyclic_ref(planes, ncmp, chunk, tile):
+    """Plain version of ``chunk_sort_cyclic``: the new sorted planes."""
+    PLAIN_CALLS["chunk_sort_cyclic_ref"] += 1
+    planes = [_cyclic_view(p, chunk) for p in planes]
+    for kk in range(1, _log2(tile) + 1):
+        planes = _substages_ref(planes, ncmp, range(kk - 1, -1, -1), kk,
+                                False, chunk - 1)
+    return planes
+
+
+def slot_merge_ref(planes, ncmp, chunk, slot, tile):
+    """Plain version of ``slot_merge``: the new planes."""
+    PLAIN_CALLS["slot_merge_ref"] += 1
+    i = torch.arange(planes[0].numel(), device=planes[0].device)
+    src = torch.where(((i >> _log2(slot)) & 1) == 1, i ^ (slot - 1), i)
+    planes = [p[src] for p in planes]
+    for kk in range(_log2(slot) + 1, _log2(tile) + 1):
+        planes = _substages_ref(planes, ncmp, range(kk - 1, -1, -1), kk,
+                                False, chunk - 1)
+    return planes
 
 
 # --- kernel wrappers -----------------------------------------------------------
 
 
-def _on_cuda(planes, span, tile=False):
-    """Validate the planes for a pass over blocks of ``span`` rows; True for
-    CUDA tensors (launch the kernel), False for CPU ones (run the plain
-    version).  ``tile``: the span of every plane is held in one block's
-    shared memory."""
+def _on_cuda(planes, block, tile=False):
+    """Validate the planes for a pass over blocks of ``block`` rows (a
+    power of two dividing their length); True for CUDA tensors (launch the
+    kernel), False for CPU ones (run the plain version).  ``tile``: the
+    block of every plane is held in one block's shared memory."""
     x = planes[0]
     if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
         raise ValueError("expected a contiguous 1-D int32 tensor")
@@ -217,19 +275,29 @@ def _on_cuda(planes, span, tile=False):
             raise ValueError("every rider / lex plane must be a contiguous "
                              "int32 tensor of the keys' shape on their device")
     n = x.numel()
-    _log2(n)
-    if span < 2 or span > n:
-        raise ValueError(f"span {span} outside [2, {n}]")
+    _log2(block)
+    if block < 2 or n % block:
+        raise ValueError(f"{n} rows are not whole blocks of {block} (>= 2)")
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if tile and 4 * len(planes) * span > MAX_SMEM_BYTES:
+    if tile and 4 * len(planes) * block > MAX_SMEM_BYTES:
         raise ValueError(
-            f"tile {span} exceeds one block's shared memory at "
+            f"tile {block} exceeds one block's shared memory at "
             f"{len(planes)} planes"
         )
     return True
+
+
+def _log_span(x, span):
+    """log2 of the direction span: the whole array (a power of two) when
+    ``span`` is None, else ``span``, which must divide it."""
+    if span is None:
+        return _log2(x.numel())
+    if x.numel() % span:
+        raise ValueError(f"span {span} does not divide {x.numel()} rows")
+    return _log2(span)
 
 
 def _plain(planes, out):
@@ -257,6 +325,7 @@ def chunk_sort(x, chunk, invert=False, ascending=False, rider=None, lex=None):
     ``ascending`` takes the index within the chunk."""
     log_c = _log2(chunk)
     planes, ncmp = _planes(x, rider, lex)
+    _log2(x.numel())  # the network's directions span the whole array
     if not _on_cuda(planes, chunk, tile=True):
         return _plain(planes, chunk_sort_ref(
             x, chunk, invert=invert, ascending=ascending, rider=rider, lex=lex))
@@ -265,29 +334,112 @@ def chunk_sort(x, chunk, invert=False, ascending=False, rider=None, lex=None):
     return x
 
 
-def cross_stage(x, j_low, f, kk, invert=False, rider=None, lex=None):
+def cross_stage(x, j_low, f, kk, invert=False, rider=None, lex=None,
+                span=None):
     """Compare-exchange at the f consecutive distances 2^(j_low+f-1) ..
-    2^j_low of level kk in one pass, in place."""
+    2^j_low of level kk in one pass, in place; directions from the index
+    within blocks of ``span`` rows (default: the whole array)."""
     planes, ncmp = _planes(x, rider, lex)
-    if not 1 <= f <= max_fusion(len(planes)) or j_low + f > kk:
+    log_span = _log_span(x, span)
+    if (not 1 <= f <= max_fusion(len(planes)) or j_low + f > kk
+            or kk > log_span):
         raise ValueError(f"bad cross pass f={f} j_low={j_low} kk={kk} at "
-                         f"{len(planes)} planes")
+                         f"{len(planes)} planes, span 2^{log_span}")
     if not _on_cuda(planes, 1 << (j_low + f)):
         return _plain(planes, cross_stage_ref(x, j_low, f, kk, invert, rider,
-                                               lex))
+                                               lex, span))
     _launch(f"cross_stage<{f}>", "radx_cross_stage", planes, ncmp, j_low, f,
-            kk, int(invert))
+            kk, int(invert), log_span)
     return x
 
 
-def finish(x, tile, kk, invert=False, rider=None, lex=None):
-    """Every distance of level kk below ``tile``, inside each tile, in place."""
+def finish(x, tile, kk, invert=False, rider=None, lex=None, span=None):
+    """Every distance of level kk below ``tile``, inside each tile, in place;
+    directions from the index within blocks of ``span`` rows."""
     log_t = _log2(tile)
     planes, ncmp = _planes(x, rider, lex)
+    log_span = _log_span(x, span)
+    if log_t > log_span:
+        raise ValueError(f"tile {tile} exceeds the span 2^{log_span}")
     if not _on_cuda(planes, tile, tile=True):
-        return _plain(planes, finish_ref(x, tile, kk, invert, rider, lex))
-    _launch("finish", "radx_finish", planes, ncmp, log_t, kk, int(invert))
+        return _plain(planes, finish_ref(x, tile, kk, invert, rider, lex,
+                                          span))
+    _launch("finish", "radx_finish", planes, ncmp, log_t, kk, int(invert),
+            log_span)
     return x
+
+
+def _mode(planes, ncmp):
+    """Validate a plane list for the compare mode: (1, 1 plane), (1, 2
+    planes) or (2, 2..8 planes)."""
+    if ncmp == 1 and len(planes) in (1, 2):
+        return
+    if ncmp == 2 and 2 <= len(planes) <= MAX_PLANES:
+        return
+    raise ValueError(f"num_cmp={ncmp} does not take {len(planes)} planes")
+
+
+def _launch_io(name, fn_name, src, dst, ncmp, *args):
+    """Launch a kernel that reads the planes ``src`` and writes ``dst``."""
+    lib = _build.load()
+    name += _suffix(ncmp, len(src))
+    arr = ctypes.c_void_p * len(src)
+    x = src[0]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = getattr(lib, fn_name)(
+            arr(*[p.data_ptr() for p in src]), arr(*[p.data_ptr() for p in dst]),
+            len(src), ncmp, x.numel(), *args, stream)
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+
+
+def _io_checks(src, dst, ncmp, chunk, tile):
+    """Validate an out-of-place radix pass; True for CUDA tensors."""
+    _mode(src, ncmp)
+    if len(dst) != len(src):
+        raise ValueError("one output plane per input plane")
+    if chunk % tile or src[0].numel() % chunk:
+        raise ValueError(f"tile {tile} / chunk {chunk} do not divide "
+                         f"{src[0].numel()} rows")
+    on_cuda = _on_cuda(src, tile, tile=True)
+    _on_cuda(dst, tile)
+    if any(a.data_ptr() == b.data_ptr() for a in src for b in dst):
+        raise ValueError("the output planes must not alias the inputs")
+    if dst[0].device != src[0].device:
+        raise ValueError("inputs and outputs on one device")
+    return on_cuda
+
+
+def chunk_sort_cyclic(src, dst, ncmp, chunk, tile):
+    """Radix phase 1: stages 1..log2(tile) of an ascending sort of every
+    radix chunk of ``chunk`` rows, chunk c made of the CYCLIC_TILE-row tiles
+    {g * n_chunks + c} of ``src``, written contiguously to ``dst``."""
+    if chunk < CYCLIC_TILE or tile > chunk:
+        raise ValueError(f"chunk {chunk} must be >= {CYCLIC_TILE} and >= "
+                         f"the tile {tile}")
+    if not _io_checks(src, dst, ncmp, chunk, tile):
+        for d, o in zip(dst, chunk_sort_cyclic_ref(src, ncmp, chunk, tile)):
+            d.copy_(o)
+        return dst
+    _launch_io("chunk_sort_cyclic", "radx_chunk_sort_cyclic", src, dst, ncmp,
+               _log2(tile), _log2(chunk))
+    return dst
+
+
+def slot_merge(src, dst, ncmp, chunk, slot, tile):
+    """Radix phase C: in every radix chunk of ``chunk`` rows, reverse the
+    odd slots of ``slot`` rows and run merge levels log2(slot)+1 ..
+    log2(tile) within each tile, written to ``dst``."""
+    if not slot < chunk or tile > chunk or chunk % slot:
+        raise ValueError(f"slot {slot} / tile {tile} / chunk {chunk}")
+    if not _io_checks(src, dst, ncmp, chunk, tile):
+        for d, o in zip(dst, slot_merge_ref(src, ncmp, chunk, slot, tile)):
+            d.copy_(o)
+        return dst
+    _launch_io("slot_merge", "radx_slot_merge", src, dst, ncmp, _log2(tile),
+               _log2(slot), _log2(chunk))
+    return dst
 
 
 # --- orchestration (radx_tpu/kernels/bitonic.py::_sort_pipeline) ------------
@@ -305,11 +457,17 @@ def _cross_schedule(kk, log_t, fmax=max(CROSS_FUSION)):
 
 
 def _sort_pipeline(x, chunk_elems, finish_elems, presorted,
-                   presorted_log=None, invert=False, rider=None, lex=None):
-    n = x.numel()
-    log_n = _log2(n)
+                   presorted_log=None, invert=False, rider=None, lex=None,
+                   span=None):
+    """Merge levels up to log2(span) (default: the whole array); with a
+    span, the input is presorted and every block of ``span`` rows ends
+    ascending (``invert`` descending)."""
+    n = x.numel() if span is None else span
+    log_n = _log_span(x, span)
     if n == 1:
         return x
+    if span is not None and not presorted:
+        raise ValueError("a span merges presorted runs only")
     c = min(chunk_elems, n)
     t = min(max(finish_elems, c), n)
     log_c, log_t = _log2(c), _log2(t)
@@ -321,8 +479,8 @@ def _sort_pipeline(x, chunk_elems, finish_elems, presorted,
     start_kk = (presorted_log if presorted else log_c) + 1
     for kk in range(start_kk, log_n + 1):
         for j_low, f in _cross_schedule(kk, log_t, fmax):
-            cross_stage(x, j_low, f, kk, invert, rider, lex)
-        finish(x, t, kk, invert, rider, lex)
+            cross_stage(x, j_low, f, kk, invert, rider, lex, span)
+        finish(x, t, kk, invert, rider, lex, span)
     return x
 
 
@@ -339,6 +497,46 @@ def sort_chunks_ascending(x, chunk_elems, lex=None):
     """Sort every chunk of ``chunk_elems`` rows ascending, independently (top
     k's per-chunk pass)."""
     return chunk_sort(x, min(chunk_elems, x.numel()), ascending=True, lex=lex)
+
+
+def _keywords(planes, ncmp):
+    """(keys, rider, lex) keyword form of a plane list."""
+    if ncmp == 2:
+        return planes[0], None, planes[1:]
+    return planes[0], (planes[1] if len(planes) > 1 else None), None
+
+
+def sort_chunks_ascending_cyclic(planes, ncmp, chunk, chunk_elems,
+                                 finish_elems):
+    """Radix phase 1 (port of ``sort_chunks_ascending_cyclic``): new planes
+    in which every radix chunk of ``chunk`` rows holds the CYCLIC_TILE-row
+    tiles {g * n_chunks + c} of ``planes``, sorted ascending.  The tiles
+    (``chunk_elems`` for the stages in shared memory, ``finish_elems`` for
+    the finish passes) are those of the mode's network; the inputs are left
+    untouched."""
+    c = min(chunk_elems, chunk)
+    out = [torch.empty_like(p) for p in planes]
+    chunk_sort_cyclic(planes, out, ncmp, chunk, c)
+    k, rd, lx = _keywords(out, ncmp)
+    _sort_pipeline(k, c, finish_elems, presorted=True, presorted_log=_log2(c),
+                   rider=rd, lex=lx, span=chunk)
+    return out
+
+
+def merge_slots_ascending(planes, ncmp, chunk, slot, chunk_elems,
+                          finish_elems):
+    """Radix phase C (port of ``merge_slots_ascending``): new planes in which
+    every radix chunk of ``chunk`` rows, made of ascending slots of ``slot``
+    rows, is merged into one ascending run."""
+    c = min(chunk_elems, chunk)
+    t = min(max(finish_elems, c), chunk)
+    out = [torch.empty_like(p) for p in planes]
+    slot_merge(planes, out, ncmp, chunk, slot, t)
+    k, rd, lx = _keywords(out, ncmp)
+    _sort_pipeline(k, c, t, presorted=True,
+                   presorted_log=max(_log2(slot), _log2(t)), rider=rd, lex=lx,
+                   span=chunk)
+    return out
 
 
 def merge_sorted_runs(x, log_run, chunk_elems, finish_elems, descending=False,
@@ -395,10 +593,8 @@ def merge_valley_ascending(x, chunk_elems, finish_elems, descending=False,
     remainder is bitonic again; iterate on it."""
     planes, ncmp = _planes(x, rider, lex)
 
-    def split(ps):  # (keys, rider, lex) keyword form of a plane list
-        if ncmp == 2:
-            return ps[0], None, ps[1:]
-        return ps[0], (ps[1] if len(ps) > 1 else None), None
+    def split(ps):
+        return _keywords(ps, ncmp)
 
     cur = planes
     while cur[0].numel() > 1:

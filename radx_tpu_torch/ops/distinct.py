@@ -39,7 +39,7 @@ def unique(keys, return_counts: bool = False, cfg: SortConfig | None = None,
     if cfg.strategy == "lax":
         plane = torch.sort(plane).values
     else:
-        sort_ops._engine(plane, cfg)
+        sort_ops._engine([plane], cfg, 1, n)
     s = plane[:n]
     first = torch.ones_like(s)
     first[1:] = (s[1:] != s[:-1]).to(torch.int32)

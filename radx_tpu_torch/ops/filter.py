@@ -40,7 +40,8 @@ def filter_columns(mask, cols, cfg: SortConfig | None = None, *, device=None):
 
     Returns ``(cols_out, count)``: each column reordered so rows where
     ``mask != 0`` occupy the first ``count`` slots in their original order.
-    Tensors stay on their device; numpy inputs need ``device=``."""
+    Tensors stay on their device; numpy inputs go to ``device`` (default
+    CUDA)."""
     cfg = cfg or DEFAULT
     mask = _as_tensor(mask, device)
     cols = [_as_tensor(c, device if device is not None else mask.device)

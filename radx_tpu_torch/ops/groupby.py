@@ -91,7 +91,7 @@ def groupby(keys, values, agg: str = "sum", cfg: SortConfig | None = None,
     order (float32 keys use the total order -inf < ... < +inf < nan, with
     -0.0 and +0.0 distinct groups).  uint32 / int32 sums wrap mod 2^32;
     float32 sums are added in an order that depends on the input; counts
-    are int32.  numpy inputs need ``device=``."""
+    are int32.  numpy inputs go to ``device`` (default CUDA)."""
     cfg = cfg or DEFAULT
     keys = sort_ops._as_tensor(keys, device)
     values = sort_ops._as_tensor(values, device if device is not None

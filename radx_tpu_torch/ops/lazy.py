@@ -23,6 +23,8 @@ until ``collect()``.  There is no pytree or jit: PyTorch runs eagerly.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from radx_tpu_torch.config import DEFAULT, SortConfig
@@ -57,8 +59,12 @@ def filter_lazy(mask, cols, count, cfg: SortConfig):
 def groupby_lazy(enc, values, count, agg: str, cfg: SortConfig):
     """Validity-aware sort-based aggregation over encoded uint32 keys
     (ops/groupby._groupby with the rows below ``count`` valid).  Returns
-    (uint32 keys, aggregates, num_groups) padded to the input's rows."""
+    (uint32 keys, aggregates, num_groups) padded to the input's rows.  The
+    rider sort stays on the network under ``"radix"``, whose overflow flag
+    is read on the host."""
     n = enc.numel()
+    if cfg.strategy == "radix":
+        cfg = dataclasses.replace(cfg, strategy="bitonic")
     uk, out, ng = _groupby(enc, values, cfg, agg, _pos(n, enc.device) < count,
                            count)
     return uk[:n], out[:n], ng

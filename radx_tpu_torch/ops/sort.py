@@ -7,16 +7,28 @@ that makes a sort stable — and dispatches to a strategy:
   * ``"bitonic"`` (default) — the hand-written CUDA bitonic network
     (kernels/bitonic.py): keys only, (key, rider), or lexicographic over
     (key, index) with payload planes riding along;
+  * ``"radix"`` — the radix distribution sort (kernels/radix_sort.py)
+    where its plan applies, the network where it does not or where a bucket
+    overflows its slots;
   * ``"lax"`` — ``torch.sort`` (``stable=True`` where the JAX package calls
     ``jax.lax.sort(num_keys=2)`` over (key, index)), the counterpart of the
     JAX package's ``jax.lax.sort`` fallback.
 
+The sorts that the JAX package sends through its ``_engine`` go through
+``_engine`` here: ``sort``, ``argsort``, ``sort_pairs``, ``sort_u64``,
+``sort_multi``, the last piece of the arbitrary-N paths, and (from other
+modules) ``unique``, ``groupby``'s rider sort and ``join_inner``.  The rest
+stay on the network under every strategy, as in the JAX package:
+``LazyTable``, ``join_merge``, ``top_k`` and the descending arbitrary-N
+pieces (``_lex_sort`` and ``bitonic`` directly).
+
 Entry points: ``sort``, ``sort_any`` (uint32 / int32 / float32 tensors, and
 uint64 / int64 / float64 numpy arrays), ``argsort``, ``sort_pairs`` (stable,
 or ``assume_unique``), ``sort_pairs_any``, ``sort_multi`` and ``sort_u64``.
-Keys are tensors, or numpy arrays with an explicit ``device``.  A tensor is
-sorted on the device it lies on and the result stays there.  Inside,
-everything is sign-biased int32: PyTorch has no uint32 comparisons on the CPU.
+Keys are tensors, or numpy arrays, which go to ``device`` (by default the
+CUDA device: without a card, torch's own error).  A tensor is sorted on the
+device it lies on and the result stays there.  Inside, everything is
+sign-biased int32: PyTorch has no uint32 comparisons on the CPU.
 """
 
 from __future__ import annotations
@@ -25,7 +37,7 @@ import numpy as np
 import torch
 
 from radx_tpu_torch.config import DEFAULT, SortConfig
-from radx_tpu_torch.kernels import bitonic
+from radx_tpu_torch.kernels import bitonic, radix_sort
 
 _SIGN = -(1 << 31)  # int32 bit pattern 0x80000000
 _PAD_KEY = 0x7FFFFFFF  # sign-biased 0xFFFFFFFF: sorts to the end
@@ -42,9 +54,8 @@ def _as_tensor(keys, device) -> torch.Tensor:
             )
         return keys
     if isinstance(keys, np.ndarray):
-        if device is None:
-            raise ValueError("a numpy input needs an explicit device=")
-        return torch.from_numpy(np.ascontiguousarray(keys)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(keys)).to(
+            torch.device("cuda") if device is None else device)
     raise TypeError(f"keys must be a torch.Tensor or numpy array, got {type(keys)}")
 
 
@@ -73,9 +84,46 @@ def _unbias(plane: torch.Tensor, n: int) -> torch.Tensor:
     return (plane[:n] ^ _SIGN).view(torch.uint32)
 
 
-def _engine(plane: torch.Tensor, cfg: SortConfig) -> torch.Tensor:
-    """Sort the int32 buffer in place with the bitonic network."""
-    return bitonic.sort_planes(plane, cfg.chunk_elems, cfg.finish_elems)
+def _lex_groups(planes):
+    """Plane lists of at most 8 planes that sort ``planes`` (2 compare
+    planes, any number riding) lexicographically: each carries the next
+    payloads behind copies of the two compare planes, the last the compare
+    planes themselves.  The order is total, so every sort gives the same
+    permutation."""
+    head, rest = planes[:2], planes[2:]
+    step = bitonic.MAX_PLANES - 2
+    groups = [rest[i: i + step] for i in range(0, len(rest), step)] or [[]]
+    for i, group in enumerate(groups):
+        cmp = head if i == len(groups) - 1 else [p.clone() for p in head]
+        yield [*cmp, *group]
+
+
+def _engine(planes, cfg: SortConfig, num_cmp: int, n_valid: int):
+    """Sort int32 planes in place by plane 0 (then plane 1 when num_cmp is
+    2; the rest ride along) — the port of radx_tpu/ops/sort.py::_engine.
+
+    Under ``"radix"``, where ``radix_sort.plan`` applies, the distribution
+    sort runs; it reads its overflow flag on the host once and, when it is
+    set, leaves the planes untouched, and the network sorts them.  Rows past
+    ``n_valid`` are sentinel pads.  The network runs on the mode's tiles.
+    (The JAX ``unique`` flag has no counterpart: every exchange here is
+    tie-safe.)"""
+    if num_cmp == 2 and len(planes) > bitonic.MAX_PLANES:
+        for group in _lex_groups(planes):
+            _engine(group, cfg, 2, n_valid)
+        return planes
+    chunk, fin = cfg.mode_tiles(len(planes), num_cmp)
+    if cfg.strategy == "radix":
+        total = planes[0].numel()
+        r_chunk = radix_sort.pick_chunk(total, chunk)
+        if radix_sort.plan(total, r_chunk) is not None:
+            _, overflow = radix_sort.sort_radix(planes, r_chunk, num_cmp, cfg,
+                                                n_valid)
+            if not overflow:
+                return planes
+    k, rider, lex = bitonic._keywords(planes, num_cmp)
+    bitonic.sort_planes(k, chunk, fin, rider=rider, lex=lex)
+    return planes
 
 
 def _sort_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor:
@@ -83,7 +131,7 @@ def _sort_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor:
     if cfg.strategy == "lax":
         plane = torch.sort(plane).values
     else:
-        _engine(plane, cfg)
+        _engine([plane], cfg, 1, n)
     return _unbias(plane, n)
 
 
@@ -98,8 +146,9 @@ def _sort_rider(keys: torch.Tensor, payload: torch.Tensor, cfg: SortConfig,
     Pads carry key 0xFFFFFFFF and the rider ``neutral`` (an int32 bit
     pattern): they sort into the real 0xFFFFFFFF group, if there is one, so
     the consumer's neutral element keeps that group's aggregate exact.  All
-    ``_pad_len(n)`` rows are real rows here.  Returns the full padded
-    (uint32 keys, int32 riders); tied keys' riders come in no set order."""
+    ``_pad_len(n)`` rows are real rows here (n_valid = total), so no pad
+    rider is overwritten with a fill.  Returns the full padded (uint32 keys,
+    int32 riders); tied keys' riders come in no set order."""
     total = _pad_len(n)
     kp = _key_plane(keys, total)
     pp = torch.full((total,), neutral, dtype=torch.int32, device=keys.device)
@@ -108,8 +157,7 @@ def _sort_rider(keys: torch.Tensor, payload: torch.Tensor, cfg: SortConfig,
         kp, order = torch.sort(kp)
         pp = pp[order]
     else:
-        bitonic.sort_planes(kp, cfg.rider_chunk_elems, cfg.rider_finish_elems,
-                            rider=pp)
+        _engine([kp, pp], cfg, 1, total)
     return _unbias(kp, total), pp
 
 
@@ -146,7 +194,7 @@ def _sort_arbn_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor
     for idx, sz in enumerate(sizes):
         piece = plane[off: off + sz * c]
         if idx == len(sizes) - 1:
-            _engine(piece, cfg)
+            _engine([piece], cfg, 1, piece.numel())
         else:
             # sentinel pads that spill into these pieces are just large
             # keys: the valley merges push them to the global tail
@@ -266,29 +314,23 @@ def _payload_plane(p: torch.Tensor, total: int) -> torch.Tensor:
 
 def _lex_sort(planes, cfg: SortConfig, descending: bool = False) -> None:
     """Sort int32 planes in place by (planes[0], planes[1]), the rest riding
-    along, on the bitonic network's lexicographic mode; more than 8 planes
-    run as several sorts of copies of the two compare planes, each carrying
-    the next payloads (the order is total, so every pass gives the same
-    permutation)."""
-    head, rest = planes[:2], planes[2:]
-    step = bitonic.MAX_PLANES - 2
-    groups = [rest[i: i + step] for i in range(0, len(rest), step)] or [[]]
-    for i, group in enumerate(groups):
-        cmp = head if i == len(groups) - 1 else [p.clone() for p in head]
-        chunk, fin = cfg.lex_tiles(2 + len(group))
-        bitonic.sort_planes(cmp[0], chunk, fin, descending,
-                            lex=[cmp[1], *group])
+    along, on the bitonic network's lexicographic mode under every strategy
+    (the callers the JAX package keeps off its engine); more than 8 planes
+    run as several sorts (``_lex_groups``)."""
+    for group in _lex_groups(planes):
+        chunk, fin = cfg.lex_tiles(len(group))
+        bitonic.sort_planes(group[0], chunk, fin, descending, lex=group[1:])
 
 
 def _stable_planes(keys: torch.Tensor, payloads, cfg: SortConfig, total: int):
     """(key, index, payloads...) planes of ``total`` rows, sorted stably by
-    key: ``torch.sort(stable=True)`` under ``"lax"``, else the network."""
+    key: ``torch.sort(stable=True)`` under ``"lax"``, else the engine."""
     planes = [_key_plane(keys, total), _iota(total, keys.device),
               *(_payload_plane(p, total) for p in payloads)]
     if cfg.strategy == "lax":
         order = torch.sort(planes[0], stable=True).indices
         return [p[order] for p in planes]
-    _lex_sort(planes, cfg)
+    _engine(planes, cfg, 2, keys.numel())
     return planes
 
 
@@ -311,8 +353,10 @@ def _sort_arbn_stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):
     off = 0
     for idx, sz in enumerate(sizes):
         piece = [p[off: off + sz * chunk] for p in planes]
-        bitonic.sort_planes(piece[0], chunk, fin, idx != len(sizes) - 1,
-                            lex=piece[1:])
+        if idx == len(sizes) - 1:
+            _engine(piece, cfg, 2, piece[0].numel())
+        else:
+            bitonic.sort_planes(piece[0], chunk, fin, True, lex=piece[1:])
         offsets.append(off)
         off += sz * chunk
     for off in reversed(offsets[:-1]):
@@ -372,8 +416,7 @@ def sort_pairs(keys, payload, cfg: SortConfig | None = None,
             kp, order = torch.sort(kp, stable=True)
             pp = pp[order]
         else:
-            bitonic.sort_planes(kp, cfg.rider_chunk_elems,
-                                cfg.rider_finish_elems, rider=pp)
+            _engine([kp, pp], cfg, 1, n)
         return _unbias(kp, n), pp[:n].view(payload.dtype)
     planes = _stable(keys, [payload], cfg, n)
     return _unbias(planes[0], n), planes[2][:n].view(payload.dtype)
@@ -410,7 +453,7 @@ def sort_u64(hi, lo, cfg: SortConfig | None = None, *, device=None):
         return hi.clone(), lo.clone()
     total = _pad_len(n)
     hp, lp = _key_plane(hi, total), _key_plane(lo, total)
-    _lex_sort([hp, lp], cfg)
+    _engine([hp, lp], cfg, 2, n)
     return _unbias(hp, n), _unbias(lp, n)
 
 

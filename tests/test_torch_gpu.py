@@ -339,3 +339,110 @@ def test_sort_pairs_and_lazy_dense_query(cuda):
     assert torch.equal(got.column("b").view(torch.int32).long(),
                        want.nonzero().flatten())
     assert torch.equal(got.column("count").long(), want[want > 0])
+
+
+# --- slice 4: strategy="radix" (K4, K5, K10-K14, the span passes) -------------
+
+from radx_tpu_torch.kernels import msd as tm  # noqa: E402
+from radx_tpu_torch.kernels import radix as tr  # noqa: E402
+from radx_tpu_torch.kernels import radix_sort as trs  # noqa: E402
+
+RADIX = SortConfig(strategy="radix")
+R_CHUNK = 1 << 17  # the radix chunk at 2^23 keys; N = 2^20 holds 8 of them
+MODES = {"keys": (1, 1), "rider": (1, 2), "lex2": (2, 2), "lex3": (2, 3),
+         "lex8": (2, 8)}
+
+
+def _mode_planes(cuda, mode, n=N):
+    """Keys in [0, 64) (ties), then a rider, or a unique tie plane and
+    riders."""
+    ncmp, p = MODES[mode]
+    rng = np.random.default_rng(p)
+    planes = [torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(cuda)]
+    if ncmp == 2:
+        planes.append(torch.randperm(n, device=cuda).to(torch.int32))
+    planes += [_keys(cuda, n, seed=j) for j in range(p - len(planes))]
+    return planes
+
+
+def _assert_planes_equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_radix_phase_kernels_match_plain(cuda, mode):
+    """chunk_sort_cyclic, slot_merge and the span passes, every plane
+    bit-equal to the plain versions (ties included: one decision per
+    pair in both)."""
+    ncmp, p = MODES[mode]
+    c, f = RADIX.mode_tiles(p, ncmp)
+    src = _mode_planes(cuda, mode)
+    out = [torch.empty_like(x) for x in src]
+    tb.chunk_sort_cyclic(src, out, ncmp, R_CHUNK, c)
+    _assert_planes_equal(out, tb.chunk_sort_cyclic_ref(src, ncmp, R_CHUNK, c))
+    slot = 2048
+    sl = [torch.sort(x.view(-1, slot), 1).values.view(-1) for x in src[:1]]
+    sl += [x.clone() for x in src[1:]]
+    out = [torch.empty_like(x) for x in sl]
+    tb.slot_merge(sl, out, ncmp, R_CHUNK, slot, f)
+    _assert_planes_equal(out, tb.slot_merge_ref(sl, ncmp, R_CHUNK, slot, f))
+    k, rd, lx = tb._keywords(out, ncmp)
+    log_f = f.bit_length() - 1
+    want = tb.cross_stage_ref(k, log_f, 1, 17, False, rd, lx, span=R_CHUNK)
+    tb.cross_stage(k, log_f, 1, 17, False, rd, lx, span=R_CHUNK)
+    _assert_planes_equal(out, want if isinstance(want, tuple) else (want,))
+    want = tb.finish_ref(k, f, 17, False, rd, lx, span=R_CHUNK)
+    tb.finish(k, f, 17, False, rd, lx, span=R_CHUNK)
+    _assert_planes_equal(out, want if isinstance(want, tuple) else (want,))
+
+
+@pytest.mark.parametrize("shift,bias", [(0, 0), (8, 0), (16, 0), (24, 0),
+                                        (24, 0x80000000)])
+def test_radix_hist_matches_plain(cuda, shift, bias):
+    x = _keys(cuda, N + 4097)
+    for tile, n in ((1024, x.numel()), (R_CHUNK, N - 12345)):
+        got = tr.histograms(x, tile, shift, bias, n)
+        want = tr.histograms_ref(x, tile, shift, bias, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_radix_rank_pack_concat_match_plain(cuda, mode):
+    ncmp, p = MODES[mode]
+    planes = _mode_planes(cuda, mode)
+    c, f = RADIX.mode_tiles(p, ncmp)
+    plan = trs.plan(N, 1 << 18)  # 4 chunks of 2^18, slots of 2^16
+    sorted_ = tb.sort_chunks_ascending_cyclic(planes, ncmp, plan.C, c, f)
+    spl = trs.choose_splitters(sorted_[0], planes[0], plan, N,
+                               RADIX.mode_tiles(1, 1), True)
+    spl = torch.cat((spl, spl.new_full((1,), tm._PAD)))
+    ranks = tm.splitter_ranks(sorted_[0], spl, plan.C)
+    torch.cuda.synchronize()
+    assert torch.equal(ranks, tm.splitter_ranks_ref(sorted_[0], spl, plan.C))
+    b = trs.run_bounds(ranks, plan, N - 999, tail=True)
+    packed = tm.pack(sorted_, b.bounds, plan.C, plan.slot, plan.nb_pad, ncmp)
+    _assert_planes_equal(packed, tm.pack_ref(sorted_, b.bounds, plan.C,
+                                             plan.slot, plan.nb_pad, ncmp))
+    out = [torch.empty_like(x) for x in planes]
+    tm.concat(packed, sorted_, out, b.start, b.src, plan.nb_pad, ncmp)
+    _assert_planes_equal(out, tm.concat_ref(packed, sorted_, b.start, b.src,
+                                            plan.nb_pad, N, ncmp))
+
+
+@pytest.mark.parametrize("n", [1 << 20, 1 << 23, (1 << 23) - 4321])
+def test_radix_sort_matches_torch_sort(cuda, n):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda)
+    tm.reset_counts()
+    got = sort(keys, RADIX)
+    assert torch.equal(got.view(torch.int32),
+                       torch_sort_u32(keys).view(torch.int32))
+    assert tm.LAUNCHES["radix_concat"] == 1
+    same = torch.full((n,), 7, dtype=torch.uint32, device=cuda)
+    tm.reset_counts()
+    assert torch.equal(sort(same, RADIX).view(torch.int32),
+                       same.view(torch.int32))  # overflow: the network
+    assert tm.LAUNCHES["radix_rank"] == 1 and tm.LAUNCHES["radix_concat"] == 0

@@ -166,8 +166,11 @@ def test_sort_input_validation():
         sort(np.arange(4, dtype=np.int64), device="cpu")
     with pytest.raises(ValueError):
         sort(np.zeros((2, 2), dtype=np.uint32), device="cpu")
-    with pytest.raises(ValueError, match="device"):
-        sort(np.zeros(4, dtype=np.uint32))
+    if torch.cuda.is_available():  # a numpy input goes to the card by default
+        assert sort(np.zeros(4, dtype=np.uint32)).device.type == "cuda"
+    else:  # torch's own error, no CPU path
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            sort(np.zeros(4, dtype=np.uint32))
     with pytest.raises(ValueError, match="lie on"):
         sort(torch.zeros(4, dtype=torch.uint32), device="cuda")
     with pytest.raises(TypeError):
@@ -175,8 +178,12 @@ def test_sort_input_validation():
 
 
 def test_config_validation():
-    with pytest.raises(NotImplementedError, match="M8"):
-        SortConfig(strategy="radix")
+    radix = SortConfig(strategy="radix")
+    assert radix.strategy == "radix"
+    assert radix.mode_tiles(1, 1) == (radix.chunk_elems, radix.finish_elems)
+    assert radix.mode_tiles(2, 1) == (radix.rider_chunk_elems,
+                                      radix.rider_finish_elems)
+    assert radix.mode_tiles(5, 2) == radix.lex_tiles(5)
     with pytest.raises(ValueError):
         SortConfig(strategy="quick")
     with pytest.raises(ValueError):
