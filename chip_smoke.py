@@ -13,7 +13,11 @@ Phases, one line each (any failure raises and exits nonzero):
      kernels on 2^23 rows (keys only; a rider on keys in [0, 16); and the
      lexicographic mode for 2..8 planes on keys in [0, 16) with a unique
      tie plane, every plane bit-equal; the cross / finish passes with a
-     direction span), compact for 1-3 planes at densities 0, 0.5 and 1 on a
+     direction span), ``chunk_sort`` / ``finish`` on the register tile
+     engine in every mode at 2^20 rows (``tile_engine_checks``: the paths'
+     tiles and the tiny tiles 2..32, invert, ascending, finish below, at
+     and above the tile's level and as a span pass, tied lex planes),
+     compact for 1-3 planes at densities 0, 0.5 and 1 on a
      ragged n, segscan for every op x value dtype, the dense aggregates
      (sums for 128 / 256 / 8192 / 65536 bins, extrema for 128 / 256 / 8192)
      at 2^26 rows with a ragged n_valid on uniform, one-key, Zipf and
@@ -50,9 +54,12 @@ Phases, one line each (any failure raises and exits nonzero):
           each window printing its overflow count, every result exact;
   5. timings (CUDA events): every kernel beside its plain version, its bound
      (bytes over 3.35 TB/s or operations over 67 T/s, the larger) and, where
-     one PyTorch call computes the same function, that call; then the
-     metrics of radx_tpu_torch/bench.py, the radix ones with the bitonic rate
-     beside them and the radix breakdown by kernel.
+     one PyTorch call computes the same function, that call (``chunk_sort``
+     and ``finish`` with their shared-memory round trips per tile); then
+     the metrics of radx_tpu_torch/bench.py, the radix ones with the
+     bitonic rate beside them, the breakdowns by kernel of the keys-only
+     sort (2^23, 2^26), group-by, join and radix sort, and the launch path
+     of one small kernel (``bench.measure_launch``).
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -104,6 +111,25 @@ def _ptxas_name(kernel, args):
         dt = ("u32", "i32", "f32")[a[1]]
         return f"{kernel}<{op}{a[2] if op == 'fill' else ','+dt}>"
     return kernel + (f"<{a[0]}>" if a else "")
+
+
+def ptxas_report(log):
+    """ptxas's registers / shared memory / spills of every instantiated
+    kernel, from the build log, by readable kernel name."""
+    ptxas, kernel = {}, None
+    for ln in log.read_text().splitlines():
+        found = re.search(
+            r"Compiling entry function .*?(chunk_sort_cyclic|slot_merge|"
+            r"chunk_sort|finish|cross_stage|radix_hist|radix_rank|radix_pack|"
+            r"radix_concat|compact_count|compact_write|segscan_tile|"
+            r"segscan_carry|segscan_apply|dense_sums_smem|dense_sums_global|"
+            r"dense_extrema)_kernel(I(?:L[ib]\d+E)+E)?", ln)
+        if found:
+            kernel = _ptxas_name(found.group(1), found.group(2))
+        elif kernel and ("Used" in ln or "spill" in ln):
+            info = ln.split(":", 1)[-1] if "ptxas info" in ln else ln
+            ptxas[kernel] = f"{ptxas.get(kernel, '')} {info.strip()}".strip()
+    return ptxas
 
 
 def _segscan_tol(tsg, k, v, got, want):
@@ -234,6 +260,64 @@ def _mode_planes(dev, mode, n, gen):
 def _max_err(got, want):
     return max(int((a.long() - b.long()).abs().max()) for a, b in
                zip(got, want))
+
+
+def tile_engine_checks(dev, cfg):
+    """Phase 3 for ``chunk_sort`` (K1) and ``finish`` (K3) on the register
+    tile engine, in every mode (keys, rider, lex2..lex8), at 2^20 rows: the
+    tiles the paths use (``cfg.mode_tiles``) and the tiny tiles 2..32 (below
+    and around one thread's 2^R rows); chunk_sort with ``invert`` and
+    ``ascending``; finish at kk below, at and above log2(tile) and as a
+    span pass (2^19).  Keys in [0, 16); in the lex modes plane 1 in [0, 4),
+    so (plane 0, plane 1) ties too; random riders.  Every plane of every
+    case bit-equal to the plain version; one line per kernel instance."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    n, span = 1 << 20, 1 << 19
+    gen = torch.Generator(device=dev).manual_seed(71)
+
+    def rand(lo, hi):
+        return torch.randint(lo, hi, (n,), dtype=torch.int32, generator=gen,
+                             device=dev)
+
+    for ncmp, p in B.MODES:
+        planes = [rand(0, 16)] + ([rand(0, 4)] if ncmp == 2 else [])
+        while len(planes) < p:
+            planes.append(rand(-(2**31), 2**31))
+        k, rider, lex = B._keywords(planes, ncmp)
+        tiles = sorted({2, 4, 8, 16, 32, *cfg.mode_tiles(p, ncmp)})
+        cases = {"chunk_sort": [], "finish": []}
+        for tile in tiles:
+            lt = tile.bit_length() - 1
+            for inv, asc in ((False, False), (True, False), (False, True)):
+                cases["chunk_sort"].append(
+                    (tile, dict(invert=inv, ascending=asc)))
+            for kk, inv, sp in ((max(1, lt - 2), False, None),
+                                (lt, True, None), (lt + 3, False, None),
+                                (19, True, span)):
+                cases["finish"].append((tile, dict(kk=kk, invert=inv,
+                                                   span=sp)))
+        for op, todo in cases.items():
+            kernel, ref = getattr(B, op), getattr(B, op + "_ref")
+            worst = 0
+            for tile, kw in todo:
+                got = [q.clone() for q in planes]
+                gk, grd, glx = B._keywords(got, ncmp)
+                kernel(gk, tile, rider=grd, lex=glx, **kw)
+                want = ref(k, tile, rider=rider, lex=lex, **kw)
+                want = want if isinstance(want, tuple) else (want,)
+                torch.cuda.synchronize()
+                e = _max_err(got, want)
+                if e:
+                    record([op + _suffix(ncmp, p)], e, False, n=n, tile=tile,
+                           **kw)
+                worst = max(worst, e)
+            record([op + _suffix(ncmp, p)], worst, worst == 0, n=n,
+                   tiles=tiles, cases=len(todo),
+                   round_trips={t: B.round_trips(
+                       t.bit_length() - 1, 1, t.bit_length() - 1, p)
+                       if op == "chunk_sort" else B.round_trips(
+                           t.bit_length() - 1, 30, 30, p) for t in tiles})
 
 
 def radix_checks(dev):
@@ -809,20 +893,7 @@ def main():
     t0 = time.perf_counter()
     so = _build.build()
     _build.load()
-    _, log = _build.library_path()
-    ptxas, kernel = {}, None
-    for ln in log.read_text().splitlines():
-        found = re.search(
-            r"Compiling entry function .*?(chunk_sort_cyclic|slot_merge|"
-            r"chunk_sort|finish|cross_stage|radix_hist|radix_rank|radix_pack|"
-            r"radix_concat|compact_count|compact_write|segscan_tile|"
-            r"segscan_carry|segscan_apply|dense_sums_smem|dense_sums_global|"
-            r"dense_extrema)_kernel(I(?:L[ib]\d+E)+E)?", ln)
-        if found:
-            kernel = _ptxas_name(found.group(1), found.group(2))
-        elif kernel and ("Used" in ln or "spill" in ln):
-            info = ln.split(":", 1)[-1] if "ptxas info" in ln else ln
-            ptxas[kernel] = f"{ptxas.get(kernel, '')} {info.strip()}".strip()
+    ptxas = ptxas_report(_build.library_path()[1])
     spills = {k: v for k, v in ptxas.items()
               if re.search(r"[1-9]\d* bytes spill", v)}
     _line("build", seconds=time.perf_counter() - t0, library=so.name,
@@ -947,6 +1018,7 @@ def main():
                       lambda x, lx: B.finish_ref(x, lf, kk, inv, lex=lx),
                       tile=lf, kk=kk, invert=inv)
     del tie_plane, riders
+    tile_engine_checks(dev, cfg)
 
     ragged = n + 4097
     planes = [torch.from_numpy(rng.integers(-(2**31), 2**31, ragged,
@@ -1259,11 +1331,14 @@ def main():
     # -- 5. timings ------------------------------------------------------------
     rows = {}
 
-    def time_pair(name, log_n, kern, ref, bytes_, ops=0, lib=None, iters=10):
+    def time_pair(name, log_n, kern, ref, bytes_, ops=0, lib=None, iters=10,
+                  **extra):
         """Kernel and plain version, the bound of the kernel's work and,
-        where one PyTorch call computes the same function, that call."""
+        where one PyTorch call computes the same function, that call;
+        ``extra``: fields printed beside the time (a tile pass's
+        shared-memory round trips)."""
         tk = timing.time_cuda(kern, iters=iters, repeats=5)
-        tp = timing.time_cuda(ref, iters=2, repeats=2, warmup=1)
+        tp = timing.time_cuda(ref, iters=1, repeats=2, warmup=0)
         tl = None if lib is None else timing.time_cuda(lib, iters=iters,
                                                        repeats=5)
         bound_ms, bound_by = bound(bytes_, ops)
@@ -1271,7 +1346,7 @@ def main():
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None if tl is None else tl.seconds * 1e3}
         rows.setdefault(name, {})[log_n] = row
-        _line("kernel_time", name=name, n=1 << log_n, **row,
+        _line("kernel_time", name=name, n=1 << log_n, **row, **extra,
               spread_pct=tk.spread_pct, plain_spread_pct=tp.spread_pct,
               **card)
 
@@ -1298,7 +1373,8 @@ def main():
         log_c = C.bit_length() - 1
         time_pair("chunk_sort", log_n, lambda: B.chunk_sort(x, C),
                   lambda: B.chunk_sort_ref(x, C), 8 * nx,
-                  _cx_ops(nx, log_c * (log_c + 1) // 2, 1), tile_sort(x, C))
+                  _cx_ops(nx, log_c * (log_c + 1) // 2, 1), tile_sort(x, C),
+                  round_trips=B.round_trips(log_c, 1, log_c, 1))
         for f in B.CROSS_FUSION:
             kk = log_t + f
             time_pair(f"cross_stage<{f}>", log_n,
@@ -1307,7 +1383,8 @@ def main():
                       8 * nx, _cx_ops(nx, f, 1))
         time_pair("finish", log_n, lambda: B.finish(x, T, log_n),
                   lambda: B.finish_ref(x, T, log_n), 8 * nx,
-                  _cx_ops(nx, log_t, 1))
+                  _cx_ops(nx, log_t, 1),
+                  round_trips=B.round_trips(log_t, log_n, log_n, 1))
         del x, keys
 
     log_n = 26
@@ -1316,7 +1393,8 @@ def main():
     log_rc = RC.bit_length() - 1
     time_pair("chunk_sort/rider", log_n, lambda: B.chunk_sort(x, RC, rider=r),
               lambda: B.chunk_sort_ref(x, RC, rider=r), 16 * n26,
-              _cx_ops(n26, log_rc * (log_rc + 1) // 2, 2))
+              _cx_ops(n26, log_rc * (log_rc + 1) // 2, 2),
+              round_trips=B.round_trips(log_rc, 1, log_rc, 2))
     for f in B.CROSS_FUSION:
         kk = r_log_t + f
         time_pair(f"cross_stage<{f}>/rider", log_n,
@@ -1326,7 +1404,8 @@ def main():
                   16 * n26, _cx_ops(n26, f, 2))
     time_pair("finish/rider", log_n, lambda: B.finish(x, RT, log_n, rider=r),
               lambda: B.finish_ref(x, RT, log_n, rider=r), 16 * n26,
-              _cx_ops(n26, r_log_t, 2))
+              _cx_ops(n26, r_log_t, 2),
+              round_trips=B.round_trips(r_log_t, log_n, log_n, 2))
     del x, r
 
     # the lexicographic mode at 2^23 rows: keys < 2^20, a unique tie plane
@@ -1342,7 +1421,8 @@ def main():
         time_pair(f"chunk_sort/lex{p}", 23,
                   lambda: B.chunk_sort(x, lc, lex=lx),
                   lambda: B.chunk_sort_ref(x, lc, lex=lx), 8 * p * n,
-                  _cx_ops(n, lcl * (lcl + 1) // 2, p))
+                  _cx_ops(n, lcl * (lcl + 1) // 2, p),
+                  round_trips=B.round_trips(lcl, 1, lcl, p))
         for f in range(1, B.max_fusion(p) + 1):
             kk = ll + f
             time_pair(f"cross_stage<{f}>/lex{p}", 23,
@@ -1352,7 +1432,7 @@ def main():
                       8 * p * n, _cx_ops(n, f, p))
         time_pair(f"finish/lex{p}", 23, lambda: B.finish(x, lf, 23, lex=lx),
                   lambda: B.finish_ref(x, lf, 23, lex=lx), 8 * p * n,
-                  _cx_ops(n, ll, p))
+                  _cx_ops(n, ll, p), round_trips=B.round_trips(ll, 23, 23, p))
     del x, lex
 
     mask = torch.from_numpy((rng.integers(0, 2, n26)).astype(np.int32)).to(dev)
@@ -1490,6 +1570,7 @@ def main():
         del planes, out, sorted_, merged, cout, ranks, b, src
         torch.cuda.empty_cache()
 
+    _line("elapsed", seconds=time.perf_counter() - t_start)
     for m in (bench.measure_groupby(), bench.measure_filter(),
               bench.measure_query(), bench.measure_sort_pairs(),
               bench.measure_join(), bench.measure_query_dense(),
@@ -1499,7 +1580,13 @@ def main():
         _line("metric", **{m["metric"]: m["value"]}, ms=m["ms"],
               spread_pct=m["spread_pct"], **extra, **card)
         torch.cuda.empty_cache()
-    _line("breakdown", **bench.profile_radix(1 << 26))
+    _line("elapsed", seconds=time.perf_counter() - t_start)
+    for prof in (bench.profile_sort(1 << 23), bench.profile_sort(1 << 26),
+                 bench.profile_groupby(), bench.profile_join(),
+                 bench.profile_radix(1 << 26)):
+        _line("breakdown", **prof)
+        torch.cuda.empty_cache()
+    _line("launch", **bench.measure_launch())
 
     source = {"bitonic": "radx_tpu_torch/csrc/bitonic.cu",
               "compact": "radx_tpu_torch/csrc/compact.cu",

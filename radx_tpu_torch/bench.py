@@ -37,8 +37,9 @@ plain torch reference on the card):
     rate at the same n beside it (``python -m radx_tpu_torch.bench radix``,
     which also prints ``profile_radix``, the breakdown by kernel).
 
-``sweep`` runs the rider and lexicographic tile sweeps, ``profile`` the
-group-by and join breakdowns by layer (torch.profiler).
+``sweep`` runs the tile sweep of the keys-only, rider and lexicographic
+sorts, ``profile`` the keys-only sort, group-by and join breakdowns by layer
+(torch.profiler), ``launch`` the cost of one small kernel's launch path.
 
 Inputs are made from fixed seeds, with numpy or, for the large slice-3
 inputs, with a seeded generator on the card (the card has no JAX, so the
@@ -48,8 +49,10 @@ device every measure raises.
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -91,7 +94,10 @@ def torch_groupby_u32(keys: torch.Tensor, vals: torch.Tensor):
     return uk ^ _SIGN, counts, sums, mins, maxs
 
 
+@functools.lru_cache(maxsize=2)
 def permutation_keys(n: int) -> np.ndarray:
+    """The permutation fixture, made once per size in a process: callers
+    copy it and never write it."""
     return np.random.default_rng(0).permutation(n).astype(np.uint32)
 
 
@@ -194,23 +200,6 @@ def measure_query(n: int = 1 << 28, cfg: SortConfig | None = None) -> dict:
     t = timing.time_cuda(lambda: run_query(key, value, pred, cfg=cfg), iters=2,
                          repeats=3, warmup=1)
     return _row(f"query_filter_groupby_rows_per_s_{_name(n)}", n, t, groups=g)
-
-
-def sweep_rider_tiles(n: int = 1 << 26):
-    """``groupby`` sum at n rows for rider chunk x finish tiles in
-    {2^12, 2^13, 2^14} (finish >= chunk); one row each."""
-    keys, vals = groupby_data(n)
-    rows = []
-    for c in (12, 13, 14):
-        for f in range(c, 15):
-            cfg = SortConfig(rider_chunk_elems=1 << c, rider_finish_elems=1 << f)
-            _check_groups(*groupby(keys, vals, "sum", cfg), keys, vals)
-            t = timing.time_cuda(lambda: groupby(keys, vals, "sum", cfg),
-                                 iters=3, repeats=5)
-            rows.append(_row("groupby_sum_rows_per_s_" + _name(n), n, t,
-                             rider_chunk_elems=1 << c,
-                             rider_finish_elems=1 << f))
-    return rows
 
 
 def _layer(name: str) -> str:
@@ -420,60 +409,83 @@ def measure_query_dense(n: int = 1 << 30, cfg: SortConfig | None = None,
                 groups=g)
 
 
-def sweep_lex_tiles(n: int = 1 << 26):
-    """The lexicographic tiles (``stable_*``, stated at two and three
-    planes): ``argsort`` (two planes), ``sort_pairs`` (three planes) and the
-    join's tagged-union sort (four planes, n/2 rows a side); chunk x finish
-    in {2^11 .. 2^14} within one block's shared memory; one row each."""
+def _tile_pairs(chunks, finish_max):
+    """(chunk, finish) exponents: every chunk with every finish >= it and
+    >= 2^13 up to ``finish_max``."""
+    return [(c, f) for c in chunks for f in range(max(c, 13), finish_max + 1)]
+
+
+def sweep_tiles(n: int = 1 << 26):
+    """The chunk x finish tiles of the network at n rows, one row each:
+    keys only (``sort``, chunk 2^12..2^15 x finish 2^13..2^15), the rider
+    sort (``groupby`` sum, up to 2^14: two planes of 2^15 exceed a block's
+    shared memory) and the lexicographic tiles (``stable_*``, stated at two
+    and three planes, up to 2^14): ``argsort`` (lex2), ``sort_pairs``
+    (lex3) and the join's tagged-union sort (lex4, n/2 rows a side)."""
     from radx_tpu_torch.ops import join as join_ops
     from radx_tpu_torch.ops.sort import _encode_keys
 
-    keys, payload = pairs_data(n)
-    want = torch_sort_pairs(keys, payload)
-    bk, bv, pk, pv = join_data(n // 2, n // 2)
+    dev = timing.require_cuda()
     rows = []
-    for c in (12, 13, 14):
-        for f in range(c, 15):
-            cfg = SortConfig(stable_chunk_elems=1 << c,
-                             stable_finish_elems=1 << f)
-            if not torch.equal(argsort(keys, cfg).long(), torch.sort(
-                    keys.view(torch.int32), stable=True).indices):
+
+    def run(metric, fn, check, **tiles):
+        check()
+        t = timing.time_cuda(fn, iters=3, repeats=3)
+        rows.append(_row(f"{metric}_{_name(n)}", n, t, **tiles))
+
+    keys = torch.from_numpy(permutation_keys(n)).to(dev)
+    want = torch_sort_u32(keys).view(torch.int32)
+
+    def check_sort(cfg):
+        if not torch.equal(sort(keys, cfg).view(torch.int32), want):
+            raise AssertionError("sort differs from torch.sort")
+
+    for c, f in _tile_pairs((12, 13, 14, 15), 15):
+        cfg = SortConfig(chunk_elems=1 << c, finish_elems=1 << f)
+        run("sort_u32_keys_per_s", lambda: sort(keys, cfg),
+            lambda: check_sort(cfg), chunk_elems=1 << c, finish_elems=1 << f)
+    del keys, want
+    gk, gv = groupby_data(n)
+    for c, f in _tile_pairs((12, 13, 14), 14):
+        cfg = SortConfig(rider_chunk_elems=1 << c, rider_finish_elems=1 << f)
+        run("groupby_sum_rows_per_s", lambda: groupby(gk, gv, "sum", cfg),
+            lambda: _check_groups(*groupby(gk, gv, "sum", cfg), gk, gv),
+            rider_chunk_elems=1 << c, rider_finish_elems=1 << f)
+    del gk, gv
+    keys, payload = pairs_data(n)
+    order = torch.sort(keys.view(torch.int32), stable=True).indices
+    want = torch_sort_pairs(keys, payload)[1].view(torch.int32)
+    bk, bv, pk, pv = join_data(n // 2, n // 2)
+    for c, f in _tile_pairs((12, 13, 14), 14):
+        cfg = SortConfig(stable_chunk_elems=1 << c,
+                         stable_finish_elems=1 << f)
+        tiles = {"stable_chunk_elems": 1 << c, "stable_finish_elems": 1 << f}
+
+        def check_argsort():
+            if not torch.equal(argsort(keys, cfg).long(), order):
                 raise AssertionError("argsort differs from torch.sort")
-            t = timing.time_cuda(lambda: argsort(keys, cfg), iters=3,
-                                 repeats=3)
-            rows.append(_row(f"argsort_rows_per_s_{_name(n)}", n, t,
-                             stable_chunk_elems=1 << c,
-                             stable_finish_elems=1 << f))
-    for c in (11, 12, 13):
-        for f in range(c, 14):
-            cfg = SortConfig(stable_chunk_elems=1 << c,
-                             stable_finish_elems=1 << f)
-            got = sort_pairs(keys, payload, cfg)
-            if not torch.equal(got[1].view(torch.int32),
-                               want[1].view(torch.int32)):
+
+        def check_pairs():
+            got = sort_pairs(keys, payload, cfg)[1].view(torch.int32)
+            if not torch.equal(got, want):
                 raise AssertionError("sort_pairs differs from torch.sort")
-            t = timing.time_cuda(lambda: sort_pairs(keys, payload, cfg),
-                                 iters=3, repeats=3)
-            rows.append(_row(f"sort_pairs_u32_pairs_per_s_{_name(n)}", n, t,
-                             stable_chunk_elems=1 << c,
-                             stable_finish_elems=1 << f))
 
-            def union():
-                return join_ops.tagged_union(_encode_keys(bk), bv,
-                                             _encode_keys(pk), pv, cfg)
+        def union():
+            return join_ops.tagged_union(_encode_keys(bk), bv,
+                                         _encode_keys(pk), pv, cfg)
 
-            t = timing.time_cuda(union, iters=3, repeats=3)
-            rows.append(_row(f"join_union_sort_rows_per_s_{_name(n)}", n, t,
-                             stable_chunk_elems=1 << c,
-                             stable_finish_elems=1 << f))
+        run("argsort_rows_per_s", lambda: argsort(keys, cfg), check_argsort,
+            **tiles)
+        run("sort_pairs_u32_pairs_per_s", lambda: sort_pairs(keys, payload,
+                                                              cfg),
+            check_pairs, **tiles)
+        run("join_union_sort_rows_per_s", union, lambda: None, **tiles)
     return rows
 
 
 def _profile(fn, calls: int, layer_of, what: str) -> dict:
     """Device time per call by layer (torch.profiler) and the device's idle
     share of the profiled wall time."""
-    import time
-
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -515,6 +527,65 @@ def profile_join(n: int = 10**8, calls: int = 2) -> dict:
 
     return _profile(lambda: probe.join(build, "k", "v", "w"), calls, layer_of,
                     f"Table.join inner n={n} x {n}, ms of device time per call")
+
+
+def _sort_layer(name: str) -> str:
+    for layer in ("finish", "chunk_sort", "cross_stage"):
+        if layer in name:
+            return layer
+    return "elementwise"
+
+
+def profile_sort(n: int = 1 << 26, calls: int = 5) -> dict:
+    """Keys-only ``sort`` of n permutation keys by kernel: finish,
+    chunk_sort, cross_stage, elementwise (bias, pads, unbias), and the
+    device's idle share."""
+    keys = torch.from_numpy(permutation_keys(n)).to(timing.require_cuda())
+    return _profile(lambda: sort(keys), calls, _sort_layer,
+                    f"sort n={n}, ms of device time per call")
+
+
+def measure_launch(launches: int = 200) -> dict:
+    """The launch path of one small kernel, K11 ``radix_rank`` at the 2^26
+    radix geometry (128 sorted chunks of 2^19 keys, 160 splitters): host
+    microseconds per wrapper call (the enqueue, no synchronisation), CUDA
+    events time per call and the profiler's device time per launch, beside
+    ``torch.searchsorted`` on the same inputs."""
+    dev = timing.require_cuda()
+    g = _generator(17)
+    chunk, n_chunks, m = 1 << 19, 128, 160
+    keys = torch.sort(_randint(-(2**31), 2**31, chunk * n_chunks, g).view(
+        n_chunks, chunk), dim=1).values.reshape(-1)
+    spl = torch.sort(_randint(-(2**31), 2**31, m, g)).values
+    want = torch.searchsorted(keys.view(n_chunks, chunk),
+                              spl.expand(n_chunks, m).contiguous())
+    if not torch.equal(msd.splitter_ranks(keys, spl, chunk).long(), want):
+        raise AssertionError("radix_rank differs from torch.searchsorted")
+
+    def call():
+        return msd.splitter_ranks(keys, spl, chunk)
+
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            call()
+        host.append((time.perf_counter() - t0) / launches)
+        torch.cuda.synchronize()
+    events = timing.time_cuda(call, iters=launches, repeats=5)
+    prof = _profile(call, launches, lambda name: "radix_rank"
+                    if "radix_rank" in name else "other", "radix_rank")
+    view, spl2 = keys.view(n_chunks, chunk), spl.expand(n_chunks, m).contiguous()
+    lib = timing.time_cuda(lambda: torch.searchsorted(view, spl2),
+                           iters=launches, repeats=5)
+    return {"what": "radix_rank launch path (128 chunks of 2^19, 160 "
+                    "splitters)",
+            "host_us_per_launch": min(host) * 1e6,
+            "events_ms": events.seconds * 1e3,
+            "device_ms": prof["layers_ms"].get("radix_rank", 0.0),
+            "searchsorted_ms": lib.seconds * 1e3,
+            "device": timing.device_info()}
 
 
 # --- slice 4: strategy="radix" ---------------------------------------------
@@ -571,8 +642,10 @@ MEASURES = {
     "pairs": lambda: [measure_sort_pairs()],
     "join": lambda: [measure_join()],
     "dense": lambda: [measure_query_dense()],
-    "sweep": lambda: sweep_rider_tiles() + sweep_lex_tiles(),
-    "profile": lambda: [profile_groupby(), profile_join()],
+    "sweep": lambda: sweep_tiles(),
+    "profile": lambda: [profile_sort(1 << 23), profile_sort(), profile_groupby(),
+                        profile_join()],
+    "launch": lambda: [measure_launch()],
     "radix": lambda: [measure_radix(1 << 26), measure_radix(1 << 28),
                       profile_radix()],
 }

@@ -27,12 +27,13 @@
 // Three kernels, one per Pallas kernel family of radx_tpu/kernels/bitonic.py:
 //
 //   chunk_sort  <- _chunk_sort_kernel (:198).  Stages 1..log2(C) inside each
-//                  chunk of C keys.
+//                  chunk of C keys, on the register tile engine.
 //   cross_stage <- _cross_stage_kernel / _cross_stage2/3/4_kernel (:465,
 //                  :352, :374, :398).  F = 1..4 consecutive distances >= the
 //                  finish tile in one pass over device memory.
 //   finish      <- _finishw_kernel (:427).  Every distance of one level that
-//                  is below the finish tile T, inside each tile of T keys.
+//                  is below the finish tile T, inside each tile of T keys,
+//                  on the register tile engine.
 //
 // Two more kernels carry the radix distribution sort (kernels/radix_sort.py):
 //
@@ -69,10 +70,11 @@ constexpr int kCrossThreads = 256;
 constexpr int kStaticSmemBytes = 48 * 1024;
 constexpr int kCyclicLog = 10;  // block-cyclic tile: 1024 keys (JAX t_rows=8)
 
-// Distances fused per cross pass at P planes: 2^F * P values live in
+// Distances fused per cross pass at P planes, and log2 of the rows a thread
+// holds in the tile engine of chunk_sort / finish: 2^F * P values live in
 // registers per thread, at most 48 (no spills; ptxas report in PERF.md).
 // Kept in step with bitonic.py::max_fusion.
-constexpr int max_fusion(int np) {
+__host__ __device__ constexpr int max_fusion(int np) {
   return np <= 3 ? 4 : np <= 6 ? 3 : 2;
 }
 
@@ -144,18 +146,8 @@ __device__ void tile_substages(int* s, int log_t, int64_t gbase,
   }
 }
 
-// Copy a tile of n rows of every plane between device and shared memory,
-// the planes of one row together (P loads in flight per step).
-template <int P>
-__device__ __forceinline__ void load_tile(int* s, const Planes& x,
-                                          int64_t base, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-#pragma unroll
-    for (int j = 0; j < P; ++j) s[j * n + i] = x.p[j][base + i];
-  }
-  __syncthreads();
-}
-
+// Copy a tile of n rows of every plane from shared to device memory, the
+// planes of one row together.
 template <int P>
 __device__ __forceinline__ void store_tile(const Planes& x, int64_t base,
                                            const int* s, int n) {
@@ -165,28 +157,319 @@ __device__ __forceinline__ void store_tile(const Planes& x, int64_t base,
   }
 }
 
-// chunk_sort — replaces radx_tpu/kernels/bitonic.py::_chunk_sort_kernel.
-// Bound on the card: shared memory.  A chunk of C rows costs one read and
-// one write of device memory but log2(C)(log2(C)+1)/2 substages (105 at
-// C = 2^14), each a shared-memory read and write of every key behind a
-// __syncthreads().  Design: one block per chunk, the whole chunk resident in
-// dynamic shared memory for every stage, so device memory is touched once.
-// The direction index is the global flat index (chunks alternate direction,
-// as the cross-chunk merge expects); `ascending` uses the index within the
-// chunk, so every chunk sorts ascending on its own.  The tile holds every
-// plane, so the host shrinks the chunk as P grows (same footprint).
-template <int NCMP, int P>
-__global__ void chunk_sort_kernel(Planes x, int log_c, int invert,
-                                  int ascending) {
-  extern __shared__ int s[];
-  const int c = 1 << log_c;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) << log_c;
-  load_tile<P>(s, x, base, c);
-  const int64_t gbase = ascending ? 0 : base;
-  for (int kk = 1; kk <= log_c; ++kk) {
-    tile_substages<NCMP, P>(s, log_c, gbase, -1, kk, kk, invert);
+// ---------------------------------------------------------------------------
+// The register tile engine of chunk_sort and finish.
+//
+// A tile pass runs merge levels over one tile of 2^log_t rows in one block.
+// Each thread holds W = 2^R rows of every plane in registers, R =
+// max_fusion(P) (the cap of the cross passes: 2^R * P <= 48 values), and
+// the pass is cut into phases by a plan the host computes
+// (kernels/bitonic.py::tile_plan; this file only reads it).  In a phase a
+// thread holds the rows whose tile indices differ only in bits wlo ..
+// wlo+R-1 and runs there, without synchronisation, every substage of the
+// phase (index bits lo..hi of levels kk_a..kk_b); between two phases the
+// tile goes once through shared memory: store, __syncthreads(), load in the
+// next phase's layout.  The first phase reads device memory and the last
+// one writes it.  A finish tile of 2^14 rows at R = 4 runs bits {13..10},
+// {9..6}, {5..2}, {1, 0}: 3 round trips where the substage loop made 14; a
+// 2^14 chunk runs stages 1..4 in registers at load time, then ceil(kk / 4)
+// phases for each stage kk > 4: 28 round trips where it made 105.
+//
+// The network is unchanged: the same pairs in the same order, the same
+// direction rule (bit kk of (gbase & dmask) + row, then `invert`) and the
+// same tie-safe exchange, so the output is bit-equal to the substage loop.
+//
+// Shared memory is swizzled: row i of a plane lives at i ^ ((i >> R) & 31).
+// In a phase whose register bits are the low ones (wlo = 0), neighbouring
+// lanes hold rows 2^R apart, a 2^R-way bank conflict in a plain layout;
+// the XOR moves the lane bits above the register window onto the bank bits,
+// so every phase's loads and stores are conflict-free (the map from a
+// warp's lanes to banks is triangular with a unit diagonal for every wlo).
+// Where a thread's rows are contiguous in device memory (wlo = 0: the
+// first phase of a chunk sort, the last phase of both) and every plane is
+// 16-byte aligned, they move as int4 vectors.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxPhases = 64;
+
+// Threads per block of a tile pass (more groups than threads: a thread
+// takes several in turn).  A tile's planes in shared memory leave few
+// blocks per SM (three of 64 KB); small blocks let one block's device-memory
+// loads overlap another's register phases.  The launch bound names one
+// block per SM as the minimum, so ptxas may give a thread every register
+// its 16-48 rows need instead of spilling them for occupancy.
+constexpr int kTileThreads = 256;
+
+struct TilePlan {
+  int n;                   // phases
+  int code[kMaxPhases];    // kk_a | kk_b << 6 | hi << 12 | lo << 16 | wlo << 20
+};
+
+struct Phase {
+  int kk_a, kk_b, hi, lo, wlo;
+};
+
+__host__ __device__ __forceinline__ Phase decode_phase(int code) {
+  return {code & 63, (code >> 6) & 63, (code >> 12) & 15, (code >> 16) & 15,
+          (code >> 20) & 15};
+}
+
+__host__ __device__ constexpr int low_bit(int u) {
+  return (u & 1) ? 0 : 1 + low_bit(u >> 1);
+}
+
+template <int R>
+__device__ __forceinline__ int swizzle(int i) {
+  return i ^ ((i >> R) & 31);
+}
+
+// The exchange of registers u < o for the pair's direction.
+template <int NCMP, int P, int W>
+__device__ __forceinline__ void exchange(int (&v)[P][W], int u, int o,
+                                         bool up) {
+  if constexpr (P == 1) {
+    compare_exchange(v[0][u], v[0][o], up);
+  } else {
+    const int a1 = NCMP == 2 ? v[1][u] : 0;
+    const int b1 = NCMP == 2 ? v[1][o] : 0;
+    if (must_swap<NCMP>(v[0][u], a1, v[0][o], b1, up)) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int a = v[j][u];
+        v[j][u] = v[j][o];
+        v[j][o] = a;
+      }
+    }
   }
-  store_tile<P>(x, base, s, c);
+}
+
+// The substages of one phase in registers.  Register u holds tile row
+// gb | (u << wlo).  Bit kk of a row's direction index is bit kk of the
+// tile's (masked) base when kk >= log_t, else bit kk of the row, which is
+// bit kk of gb XOR bit kk of (u << wlo): one shift per pair.
+// The substages at register bits sb_hi .. sb_lo of one level, directions
+// known at compile time: register u ascends iff bit KW of u equals FLIP
+// (KW = R: every register shares FLIP).  An exchange is then a min and a
+// max (one plane) or one comparison and the selects.
+template <int NCMP, int P, int R, int KW, int FLIP>
+__device__ __forceinline__ void level_fixed(int (&v)[P][1 << R], int sb_hi,
+                                            int sb_lo) {
+  constexpr int W = 1 << R;
+#pragma unroll
+  for (int sb = R - 1; sb >= 0; --sb) {
+    if (sb > sb_hi || sb < sb_lo) continue;
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      if (u & (1 << sb)) continue;
+      exchange<NCMP, P, W>(v, u, u | (1 << sb), ((u >> KW) & 1) == FLIP);
+    }
+  }
+}
+
+// The same with the direction bit kw of the register index known only at
+// run time: the levels whose bit kk lies inside the register window (a
+// chunk's first R stages, the top phase of levels just below the tile).
+template <int NCMP, int P, int R>
+__device__ __forceinline__ void level_runtime(int (&v)[P][1 << R], int kw,
+                                              int flip, int sb_hi,
+                                              int sb_lo) {
+  constexpr int W = 1 << R;
+#pragma unroll
+  for (int sb = R - 1; sb >= 0; --sb) {
+    if (sb > sb_hi || sb < sb_lo) continue;
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      if (u & (1 << sb)) continue;
+      exchange<NCMP, P, W>(v, u, u | (1 << sb), ((u >> kw) & 1) == flip);
+    }
+  }
+}
+
+// The substages of one phase in registers.  Register u holds tile row
+// gb | (u << wlo).  Bit kk of a row's direction index is bit kk of the
+// tile's (masked) base when kk >= log_t, else bit kk of the row: bit kk of
+// gb when kk lies above the register window (one direction for the
+// thread: most levels), else bit kk - wlo of u (gb is 0 there).  The
+// window holds bits lo..hi < kk, so kk - wlo >= 1.
+template <int NCMP, int P, int R>
+__device__ __forceinline__ void phase_substages(int (&v)[P][1 << R],
+                                                const Phase& f, int gb,
+                                                int64_t dbase, int log_t,
+                                                int invert) {
+  for (int kk = f.kk_a; kk <= f.kk_b; ++kk) {
+    const int sb_hi = min(f.hi, kk - 1) - f.wlo;
+    const int sb_lo = f.lo - f.wlo;
+    const int bit = kk >= log_t ? static_cast<int>((dbase >> kk) & 1)
+                                : (gb >> min(kk, 30)) & 1;
+    // register u ascends iff bit (kk - wlo) of u == invert ^ bit
+    const int flip = invert ^ bit;
+    const int kw = kk - f.wlo;
+    if (kw < R) {
+      level_runtime<NCMP, P, R>(v, kw, flip, sb_hi, sb_lo);
+    } else if (flip) {
+      level_fixed<NCMP, P, R, R, 1>(v, sb_hi, sb_lo);
+    } else {
+      level_fixed<NCMP, P, R, R, 0>(v, sb_hi, sb_lo);
+    }
+  }
+}
+
+// A thread's rows from device memory (rows past a tile smaller than W do
+// not exist).
+template <int P, int W>
+__device__ __forceinline__ void rows_from_global(int (&v)[P][W],
+                                                 const Planes& x, int64_t base,
+                                                 int gb, int wlo, int t,
+                                                 bool vec) {
+  if (vec && wlo == 0) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int4* q = reinterpret_cast<const int4*>(x.p[j] + base + gb);
+#pragma unroll
+      for (int c = 0; c < W / 4; ++c) {
+        const int4 a = q[c];
+        v[j][4 * c] = a.x;
+        v[j][4 * c + 1] = a.y;
+        v[j][4 * c + 2] = a.z;
+        v[j][4 * c + 3] = a.w;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const int row = gb | (u << wlo);
+    if (row < t) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) v[j][u] = x.p[j][base + row];
+    }
+  }
+}
+
+template <int P, int W>
+__device__ __forceinline__ void rows_to_global(const Planes& x, int64_t base,
+                                               const int (&v)[P][W], int gb,
+                                               int wlo, int t, bool vec) {
+  if (vec && wlo == 0) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      int4* q = reinterpret_cast<int4*>(x.p[j] + base + gb);
+#pragma unroll
+      for (int c = 0; c < W / 4; ++c) {
+        q[c] = make_int4(v[j][4 * c], v[j][4 * c + 1], v[j][4 * c + 2],
+                         v[j][4 * c + 3]);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const int row = gb | (u << wlo);
+    if (row < t) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) x.p[j][base + row] = v[j][u];
+    }
+  }
+}
+
+// The swizzled places of a thread's rows.  The swizzle is linear over XOR
+// and gb | (u << wlo) = gb ^ (u << wlo), so the place of register u is the
+// place of gb XOR the places of u's bits: one XOR per row.
+template <int R>
+__device__ __forceinline__ void shared_places(int (&at)[1 << R], int gb,
+                                              int wlo) {
+  int unit[R];
+#pragma unroll
+  for (int b = 0; b < R; ++b) unit[b] = swizzle<R>(1 << (wlo + b));
+  at[0] = swizzle<R>(gb);
+#pragma unroll
+  for (int u = 1; u < (1 << R); ++u) {
+    at[u] = at[u & (u - 1)] ^ unit[low_bit(u)];
+  }
+}
+
+// Shared memory holds plane j at s + j * t, swizzled; a plan of more than
+// one phase has t > W, so every row exists.
+template <int P, int R>
+__device__ __forceinline__ void rows_from_shared(int (&v)[P][1 << R],
+                                                 const int* s, int gb, int wlo,
+                                                 int t) {
+  int at[1 << R];
+  shared_places<R>(at, gb, wlo);
+#pragma unroll
+  for (int u = 0; u < (1 << R); ++u) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) v[j][u] = s[j * t + at[u]];
+  }
+}
+
+template <int P, int R>
+__device__ __forceinline__ void rows_to_shared(int* s,
+                                               const int (&v)[P][1 << R],
+                                               int gb, int wlo, int t) {
+  int at[1 << R];
+  shared_places<R>(at, gb, wlo);
+#pragma unroll
+  for (int u = 0; u < (1 << R); ++u) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) s[j * t + at[u]] = v[j][u];
+  }
+}
+
+// One tile pass of block blockIdx.x over the plan.  dbase: the tile's base
+// in the direction index (masked by the span, or 0 for `ascending`).  A
+// thread takes the groups threadIdx.x, + blockDim.x, ... of every phase;
+// a group's rows are its own in the phase's layout, so its store to shared
+// memory cannot overwrite a row another thread has yet to load.
+template <int NCMP, int P>
+__device__ __forceinline__ void tile_pass(const Planes& x, int log_t,
+                                          const TilePlan& plan, int64_t dbase,
+                                          int invert, bool vec) {
+  constexpr int R = max_fusion(P);
+  constexpr int W = 1 << R;
+  extern __shared__ int s[];
+  const int t = 1 << log_t;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
+  const int groups = max(t >> R, 1);
+  int v[P][W];
+  for (int ph = 0; ph < plan.n; ++ph) {
+    const Phase f = decode_phase(plan.code[ph]);
+    const bool last = ph == plan.n - 1;
+    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+      const int gb = ((g >> f.wlo) << (f.wlo + R)) | (g & ((1 << f.wlo) - 1));
+      if (ph == 0) {
+        rows_from_global<P, W>(v, x, base, gb, f.wlo, t, vec);
+      } else {
+        rows_from_shared<P, R>(v, s, gb, f.wlo, t);
+      }
+      phase_substages<NCMP, P, R>(v, f, gb, dbase, log_t, invert);
+      if (last) {
+        rows_to_global<P, W>(x, base, v, gb, f.wlo, t, vec);
+      } else {
+        rows_to_shared<P, R>(s, v, gb, f.wlo, t);
+      }
+    }
+    if (!last) __syncthreads();
+  }
+}
+
+// chunk_sort — replaces radx_tpu/kernels/bitonic.py::_chunk_sort_kernel.
+// Bound on the card: shared-memory round trips, then device memory.  A
+// chunk of C rows costs one read and one write of device memory but
+// log2(C)(log2(C)+1)/2 substages (105 at C = 2^14).  Design: one block per
+// chunk on the register tile engine above: stages 1..R in registers at
+// load time, then ceil(kk / R) phases for stage kk, one shared-memory
+// round trip between two phases (28 at C = 2^14, R = 4; 105 substage round
+// trips before).  The direction index is the global flat index (chunks
+// alternate direction, as the cross-chunk merge expects); `ascending` uses
+// the index within the chunk, so every chunk sorts ascending on its own.
+// The tile holds every plane, so the host shrinks the chunk as P grows.
+template <int NCMP, int P>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    chunk_sort_kernel(Planes x, int log_c, TilePlan plan, int invert,
+                      int ascending, int vec) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) << log_c;
+  tile_pass<NCMP, P>(x, log_c, plan, ascending ? 0 : base, invert, vec != 0);
 }
 
 // chunk_sort_cyclic — replaces radx_tpu/kernels/bitonic.py::
@@ -258,22 +541,24 @@ __global__ void slot_merge_kernel(Planes in, Planes out, int log_t, int log_s,
 }
 
 // finish — replaces radx_tpu/kernels/bitonic.py::_finishw_kernel.
-// Bound on the card: shared memory, as chunk_sort (log2(T) substages per
-// level).  On the TPU the last log2(W) cross distances of a level fold into
-// a W-chunk finish sized by VMEM; here every distance below the tile T runs
-// in one block's shared memory and the distances >= T are cross passes, so
-// a level costs one device-memory pass for its whole tail.  The direction
-// comes from bit kk of each key's index within the span (dmask), so a tile
-// may hold several merge groups of a low level.
+// Bound on the card: device memory (one read and one write of every plane
+// per level), once the shared-memory round trips are few.  On the TPU the
+// last log2(W) cross distances of a level fold into a W-chunk finish sized
+// by VMEM; here every distance below the tile T runs in one block and the
+// distances >= T are cross passes, so a level costs one device-memory pass
+// for its whole tail.  Design: the register tile engine above, ceil(log2(T)
+// / R) phases (4 at T = 2^14, R = 4: 3 shared-memory round trips where the
+// substage loop made 14); the first phase's register bits are the tile's
+// top bits, so its loads coalesce, and the last phase stores int4 vectors.
+// The direction comes from bit kk of each key's index within the span
+// (dmask), so a tile may hold several merge groups of a low level (kk <
+// log_t: min(log_t, kk) distances).  The level kk is in the plan.
 template <int NCMP, int P>
-__global__ void finish_kernel(Planes x, int log_t, int kk, int invert,
-                              int64_t dmask) {
-  extern __shared__ int s[];
-  const int t = 1 << log_t;
+__global__ void __launch_bounds__(kTileThreads, 1)
+    finish_kernel(Planes x, int log_t, TilePlan plan, int invert,
+                  int64_t dmask, int vec) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
-  load_tile<P>(s, x, base, t);
-  tile_substages<NCMP, P>(s, log_t, base, dmask, kk, min(log_t, kk), invert);
-  store_tile<P>(x, base, s, t);
+  tile_pass<NCMP, P>(x, log_t, plan, base & dmask, invert, vec != 0);
 }
 
 // cross_stage<F> — replaces radx_tpu/kernels/bitonic.py::_cross_stage_kernel
@@ -364,32 +649,74 @@ cudaError_t tile_launch_config(Kernel kernel, int np, int log_t, int* threads,
   return cudaSuccess;
 }
 
-template <int NCMP, int P>
-cudaError_t chunk_sort(const Planes& x, int64_t n, int log_c, int invert,
-                       int ascending, cudaStream_t stream) {
-  int threads;
-  size_t smem;
-  cudaError_t err = tile_launch_config(chunk_sort_kernel<NCMP, P>, P, log_c,
-                                       &threads, &smem);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = n >> log_c;
-  chunk_sort_kernel<NCMP, P><<<static_cast<unsigned>(blocks), threads, smem,
-                               stream>>>(x, log_c, invert, ascending);
+// Copy and check a tile plan for R = max_fusion(P): every phase's bits lo..hi
+// lie in its register window wlo..wlo+R-1, which lies in the tile (or is
+// bits 0..R-1 of a tile smaller than W).
+template <int P>
+bool make_plan(const int* codes, int64_t phases, int log_t, TilePlan* plan) {
+  constexpr int R = max_fusion(P);
+  if (codes == nullptr || phases < 1 || phases > kMaxPhases || log_t < 1 ||
+      log_t > 30) {
+    return false;
+  }
+  plan->n = static_cast<int>(phases);
+  for (int i = 0; i < plan->n; ++i) {
+    const Phase f = decode_phase(codes[i]);
+    const bool window = log_t >= R ? f.wlo + R <= log_t : f.wlo == 0;
+    if (f.kk_a < 1 || f.kk_a > f.kk_b || f.lo > f.hi || f.hi >= log_t ||
+        f.lo < f.wlo || f.hi >= f.wlo + R || !window) {
+      return false;
+    }
+    plan->code[i] = codes[i];
+  }
+  return true;
+}
+
+// Launch a tile-engine kernel: one block per tile, min(groups, the cap)
+// threads, the tile's planes in dynamic shared memory when the plan has
+// more than one phase (opted in above the 48 KB default), int4 rows when
+// every plane is 16-byte aligned and the tile holds W rows.
+template <int P, typename Kernel, typename... Args>
+cudaError_t launch_tile(Kernel kernel, const Planes& x, int64_t n, int log_t,
+                        const TilePlan& plan, cudaStream_t stream,
+                        Args... args) {
+  constexpr int R = max_fusion(P);
+  const int threads = std::min(std::max((1 << log_t) >> R, 1),
+                               kTileThreads);
+  const size_t smem = plan.n > 1 ? (sizeof(int) * P) << log_t : 0;
+  if (smem > kStaticSmemBytes) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  bool aligned = log_t >= R;
+  for (int j = 0; j < P; ++j) {
+    aligned = aligned && reinterpret_cast<uintptr_t>(x.p[j]) % 16 == 0;
+  }
+  kernel<<<static_cast<unsigned>(n >> log_t), threads, smem, stream>>>(
+      x, log_t, plan, args..., static_cast<int>(aligned));
   return cudaGetLastError();
 }
 
 template <int NCMP, int P>
-cudaError_t finish(const Planes& x, int64_t n, int log_t, int kk, int invert,
-                   int64_t dmask, cudaStream_t stream) {
-  int threads;
-  size_t smem;
-  cudaError_t err = tile_launch_config(finish_kernel<NCMP, P>, P, log_t,
-                                       &threads, &smem);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = n >> log_t;
-  finish_kernel<NCMP, P><<<static_cast<unsigned>(blocks), threads, smem,
-                           stream>>>(x, log_t, kk, invert, dmask);
-  return cudaGetLastError();
+cudaError_t chunk_sort(const Planes& x, int64_t n, int log_c, int invert,
+                       int ascending, const int* codes, int64_t phases,
+                       cudaStream_t stream) {
+  TilePlan plan;
+  if (!make_plan<P>(codes, phases, log_c, &plan)) return cudaErrorInvalidValue;
+  return launch_tile<P>(chunk_sort_kernel<NCMP, P>, x, n, log_c, plan, stream,
+                        invert, ascending);
+}
+
+template <int NCMP, int P>
+cudaError_t finish(const Planes& x, int64_t n, int log_t, int invert,
+                   int64_t dmask, const int* codes, int64_t phases,
+                   cudaStream_t stream) {
+  TilePlan plan;
+  if (!make_plan<P>(codes, phases, log_t, &plan)) return cudaErrorInvalidValue;
+  return launch_tile<P>(finish_kernel<NCMP, P>, x, n, log_t, plan, stream,
+                        invert, dmask);
 }
 
 template <int NCMP, int P>
@@ -448,22 +775,27 @@ struct ChunkSortLaunch {
   Planes x;
   int64_t n;
   int log_c, invert, ascending;
+  const int* plan;
+  int64_t phases;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    return chunk_sort<NCMP, P>(x, n, log_c, invert, ascending, stream);
+    return chunk_sort<NCMP, P>(x, n, log_c, invert, ascending, plan, phases,
+                               stream);
   }
 };
 
 struct FinishLaunch {
   Planes x;
   int64_t n;
-  int log_t, kk, invert;
+  int log_t, invert;
   int64_t dmask;
+  const int* plan;
+  int64_t phases;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    return finish<NCMP, P>(x, n, log_t, kk, invert, dmask, stream);
+    return finish<NCMP, P>(x, n, log_t, invert, dmask, plan, phases, stream);
   }
 };
 
@@ -513,30 +845,36 @@ extern "C" {
 // In every entry point `planes` points to np device pointers (plane 0 the
 // keys), and ncmp is 1 (np = 1 or 2) or 2 (np = 2..8).
 
+// `plan` points to `phases` packed phases of the tile pass
+// (kernels/bitonic.py::tile_plan for R = max_fusion(np)).
 int radx_chunk_sort(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
                     int64_t log_c, int64_t invert, int64_t ascending,
-                    void* stream) {
+                    const int* plan, int64_t phases, void* stream) {
   ChunkSortLaunch launch;
   if (!make_planes(planes, np, &launch.x)) return cudaErrorInvalidValue;
   launch.n = n;
   launch.log_c = static_cast<int>(log_c);
   launch.invert = static_cast<int>(invert);
   launch.ascending = static_cast<int>(ascending);
+  launch.plan = plan;
+  launch.phases = phases;
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }
 
-// log_span: directions from the index within blocks of 2^log_span keys.
+// log_span: directions from the index within blocks of 2^log_span keys; the
+// level is in the plan.
 int radx_finish(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
-                int64_t log_t, int64_t kk, int64_t invert, int64_t log_span,
-                void* stream) {
+                int64_t log_t, int64_t invert, int64_t log_span,
+                const int* plan, int64_t phases, void* stream) {
   FinishLaunch launch;
   if (!make_planes(planes, np, &launch.x)) return cudaErrorInvalidValue;
   launch.n = n;
   launch.log_t = static_cast<int>(log_t);
-  launch.kk = static_cast<int>(kk);
   launch.invert = static_cast<int>(invert);
   launch.dmask = span_mask(log_span);
+  launch.plan = plan;
+  launch.phases = phases;
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }

@@ -14,6 +14,7 @@ compiler's output; nothing falls back to another implementation.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,6 +22,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,12 +37,12 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
-    # planes, np, ncmp, n, log_c, invert, ascending, stream
-    "radx_chunk_sort": (_P, _I, _I, _I, _I, _I, _I, _P),
+    # planes, np, ncmp, n, log_c, invert, ascending, plan, phases, stream
+    "radx_chunk_sort": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _P),
     # planes, np, ncmp, n, j_low, f, kk, invert, log_span, stream
     "radx_cross_stage": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # planes, np, ncmp, n, log_t, kk, invert, log_span, stream
-    "radx_finish": (_P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # planes, np, ncmp, n, log_t, invert, log_span, plan, phases, stream
+    "radx_finish": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _P),
     # in, out, np, ncmp, n, log_t, log_c, stream
     "radx_chunk_sort_cyclic": (_P, _P, _I, _I, _I, _I, _I, _P),
     # in, out, np, ncmp, n, log_t, log_s, log_c, stream
@@ -167,3 +170,23 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.radx_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch(counts: dict, name: str, fn_name: str, device: torch.device,
+           *args) -> None:
+    """The one launch path of every kernel wrapper: call the C entry point
+    ``fn_name(*args, stream)`` on the current stream of ``device``, raise
+    if it returns a CUDA error, and add one to ``counts[name]``.
+
+    The library is bound once (the lock is taken only until then).  A
+    kernel launches on the calling thread's current device, so the device
+    is switched only when the tensors lie on another one."""
+    lib = _lib if _lib is not None else load()
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    with (contextlib.nullcontext() if index == current
+          else torch.cuda.device(index)):
+        code = getattr(lib, fn_name)(
+            *args, torch._C._cuda_getCurrentRawStream(index))
+    check(lib, code, name)
+    counts[name] += 1

@@ -101,12 +101,7 @@ def _on_cuda(keys, values, bins, max_bins, n_valid):
 
 
 def _launch(name, fn_name, keys, *args):
-    lib = _build.load()
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        code = getattr(lib, fn_name)(*args, stream)
-    _build.check(lib, code, name)
-    LAUNCHES[name] += 1
+    _build.launch(LAUNCHES, name, fn_name, keys.device, *args)
 
 
 def _ptr(t):

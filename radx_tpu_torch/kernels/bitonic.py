@@ -24,11 +24,13 @@ clamps are gone; the tiles are sized by a block's shared memory (config.py).
 Five kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
 
   * ``chunk_sort``  — stages 1..log2(C) inside every chunk of C rows
-    (``_chunk_sort_kernel``);
+    (``_chunk_sort_kernel``), on the register tile engine: each thread holds
+    2^max_fusion(P) rows of every plane and runs up to that many distances
+    per shared-memory round trip, by the phases of ``tile_plan``;
   * ``cross_stage`` — F = 1..max_fusion(P) consecutive distances >= the
     finish tile in one device-memory pass (``_cross_stage{,2,3,4}_kernel``);
   * ``finish``      — every distance of a level below the finish tile T,
-    inside each tile of T rows (``_finishw_kernel``);
+    inside each tile of T rows (``_finishw_kernel``), on the same engine;
   * ``chunk_sort_cyclic`` — the radix sort's phase 1: stages 1..log2(tile)
     of an ascending sort of every radix chunk, whose 1024-row tiles are
     taken block-cyclically (``_chunk_sort_cyclic_kernel``);
@@ -55,6 +57,7 @@ plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -69,7 +72,8 @@ CYCLIC_TILE = 1024  # rows per block-cyclic tile (the JAX t_rows = 8 rows)
 def max_fusion(planes: int) -> int:
     """Largest F for P planes: 2^F * P <= 48 values per thread in
     registers, without spills (ptxas report in PERF.md; csrc/bitonic.cu
-    max_fusion)."""
+    max_fusion).  F distances per cross pass, and log2 of the rows a thread
+    of ``chunk_sort`` / ``finish`` holds (the r of ``tile_plan``)."""
     return 4 if planes <= 3 else 3 if planes <= 6 else 2
 
 
@@ -306,17 +310,73 @@ def _plain(planes, out):
     return planes[0]
 
 
+def _ptrs(planes):
+    return (ctypes.c_void_p * len(planes))(*[p.data_ptr() for p in planes])
+
+
 def _launch(name, fn_name, planes, ncmp, *args):
-    lib = _build.load()
-    name += _suffix(ncmp, len(planes))
-    ptrs = (ctypes.c_void_p * len(planes))(*[p.data_ptr() for p in planes])
     x = planes[0]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = getattr(lib, fn_name)(ptrs, len(planes), ncmp, x.numel(), *args,
-                                     stream)
-    _build.check(lib, code, name)
-    LAUNCHES[name] += 1
+    _build.launch(LAUNCHES, name + _suffix(ncmp, len(planes)), fn_name,
+                  x.device, _ptrs(planes), len(planes), ncmp, x.numel(), *args)
+
+
+# --- the phase plan of chunk_sort and finish -----------------------------------
+
+
+def tile_plan(log_t, kk_first, kk_last, r):
+    """The phases of one tile pass (csrc/bitonic.cu ``tile_pass``): merge
+    levels ``kk_first`` .. ``kk_last`` over a tile of 2^log_t rows, each
+    thread holding 2^r rows of every plane in registers.
+
+    Level kk runs its distances below the tile, index bits min(log_t, kk)-1
+    .. 0, in phases of up to r consecutive bits, highest first.  A phase is
+    a tuple (kk_a, kk_b, hi, lo, wlo): a thread holds the rows whose tile
+    indices differ only in bits wlo .. wlo+r-1 (``phase_rows``), which cover
+    bits lo..hi, and every level kk in kk_a..kk_b runs the substages at bits
+    min(hi, kk-1) down to lo there, with no synchronisation.  Consecutive
+    levels that run all their bits inside bits 0..r-1 share one phase (the
+    first r stages of a chunk sort).  Between two phases the tile makes one
+    round trip through shared memory; the first phase reads device memory
+    and the last one writes it."""
+    phases = []
+    for kk in range(kk_first, kk_last + 1):
+        hi = min(log_t, kk) - 1
+        while hi >= 0:
+            lo = max(hi - r + 1, 0)
+            prev = phases[-1] if phases else None
+            if (prev is not None and hi == kk - 1 and lo == 0
+                    and prev[1:] == (kk - 1, kk - 2, 0, 0)):
+                phases[-1] = (prev[0], kk, hi, 0, 0)
+            else:
+                phases.append((kk, kk, hi, lo, max(0, min(lo, log_t - r))))
+            hi = lo - 1
+    return tuple(phases)
+
+
+def phase_rows(phase, log_t, r):
+    """(groups, 2^r) int64 tensor: the tile rows a thread group holds in a
+    phase, register u in column u.  Rows >= 2^log_t (a tile of fewer than
+    2^r rows) do not exist and are never loaded or stored."""
+    wlo = phase[4]
+    g = torch.arange(max((1 << log_t) >> r, 1))[:, None]
+    u = torch.arange(1 << r)[None, :]
+    return ((g >> wlo) << (wlo + r)) | (g & ((1 << wlo) - 1)) | (u << wlo)
+
+
+def round_trips(log_t, kk_first, kk_last, planes):
+    """Shared-memory round trips of one tile pass at ``planes`` planes."""
+    return len(tile_plan(log_t, kk_first, kk_last, max_fusion(planes))) - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_arg(log_t, kk_first, kk_last, r):
+    """The plan as the kernel takes it: (int32 array, phases), each phase
+    packed as kk_a | kk_b << 6 | hi << 12 | lo << 16 | wlo << 20."""
+    if kk_last > 63:
+        raise ValueError(f"merge level {kk_last} above 63")
+    codes = [a | b << 6 | hi << 12 | lo << 16 | w << 20
+             for a, b, hi, lo, w in tile_plan(log_t, kk_first, kk_last, r)]
+    return (ctypes.c_int32 * len(codes))(*codes), len(codes)
 
 
 def chunk_sort(x, chunk, invert=False, ascending=False, rider=None, lex=None):
@@ -330,7 +390,8 @@ def chunk_sort(x, chunk, invert=False, ascending=False, rider=None, lex=None):
         return _plain(planes, chunk_sort_ref(
             x, chunk, invert=invert, ascending=ascending, rider=rider, lex=lex))
     _launch("chunk_sort", "radx_chunk_sort", planes, ncmp, log_c, int(invert),
-            int(ascending))
+            int(ascending), *_plan_arg(log_c, 1, log_c,
+                                       max_fusion(len(planes))))
     return x
 
 
@@ -364,8 +425,8 @@ def finish(x, tile, kk, invert=False, rider=None, lex=None, span=None):
     if not _on_cuda(planes, tile, tile=True):
         return _plain(planes, finish_ref(x, tile, kk, invert, rider, lex,
                                           span))
-    _launch("finish", "radx_finish", planes, ncmp, log_t, kk, int(invert),
-            log_span)
+    _launch("finish", "radx_finish", planes, ncmp, log_t, int(invert),
+            log_span, *_plan_arg(log_t, kk, kk, max_fusion(len(planes))))
     return x
 
 
@@ -381,17 +442,9 @@ def _mode(planes, ncmp):
 
 def _launch_io(name, fn_name, src, dst, ncmp, *args):
     """Launch a kernel that reads the planes ``src`` and writes ``dst``."""
-    lib = _build.load()
-    name += _suffix(ncmp, len(src))
-    arr = ctypes.c_void_p * len(src)
     x = src[0]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = getattr(lib, fn_name)(
-            arr(*[p.data_ptr() for p in src]), arr(*[p.data_ptr() for p in dst]),
-            len(src), ncmp, x.numel(), *args, stream)
-    _build.check(lib, code, name)
-    LAUNCHES[name] += 1
+    _build.launch(LAUNCHES, name + _suffix(ncmp, len(src)), fn_name, x.device,
+                  _ptrs(src), _ptrs(dst), len(src), ncmp, x.numel(), *args)
 
 
 def _io_checks(src, dst, ncmp, chunk, tile):

@@ -76,22 +76,14 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def count_tiles(mask, tile_elems):
     """Launch ``compact_count``: int64 kept rows per tile (CUDA only)."""
     n = mask.numel()
     counts = torch.empty(-(-n // tile_elems), dtype=torch.int64,
                          device=mask.device)
-    lib = _build.load()
-    with torch.cuda.device(mask.device):
-        code = lib.radx_compact_count(mask.data_ptr(), n,
-                                      tile_elems.bit_length() - 1,
-                                      counts.data_ptr(), _stream(mask))
-    _build.check(lib, code, "compact_count")
-    LAUNCHES["compact_count"] += 1
+    _build.launch(LAUNCHES, "compact_count", "radx_compact_count", mask.device,
+                  mask.data_ptr(), n, tile_elems.bit_length() - 1,
+                  counts.data_ptr())
     return counts
 
 
@@ -99,14 +91,10 @@ def write_tiles(mask, planes, inclusive, tile_elems):
     """Launch ``compact_write``: the kept rows of each tile at the tile's
     offset (``inclusive``: the inclusive scan of the tile counts)."""
     outs = [torch.empty_like(p) for p in planes]
-    lib = _build.load()
-    with torch.cuda.device(mask.device):
-        code = lib.radx_compact_write(
-            mask.data_ptr(), mask.numel(), tile_elems.bit_length() - 1,
-            inclusive.data_ptr(), _ptrs(planes), _ptrs(outs), len(planes),
-            _stream(mask))
-    _build.check(lib, code, "compact_write")
-    LAUNCHES["compact_write"] += 1
+    _build.launch(LAUNCHES, "compact_write", "radx_compact_write", mask.device,
+                  mask.data_ptr(), mask.numel(), tile_elems.bit_length() - 1,
+                  inclusive.data_ptr(), _ptrs(planes), _ptrs(outs),
+                  len(planes))
     return outs
 
 

@@ -82,12 +82,7 @@ def _planes_of(planes, ncmp):
 
 
 def _call(name, fn_name, x, *args):
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = getattr(lib, fn_name)(*args, stream)
-    _build.check(lib, code, name)
-    LAUNCHES[name] += 1
+    _build.launch(LAUNCHES, name, fn_name, x.device, *args)
 
 
 def _ptrs(planes):

@@ -74,13 +74,8 @@ def histograms(x, tile, shift, bias=0, n=None, name="radix_hist"):
                       device=x.device)
     if n == 0:
         return out
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.radx_radix_hist(x.data_ptr(), n, log_tile, shift,
-                                   bias & 0xFFFFFFFF, out.data_ptr(), stream)
-    _build.check(lib, code, name)
-    LAUNCHES[name] += 1
+    _build.launch(LAUNCHES, name, "radx_radix_hist", x.device, x.data_ptr(),
+                  n, log_tile, shift, bias & 0xFFFFFFFF, out.data_ptr())
     return out
 
 

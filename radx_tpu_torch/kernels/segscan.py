@@ -177,13 +177,8 @@ class Launch:
                       DTYPES[dtype], len(vs))
 
     def run(self, phase):
-        name = KERNELS[phase]
-        lib = _build.load()
-        with torch.cuda.device(self.device):
-            stream = torch.cuda.current_stream(self.device).cuda_stream
-            code = lib.radx_segscan(phase, *self._args, stream)
-        _build.check(lib, code, name)
-        LAUNCHES[name] += 1
+        _build.launch(LAUNCHES, KERNELS[phase], "radx_segscan", self.device,
+                      phase, *self._args)
 
 
 def segscan_flat(skeys, acc, op, tile_elems, has=None):
