@@ -16,7 +16,10 @@ Phases, one line each (any failure raises and exits nonzero):
      direction span), ``chunk_sort`` / ``finish`` on the register tile
      engine in every mode at 2^20 rows (``tile_engine_checks``: the paths'
      tiles and the tiny tiles 2..32, invert, ascending, finish below, at
-     and above the tile's level and as a span pass, tied lex planes),
+     and above the tile's level and as a span pass, tied lex planes), and
+     on the same engine ``chunk_sort_cyclic`` / ``slot_merge`` in every
+     mode (radix chunks of one and of several tiles, slots below, at and
+     above the tile, planes not 16-byte aligned),
      compact for 1-3 planes at densities 0, 0.5 and 1 on a
      ragged n, segscan for every op x value dtype, the dense aggregates
      (sums for 128 / 256 / 8192 / 65536 bins, extrema for 128 / 256 / 8192)
@@ -54,8 +57,8 @@ Phases, one line each (any failure raises and exits nonzero):
           each window printing its overflow count, every result exact;
   5. timings (CUDA events): every kernel beside its plain version, its bound
      (bytes over 3.35 TB/s or operations over 67 T/s, the larger) and, where
-     one PyTorch call computes the same function, that call (``chunk_sort``
-     and ``finish`` with their shared-memory round trips per tile); then
+     one PyTorch call computes the same function, that call (the tile
+     engine's kernels with their shared-memory round trips per tile); then
      the metrics of radx_tpu_torch/bench.py, the radix ones with the
      bitonic rate beside them, the breakdowns by kernel of the keys-only
      sort (2^23, 2^26), group-by, join and radix sort, and the launch path
@@ -263,14 +266,21 @@ def _max_err(got, want):
 
 
 def tile_engine_checks(dev, cfg):
-    """Phase 3 for ``chunk_sort`` (K1) and ``finish`` (K3) on the register
-    tile engine, in every mode (keys, rider, lex2..lex8), at 2^20 rows: the
-    tiles the paths use (``cfg.mode_tiles``) and the tiny tiles 2..32 (below
-    and around one thread's 2^R rows); chunk_sort with ``invert`` and
+    """Phase 3 for the kernels on the register tile engine, ``chunk_sort``
+    (K1), ``finish`` (K3), ``chunk_sort_cyclic`` (K4) and ``slot_merge``
+    (K5), in every mode (keys, rider, lex2..lex8), at 2^20 rows: the tiles
+    the paths use (``cfg.mode_tiles``) and the tiny tiles 2..32 (below and
+    around one thread's 2^R rows); chunk_sort with ``invert`` and
     ``ascending``; finish at kk below, at and above log2(tile) and as a
-    span pass (2^19).  Keys in [0, 16); in the lex modes plane 1 in [0, 4),
-    so (plane 0, plane 1) ties too; random riders.  Every plane of every
-    case bit-equal to the plain version; one line per kernel instance."""
+    span pass (2^19); K4 with radix chunks of one tile (or 1024 rows) and
+    of 2^17 rows (several tiles); K5 in chunks of 2^17 rows with slots a
+    quarter and half of the tile (one level), the tile and twice it (the
+    empty plan: a copy), and the radix geometries' slots of 1024 and 4096
+    at the paths' tiles; K4 and K5 again on planes offset by one row (not
+    16-byte aligned: no int4 rows).  Keys in [0, 16); in the lex modes
+    plane 1 in [0, 4), so (plane 0, plane 1) ties too; random riders.
+    Every plane of every case bit-equal to the plain version; one line per
+    kernel instance."""
     from radx_tpu_torch.kernels import bitonic as B
 
     n, span = 1 << 20, 1 << 19
@@ -318,6 +328,67 @@ def tile_engine_checks(dev, cfg):
                        t.bit_length() - 1, 1, t.bit_length() - 1, p)
                        if op == "chunk_sort" else B.round_trips(
                            t.bit_length() - 1, 30, 30, p) for t in tiles})
+        _radix_tile_checks(planes, ncmp, cfg)
+
+
+def _offset(planes):
+    """Copies of the planes one row into a fresh buffer: contiguous views
+    whose data is 4 bytes past a 16-byte boundary."""
+    out = []
+    for q in planes:
+        view = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)[1:]
+        out.append(view.copy_(q))
+    return out
+
+
+def _radix_tile_checks(planes, ncmp, cfg):
+    """K4 and K5 of one mode on ``planes`` (``tile_engine_checks``): every
+    case's output bit-equal to the plain version, one line per kernel."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    n, p, big = planes[0].numel(), len(planes), 1 << 17
+    c, f = cfg.mode_tiles(p, ncmp)
+    cyc, merge = B.radix_kernels(ncmp, p)
+    k4 = [(tile, chunk, False) for tile in (2, 4, 8, 16, 32, c)
+          for chunk in sorted({max(B.CYCLIC_TILE, tile), big})]
+    k4.append((c, big, True))
+    k5 = []
+    for tile in sorted({2, 4, 8, 16, 32, c, max(c, f)}):
+        slots = {tile // 4, tile // 2, tile, 2 * tile}
+        if tile >= c:  # the radix geometries' slots (2^28 and 2^26)
+            slots |= {1024, 4096}
+        k5 += [(tile, slot, False) for slot in sorted(slots)
+               if 1 <= slot < big]
+    t = max(c, f)
+    k5 += [(t, t // 4, True), (t, 2 * t, True)]
+
+    def run(name, todo, kernel, ref, trips):
+        worst = 0
+        for tile, arg, offset in todo:
+            src = _offset(planes) if offset else planes
+            out = _offset(planes) if offset else [
+                torch.empty_like(q) for q in planes]
+            kernel(src, out, tile, arg)
+            want = ref(src, tile, arg)
+            torch.cuda.synchronize()
+            e = _max_err(out, want)
+            if e:
+                record([name], e, False, n=n, tile=tile, arg=arg,
+                       offset=offset)
+            worst = max(worst, e)
+        record([name], worst, worst == 0, n=n, cases=len(todo),
+               round_trips={f"{tile}/{arg}": trips(tile, arg)
+                            for tile, arg, _ in todo})
+
+    lg = lambda x: x.bit_length() - 1  # noqa: E731
+    run(cyc, k4,
+        lambda s, o, tile, chunk: B.chunk_sort_cyclic(s, o, ncmp, chunk, tile),
+        lambda s, tile, chunk: B.chunk_sort_cyclic_ref(s, ncmp, chunk, tile),
+        lambda tile, chunk: B.round_trips(lg(tile), 1, lg(tile), p))
+    run(merge, k5,
+        lambda s, o, tile, slot: B.slot_merge(s, o, ncmp, big, slot, tile),
+        lambda s, tile, slot: B.slot_merge_ref(s, ncmp, big, slot, tile),
+        lambda tile, slot: B.round_trips(lg(tile), lg(slot) + 1, lg(tile), p))
 
 
 def radix_checks(dev):
@@ -1520,7 +1591,8 @@ def main():
                   lambda: B.chunk_sort_cyclic(planes, out, ncmp, rp.C, c),
                   lambda: B.chunk_sort_cyclic_ref(planes, ncmp, rp.C, c),
                   8 * np_ * n26, _cx_ops(n26, log_c * (log_c + 1) // 2, np_),
-                  tile_sort(planes[0], c) if mode == "keys" else None)
+                  tile_sort(planes[0], c) if mode == "keys" else None,
+                  round_trips=B.round_trips(log_c, 1, log_c, np_))
         sorted_ = B.sort_chunks_ascending_cyclic(planes, ncmp, rp.C, c, f)
         tail = mode == "rider"
         spl = RS.choose_splitters(sorted_[0], planes[0], rp, n26,
@@ -1555,7 +1627,8 @@ def main():
                   lambda: B.slot_merge_ref(packed, ncmp, rp.C, rp.slot, t),
                   8 * np_ * slots,
                   _cx_ops(slots, sum(range(log_s + 1, log_t + 1)), np_),
-                  tile_sort(packed[0], t) if mode == "keys" else None)
+                  tile_sort(packed[0], t) if mode == "keys" else None,
+                  round_trips=B.round_trips(log_t, log_s + 1, log_t, np_))
         del mout
         merged = B.merge_slots_ascending(packed, ncmp, rp.C, rp.slot, c, f)
         del packed

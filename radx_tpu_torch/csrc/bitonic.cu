@@ -35,7 +35,9 @@
 //                  is below the finish tile T, inside each tile of T keys,
 //                  on the register tile engine.
 //
-// Two more kernels carry the radix distribution sort (kernels/radix_sort.py):
+// Two more kernels carry the radix distribution sort (kernels/radix_sort.py),
+// on the same register tile engine.  Each reads its tile out of place
+// through a row -> address map and writes it contiguously to other planes:
 //
 //   chunk_sort_cyclic <- _chunk_sort_cyclic_kernel (:217).  Stages
 //                  1..log2(T) of an ascending sort of every radix chunk,
@@ -65,13 +67,12 @@
 
 namespace {
 
-constexpr int kMaxTileThreads = 1024;  // tile kernels' block size cap
 constexpr int kCrossThreads = 256;
 constexpr int kStaticSmemBytes = 48 * 1024;
 constexpr int kCyclicLog = 10;  // block-cyclic tile: 1024 keys (JAX t_rows=8)
 
 // Distances fused per cross pass at P planes, and log2 of the rows a thread
-// holds in the tile engine of chunk_sort / finish: 2^F * P values live in
+// holds in the register tile engine: 2^F * P values live in
 // registers per thread, at most 48 (no spills; ptxas report in PERF.md).
 // Kept in step with bitonic.py::max_fusion.
 __host__ __device__ constexpr int max_fusion(int np) {
@@ -102,63 +103,9 @@ __device__ __forceinline__ bool must_swap(int a0, int a1, int b0, int b1,
   return up ? after<NCMP>(a0, a1, b0, b1) : after<NCMP>(b0, b1, a0, a1);
 }
 
-// Level-kk substages at distances 2^(top-1) .. 1 over a tile of 2^log_t rows
-// in shared memory (plane j at s + j * 2^log_t).  Pair p of the substage at
-// distance d = 2^dj has its low element at
-// lo = (p >> dj) << (dj + 1) | (p & (d - 1)); it ascends iff bit kk of
-// ((gbase + lo) & dmask) equals `invert`.  Each pair belongs to one thread.
-// The tile lies inside one span (2^log_t <= the span, both aligned), so the
-// mask applies to gbase once: (gbase + lo) & dmask = (gbase & dmask) + lo.
-template <int NCMP, int P>
-__device__ void tile_substages(int* s, int log_t, int64_t gbase,
-                               int64_t dmask, int kk, int top, int invert) {
-  const int pairs = 1 << (log_t - 1);
-  const int t = 1 << log_t;
-  gbase &= dmask;
-  for (int dj = top - 1; dj >= 0; --dj) {
-    const int d = 1 << dj;
-    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-      const int lo = ((p >> dj) << (dj + 1)) | (p & (d - 1));
-      const bool up = (((gbase + lo) >> kk) & 1) == invert;
-      int a = s[lo];
-      int b = s[lo + d];
-      if constexpr (P == 1) {
-        compare_exchange(a, b, up);
-        s[lo] = a;
-        s[lo + d] = b;
-      } else {
-        const int a1 = NCMP == 2 ? s[t + lo] : 0;
-        const int b1 = NCMP == 2 ? s[t + lo + d] : 0;
-        if (must_swap<NCMP>(a, a1, b, b1, up)) {
-          s[lo] = b;
-          s[lo + d] = a;
-#pragma unroll
-          for (int j = 1; j < P; ++j) {
-            int* r = s + j * t;
-            const int x = r[lo];
-            r[lo] = r[lo + d];
-            r[lo + d] = x;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Copy a tile of n rows of every plane from shared to device memory, the
-// planes of one row together.
-template <int P>
-__device__ __forceinline__ void store_tile(const Planes& x, int64_t base,
-                                           const int* s, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-#pragma unroll
-    for (int j = 0; j < P; ++j) x.p[j][base + i] = s[j * n + i];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The register tile engine of chunk_sort and finish.
+// The register tile engine of chunk_sort, finish, chunk_sort_cyclic and
+// slot_merge.
 //
 // A tile pass runs merge levels over one tile of 2^log_t rows in one block.
 // Each thread holds W = 2^R rows of every plane in registers, R =
@@ -169,15 +116,18 @@ __device__ __forceinline__ void store_tile(const Planes& x, int64_t base,
 // wlo+R-1 and runs there, without synchronisation, every substage of the
 // phase (index bits lo..hi of levels kk_a..kk_b); between two phases the
 // tile goes once through shared memory: store, __syncthreads(), load in the
-// next phase's layout.  The first phase reads device memory and the last
-// one writes it.  A finish tile of 2^14 rows at R = 4 runs bits {13..10},
-// {9..6}, {5..2}, {1, 0}: 3 round trips where the substage loop made 14; a
-// 2^14 chunk runs stages 1..4 in registers at load time, then ceil(kk / 4)
-// phases for each stage kk > 4: 28 round trips where it made 105.
+// next phase's layout.  The first phase reads device memory through a row
+// -> address map (the tile itself for chunk_sort / finish, the cyclic tiles
+// of a radix chunk, the reversed odd slots) and the last one writes the
+// tile contiguously, in place or to other planes.  A finish tile of 2^14
+// rows at R = 4 runs bits {13..10}, {9..6}, {5..2}, {1, 0}: 3 round trips
+// where a loop of one substage per round trip made 14; a 2^14 chunk runs
+// stages 1..4 in registers at load time, then ceil(kk / 4) phases for each
+// stage kk > 4: 28 round trips where the loop made 105.
 //
-// The network is unchanged: the same pairs in the same order, the same
+// The network is the plain one: the same pairs in the same order, the same
 // direction rule (bit kk of (gbase & dmask) + row, then `invert`) and the
-// same tie-safe exchange, so the output is bit-equal to the substage loop.
+// same tie-safe exchange, so the output is bit-equal to the plain versions.
 //
 // Shared memory is swizzled: row i of a plane lives at i ^ ((i >> R) & 31).
 // In a phase whose register bits are the low ones (wlo = 0), neighbouring
@@ -186,8 +136,9 @@ __device__ __forceinline__ void store_tile(const Planes& x, int64_t base,
 // so every phase's loads and stores are conflict-free (the map from a
 // warp's lanes to banks is triangular with a unit diagonal for every wlo).
 // Where a thread's rows are contiguous in device memory (wlo = 0: the
-// first phase of a chunk sort, the last phase of both) and every plane is
-// 16-byte aligned, they move as int4 vectors.
+// first phase of a chunk sort, the last phase of every pass), the map keeps
+// them contiguous and every plane is 16-byte aligned, they move as int4
+// vectors.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxPhases = 64;
@@ -243,10 +194,6 @@ __device__ __forceinline__ void exchange(int (&v)[P][W], int u, int o,
   }
 }
 
-// The substages of one phase in registers.  Register u holds tile row
-// gb | (u << wlo).  Bit kk of a row's direction index is bit kk of the
-// tile's (masked) base when kk >= log_t, else bit kk of the row, which is
-// bit kk of gb XOR bit kk of (u << wlo): one shift per pair.
 // The substages at register bits sb_hi .. sb_lo of one level, directions
 // known at compile time: register u ascends iff bit KW of u equals FLIP
 // (KW = R: every register shares FLIP).  An exchange is then a min and a
@@ -314,34 +261,76 @@ __device__ __forceinline__ void phase_substages(int (&v)[P][1 << R],
   }
 }
 
+// Row -> device-memory address maps of a tile pass's first load, one
+// functor each (a template parameter of tile_pass, so no run-time branch).
+// kRuns: the rows a thread holds at wlo = 0 (an aligned run of W <= 16
+// tile rows) lie at ascending consecutive addresses, so they may move as
+// int4 vectors.
+struct Contiguous {  // chunk_sort, finish: the tile itself
+  static constexpr bool kRuns = true;
+  int64_t base;
+  __device__ __forceinline__ int64_t operator()(int row) const {
+    return base + row;
+  }
+};
+
+// chunk_sort_cyclic: rows lb + i of radix chunk c, which owns the tiles
+// {g * n_chunks + c} of 2^kCyclicLog rows (a run of W rows lies in one).
+struct Cyclic {
+  static constexpr bool kRuns = true;
+  int64_t lb, c, n_chunks;
+  __device__ __forceinline__ int64_t operator()(int row) const {
+    const int64_t e = lb + row;
+    return (((e >> kCyclicLog) * n_chunks + c) << kCyclicLog) |
+           (e & ((1 << kCyclicLog) - 1));
+  }
+};
+
+// slot_merge: row g = base + i of the input, read backwards (g ^ (S - 1))
+// in an odd slot of S = 2^log_s rows.  A warp reads 32 consecutive rows
+// per register, ascending or descending: coalesced, but no int4 runs.
+struct SlotReversed {
+  static constexpr bool kRuns = false;
+  int64_t base, smask;
+  int log_s;
+  __device__ __forceinline__ int64_t operator()(int row) const {
+    const int64_t g = base + row;
+    return ((g >> log_s) & 1) ? g ^ smask : g;
+  }
+};
+
 // A thread's rows from device memory (rows past a tile smaller than W do
 // not exist).
-template <int P, int W>
+template <int P, int W, typename Map>
 __device__ __forceinline__ void rows_from_global(int (&v)[P][W],
-                                                 const Planes& x, int64_t base,
-                                                 int gb, int wlo, int t,
-                                                 bool vec) {
-  if (vec && wlo == 0) {
+                                                 const Planes& x,
+                                                 const Map& map, int gb,
+                                                 int wlo, int t, bool vec) {
+  if constexpr (Map::kRuns) {
+    if (vec && wlo == 0) {
+      const int64_t at = map(gb);
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const int4* q = reinterpret_cast<const int4*>(x.p[j] + base + gb);
+      for (int j = 0; j < P; ++j) {
+        const int4* q = reinterpret_cast<const int4*>(x.p[j] + at);
 #pragma unroll
-      for (int c = 0; c < W / 4; ++c) {
-        const int4 a = q[c];
-        v[j][4 * c] = a.x;
-        v[j][4 * c + 1] = a.y;
-        v[j][4 * c + 2] = a.z;
-        v[j][4 * c + 3] = a.w;
+        for (int c = 0; c < W / 4; ++c) {
+          const int4 a = q[c];
+          v[j][4 * c] = a.x;
+          v[j][4 * c + 1] = a.y;
+          v[j][4 * c + 2] = a.z;
+          v[j][4 * c + 3] = a.w;
+        }
       }
+      return;
     }
-    return;
   }
 #pragma unroll
   for (int u = 0; u < W; ++u) {
     const int row = gb | (u << wlo);
     if (row < t) {
+      const int64_t at = map(row);
 #pragma unroll
-      for (int j = 0; j < P; ++j) v[j][u] = x.p[j][base + row];
+      for (int j = 0; j < P; ++j) v[j][u] = x.p[j][at];
     }
   }
 }
@@ -416,20 +405,24 @@ __device__ __forceinline__ void rows_to_shared(int* s,
   }
 }
 
-// One tile pass of block blockIdx.x over the plan.  dbase: the tile's base
-// in the direction index (masked by the span, or 0 for `ascending`).  A
-// thread takes the groups threadIdx.x, + blockDim.x, ... of every phase;
-// a group's rows are its own in the phase's layout, so its store to shared
-// memory cannot overwrite a row another thread has yet to load.
-template <int NCMP, int P>
-__device__ __forceinline__ void tile_pass(const Planes& x, int log_t,
-                                          const TilePlan& plan, int64_t dbase,
-                                          int invert, bool vec) {
+// One tile pass of block blockIdx.x over the plan: the first phase reads
+// tile row i of `in` at map(i), the last one writes it to `out` at obase +
+// i (in place: the same planes and the map Contiguous{obase}).  dbase: the
+// tile's base in the direction index (masked by the span, or 0 for
+// `ascending`).  A thread takes the groups threadIdx.x, + blockDim.x, ...
+// of every phase; a group's rows are its own in the phase's layout, so its
+// store to shared memory cannot overwrite a row another thread has yet to
+// load.
+template <int NCMP, int P, typename Map>
+__device__ __forceinline__ void tile_pass(const Planes& in, const Planes& out,
+                                          const Map& map, int64_t obase,
+                                          int log_t, const TilePlan& plan,
+                                          int64_t dbase, int invert,
+                                          bool vec) {
   constexpr int R = max_fusion(P);
   constexpr int W = 1 << R;
   extern __shared__ int s[];
   const int t = 1 << log_t;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
   const int groups = max(t >> R, 1);
   int v[P][W];
   for (int ph = 0; ph < plan.n; ++ph) {
@@ -438,13 +431,13 @@ __device__ __forceinline__ void tile_pass(const Planes& x, int log_t,
     for (int g = threadIdx.x; g < groups; g += blockDim.x) {
       const int gb = ((g >> f.wlo) << (f.wlo + R)) | (g & ((1 << f.wlo) - 1));
       if (ph == 0) {
-        rows_from_global<P, W>(v, x, base, gb, f.wlo, t, vec);
+        rows_from_global<P, W>(v, in, map, gb, f.wlo, t, vec);
       } else {
         rows_from_shared<P, R>(v, s, gb, f.wlo, t);
       }
       phase_substages<NCMP, P, R>(v, f, gb, dbase, log_t, invert);
       if (last) {
-        rows_to_global<P, W>(x, base, v, gb, f.wlo, t, vec);
+        rows_to_global<P, W>(out, obase, v, gb, f.wlo, t, vec);
       } else {
         rows_to_shared<P, R>(s, v, gb, f.wlo, t);
       }
@@ -466,78 +459,76 @@ __device__ __forceinline__ void tile_pass(const Planes& x, int log_t,
 // The tile holds every plane, so the host shrinks the chunk as P grows.
 template <int NCMP, int P>
 __global__ void __launch_bounds__(kTileThreads, 1)
-    chunk_sort_kernel(Planes x, int log_c, TilePlan plan, int invert,
-                      int ascending, int vec) {
+    chunk_sort_kernel(Planes x, int log_c, int invert, int ascending,
+                      TilePlan plan, int vec) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) << log_c;
-  tile_pass<NCMP, P>(x, log_c, plan, ascending ? 0 : base, invert, vec != 0);
+  tile_pass<NCMP, P>(x, x, Contiguous{base}, base, log_c, plan,
+                     ascending ? 0 : base, invert, vec != 0);
 }
 
 // chunk_sort_cyclic — replaces radx_tpu/kernels/bitonic.py::
 // _chunk_sort_cyclic_kernel (radix phase 1).
-// Bound on the card: shared memory, as chunk_sort.  Radix chunk c (2^log_c
-// keys) owns the tiles {g * n_chunks + c} of 1024 keys, so locally ordered
-// inputs spread evenly over the chunks.  One block per 2^log_t keys of a
-// chunk: it loads whole 1024-key tiles (coalesced) from their cyclic
-// places, runs stages 1..log_t with directions from the index within the
-// radix chunk, and writes the tile contiguously to `out` (out of place: the
-// cyclic input and the contiguous output overlap across blocks).  With
-// log_t == log_c the chunk ends ascending, as in the JAX kernel; a larger
-// chunk is finished by cross_stage / finish with a span of 2^log_c.
+// Bound on the card: shared-memory round trips, then device memory, as
+// chunk_sort: one read and one write of every plane, 105 substages at the
+// keys' 2^14 tile and 91 at the 2^13 tile of rider / lex2 / lex3.  Radix
+// chunk c (2^log_c keys) owns the tiles {g * n_chunks + c} of 1024 keys,
+// so locally ordered inputs spread evenly over the chunks.  Design: chunk
+// sort's plan on the register tile engine, one block per 2^log_t keys of a
+// chunk (tile b of the grid: chunk b >> (log_c - log_t), base lb in it):
+// the first phase holds 2^R <= 16 contiguous rows of one 1024-key tile per
+// thread, so it loads them as int4 from their cyclic place; stages 1..R
+// run at load time, stage kk > R in ceil(kk / R) phases (28 round trips at
+// 2^14, R = 4; 24 at 2^13, where the loop of one substage per round trip
+// made 105 and 91).  Directions come from the index within the radix
+// chunk (lb + row), so the tiles of a chunk alternate; the tile goes
+// contiguously to `out` at b << log_t (out of place: the cyclic input and
+// the contiguous output overlap across blocks).  With log_t == log_c the
+// chunk ends ascending, as in the JAX kernel; a larger chunk is finished by
+// cross_stage / finish with a span of 2^log_c.
 template <int NCMP, int P>
-__global__ void chunk_sort_cyclic_kernel(Planes in, Planes out, int log_t,
-                                         int log_c, int64_t n_chunks) {
-  extern __shared__ int s[];
-  const int t = 1 << log_t;
+__global__ void __launch_bounds__(kTileThreads, 1)
+    chunk_sort_cyclic_kernel(Planes in, Planes out, int log_t, int log_c,
+                             int64_t n_chunks, TilePlan plan, int vec) {
   const int64_t tile = blockIdx.x;
-  const int64_t c = tile >> (log_c - log_t);
   const int64_t lb = (tile << log_t) & ((static_cast<int64_t>(1) << log_c) - 1);
-  constexpr int64_t kCyclic = static_cast<int64_t>(1) << kCyclicLog;
-  for (int i = threadIdx.x; i < t; i += blockDim.x) {
-    const int64_t e = lb + i;
-    const int64_t src = (((e >> kCyclicLog) * n_chunks + c) << kCyclicLog) |
-                        (e & (kCyclic - 1));
-#pragma unroll
-    for (int j = 0; j < P; ++j) s[j * t + i] = in.p[j][src];
-  }
-  __syncthreads();
-  const int64_t dmask = (static_cast<int64_t>(1) << log_c) - 1;
-  for (int kk = 1; kk <= log_t; ++kk) {
-    tile_substages<NCMP, P>(s, log_t, lb, dmask, kk, kk, 0);
-  }
-  store_tile<P>(out, (c << log_c) + lb, s, t);
+  tile_pass<NCMP, P>(in, out, Cyclic{lb, tile >> (log_c - log_t), n_chunks},
+                     tile << log_t, log_t, plan, lb, 0, vec != 0);
 }
 
 // slot_merge — replaces radx_tpu/kernels/bitonic.py::_slot_merge_kernel
 // (radix phase C).
-// Bound on the card: shared memory above the slot, device memory at it.
-// Every radix chunk of 2^log_c keys holds ascending slots of 2^log_s keys
-// (the packed runs with their fill tails).  Reversing the odd slots gives
-// the bitonic invariant of level log_s; the JAX kernel reverses with lane
-// gathers and rolls, here the load itself reads x[i ^ (S - 1)] for odd
-// slots, at no extra pass.  Then levels log_s + 1 .. log_t run in shared
-// memory with directions from the index within the chunk, and the tile is
-// written to `out` (out of place: with S > T a tile reads another tile's
-// keys).  Levels above the tile run on cross_stage / finish with a span of
-// 2^log_c.
+// Bound on the card: shared-memory round trips, then device memory.  Every
+// radix chunk of 2^log_c keys holds ascending slots of 2^log_s keys (the
+// packed runs with their fill tails).  Reversing the odd slots gives the
+// bitonic invariant of level log_s; the JAX kernel reverses with lane
+// gathers and rolls, here the first load reads x[i ^ (S - 1)] for odd
+// slots, at no extra pass.  Design: levels log_s + 1 .. log_t on the
+// register tile engine, directions from the index within the chunk; its
+// first phase holds the rows 2^wlo apart (wlo >= 7 for slots >= 1024), so
+// a warp reads 32 consecutive rows per register and the loads stay scalar,
+// and its last phase stores int4 vectors.  Round trips at the radix
+// sort's tiles: 7 for slots of 4096 in a 2^14 tile (the loop of one
+// substage per round trip made 27), 13 for slots of 1024 (50), 3 for
+// slots of 4096 in a 2^13 tile (13).  With S >= T the plan is empty and
+// the tile is a copy through the map.  The tile goes to `out` (out of
+// place: with S > T a tile reads another tile's keys).  Levels above the
+// tile run on cross_stage / finish with a span of 2^log_c.
 template <int NCMP, int P>
-__global__ void slot_merge_kernel(Planes in, Planes out, int log_t, int log_s,
-                                  int log_c) {
-  extern __shared__ int s[];
-  const int t = 1 << log_t;
+__global__ void __launch_bounds__(kTileThreads, 1)
+    slot_merge_kernel(Planes in, Planes out, int log_t, int log_s,
+                      int64_t cmask, TilePlan plan, int vec) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
-  const int64_t smask = (static_cast<int64_t>(1) << log_s) - 1;
-  for (int i = threadIdx.x; i < t; i += blockDim.x) {
-    const int64_t g = base + i;
-    const int64_t src = ((g >> log_s) & 1) ? (g ^ smask) : g;
+  const SlotReversed map{base, (static_cast<int64_t>(1) << log_s) - 1, log_s};
+  if (plan.n == 0) {  // no level below the tile: a row per thread in turn
+    for (int i = threadIdx.x; i < (1 << log_t); i += blockDim.x) {
+      const int64_t at = map(i);
 #pragma unroll
-    for (int j = 0; j < P; ++j) s[j * t + i] = in.p[j][src];
+      for (int j = 0; j < P; ++j) out.p[j][base + i] = in.p[j][at];
+    }
+    return;
   }
-  __syncthreads();
-  const int64_t dmask = (static_cast<int64_t>(1) << log_c) - 1;
-  for (int kk = log_s + 1; kk <= log_t; ++kk) {
-    tile_substages<NCMP, P>(s, log_t, base, dmask, kk, kk, 0);
-  }
-  store_tile<P>(out, base, s, t);
+  tile_pass<NCMP, P>(in, out, map, base, log_t, plan, base & cmask, 0,
+                     vec != 0);
 }
 
 // finish — replaces radx_tpu/kernels/bitonic.py::_finishw_kernel.
@@ -555,10 +546,11 @@ __global__ void slot_merge_kernel(Planes in, Planes out, int log_t, int log_s,
 // log_t: min(log_t, kk) distances).  The level kk is in the plan.
 template <int NCMP, int P>
 __global__ void __launch_bounds__(kTileThreads, 1)
-    finish_kernel(Planes x, int log_t, TilePlan plan, int invert,
-                  int64_t dmask, int vec) {
+    finish_kernel(Planes x, int log_t, int invert, int64_t dmask,
+                  TilePlan plan, int vec) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
-  tile_pass<NCMP, P>(x, log_t, plan, base & dmask, invert, vec != 0);
+  tile_pass<NCMP, P>(x, x, Contiguous{base}, base, log_t, plan, base & dmask,
+                     invert, vec != 0);
 }
 
 // cross_stage<F> — replaces radx_tpu/kernels/bitonic.py::_cross_stage_kernel
@@ -633,30 +625,16 @@ cudaError_t launch_cross(const Planes& x, int64_t n, int j_low, int kk,
   }
 }
 
-// One block per tile of 2^log_t rows, the tile's P planes in dynamic shared
-// memory (opted in above the 48 KB default).
-template <typename Kernel>
-cudaError_t tile_launch_config(Kernel kernel, int np, int log_t, int* threads,
-                               size_t* smem) {
-  *smem = (sizeof(int) * np) << log_t;
-  *threads = std::min(1 << (log_t - 1), kMaxTileThreads);
-  if (*smem > kStaticSmemBytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(*smem));
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
 // Copy and check a tile plan for R = max_fusion(P): every phase's bits lo..hi
 // lie in its register window wlo..wlo+R-1, which lies in the tile (or is
-// bits 0..R-1 of a tile smaller than W).
+// bits 0..R-1 of a tile smaller than W).  Only slot_merge takes an empty
+// plan (min_phases 0).
 template <int P>
-bool make_plan(const int* codes, int64_t phases, int log_t, TilePlan* plan) {
+bool make_plan(const int* codes, int64_t phases, int log_t, TilePlan* plan,
+               int64_t min_phases = 1) {
   constexpr int R = max_fusion(P);
-  if (codes == nullptr || phases < 1 || phases > kMaxPhases || log_t < 1 ||
-      log_t > 30) {
+  if ((codes == nullptr && phases > 0) || phases < min_phases ||
+      phases > kMaxPhases || log_t < 1 || log_t > 30) {
     return false;
   }
   plan->n = static_cast<int>(phases);
@@ -672,14 +650,22 @@ bool make_plan(const int* codes, int64_t phases, int log_t, TilePlan* plan) {
   return true;
 }
 
-// Launch a tile-engine kernel: one block per tile, min(groups, the cap)
-// threads, the tile's planes in dynamic shared memory when the plan has
-// more than one phase (opted in above the 48 KB default), int4 rows when
-// every plane is 16-byte aligned and the tile holds W rows.
+bool aligned16(const Planes& x, int np) {
+  for (int j = 0; j < np; ++j) {
+    if (reinterpret_cast<uintptr_t>(x.p[j]) % 16 != 0) return false;
+  }
+  return true;
+}
+
+// Launch a tile-engine kernel as kernel(args..., plan, vec): one block per
+// tile, min(groups, the cap) threads, the tile's planes in dynamic shared
+// memory when the plan has more than one phase (opted in above the 48 KB
+// default), int4 rows (vec) when every plane read and written is 16-byte
+// aligned and the tile holds W rows.
 template <int P, typename Kernel, typename... Args>
-cudaError_t launch_tile(Kernel kernel, const Planes& x, int64_t n, int log_t,
-                        const TilePlan& plan, cudaStream_t stream,
-                        Args... args) {
+cudaError_t launch_tile(Kernel kernel, const Planes& in, const Planes& out,
+                        int64_t n, int log_t, const TilePlan& plan,
+                        cudaStream_t stream, Args... args) {
   constexpr int R = max_fusion(P);
   const int threads = std::min(std::max((1 << log_t) >> R, 1),
                                kTileThreads);
@@ -690,12 +676,9 @@ cudaError_t launch_tile(Kernel kernel, const Planes& x, int64_t n, int log_t,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  bool aligned = log_t >= R;
-  for (int j = 0; j < P; ++j) {
-    aligned = aligned && reinterpret_cast<uintptr_t>(x.p[j]) % 16 == 0;
-  }
+  const bool vec = log_t >= R && aligned16(in, P) && aligned16(out, P);
   kernel<<<static_cast<unsigned>(n >> log_t), threads, smem, stream>>>(
-      x, log_t, plan, args..., static_cast<int>(aligned));
+      args..., plan, static_cast<int>(vec));
   return cudaGetLastError();
 }
 
@@ -705,8 +688,8 @@ cudaError_t chunk_sort(const Planes& x, int64_t n, int log_c, int invert,
                        cudaStream_t stream) {
   TilePlan plan;
   if (!make_plan<P>(codes, phases, log_c, &plan)) return cudaErrorInvalidValue;
-  return launch_tile<P>(chunk_sort_kernel<NCMP, P>, x, n, log_c, plan, stream,
-                        invert, ascending);
+  return launch_tile<P>(chunk_sort_kernel<NCMP, P>, x, x, n, log_c, plan,
+                        stream, x, log_c, invert, ascending);
 }
 
 template <int NCMP, int P>
@@ -715,43 +698,39 @@ cudaError_t finish(const Planes& x, int64_t n, int log_t, int invert,
                    cudaStream_t stream) {
   TilePlan plan;
   if (!make_plan<P>(codes, phases, log_t, &plan)) return cudaErrorInvalidValue;
-  return launch_tile<P>(finish_kernel<NCMP, P>, x, n, log_t, plan, stream,
-                        invert, dmask);
+  return launch_tile<P>(finish_kernel<NCMP, P>, x, x, n, log_t, plan, stream,
+                        x, log_t, invert, dmask);
 }
 
 template <int NCMP, int P>
 cudaError_t chunk_sort_cyclic(const Planes& in, const Planes& out, int64_t n,
-                              int log_t, int log_c, cudaStream_t stream) {
+                              int log_t, int log_c, const int* codes,
+                              int64_t phases, cudaStream_t stream) {
+  TilePlan plan;
   if (log_t > log_c || log_c < kCyclicLog || log_c > 62 ||
-      (n >> log_c) << log_c != n) {
+      (n >> log_c) << log_c != n ||
+      !make_plan<P>(codes, phases, log_t, &plan)) {
     return cudaErrorInvalidValue;
   }
-  int threads;
-  size_t smem;
-  cudaError_t err = tile_launch_config(chunk_sort_cyclic_kernel<NCMP, P>, P,
-                                       log_t, &threads, &smem);
-  if (err != cudaSuccess) return err;
-  chunk_sort_cyclic_kernel<NCMP, P>
-      <<<static_cast<unsigned>(n >> log_t), threads, smem, stream>>>(
-          in, out, log_t, log_c, n >> log_c);
-  return cudaGetLastError();
+  return launch_tile<P>(chunk_sort_cyclic_kernel<NCMP, P>, in, out, n, log_t,
+                        plan, stream, in, out, log_t, log_c, n >> log_c);
 }
 
+// The plan is empty exactly when the slot is at least the tile.
 template <int NCMP, int P>
 cudaError_t slot_merge(const Planes& in, const Planes& out, int64_t n,
-                       int log_t, int log_s, int log_c, cudaStream_t stream) {
-  if (log_t > log_c || log_s >= log_c || (n >> log_c) << log_c != n) {
+                       int log_t, int log_s, int log_c, const int* codes,
+                       int64_t phases, cudaStream_t stream) {
+  TilePlan plan;
+  const bool copy = log_s >= log_t;
+  if (log_t > log_c || log_s < 0 || log_s >= log_c || log_c > 62 ||
+      (n >> log_c) << log_c != n || (copy && phases != 0) ||
+      !make_plan<P>(codes, phases, log_t, &plan, copy ? 0 : 1)) {
     return cudaErrorInvalidValue;
   }
-  int threads;
-  size_t smem;
-  cudaError_t err = tile_launch_config(slot_merge_kernel<NCMP, P>, P, log_t,
-                                       &threads, &smem);
-  if (err != cudaSuccess) return err;
-  slot_merge_kernel<NCMP, P>
-      <<<static_cast<unsigned>(n >> log_t), threads, smem, stream>>>(
-          in, out, log_t, log_s, log_c);
-  return cudaGetLastError();
+  return launch_tile<P>(slot_merge_kernel<NCMP, P>, in, out, n, log_t, plan,
+                        stream, in, out, log_t, log_s,
+                        (static_cast<int64_t>(1) << log_c) - 1);
 }
 
 template <int NCMP, int P>
@@ -815,10 +794,13 @@ struct CyclicLaunch {
   Planes in, out;
   int64_t n;
   int log_t, log_c;
+  const int* plan;
+  int64_t phases;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    return chunk_sort_cyclic<NCMP, P>(in, out, n, log_t, log_c, stream);
+    return chunk_sort_cyclic<NCMP, P>(in, out, n, log_t, log_c, plan, phases,
+                                      stream);
   }
 };
 
@@ -826,10 +808,13 @@ struct SlotMergeLaunch {
   Planes in, out;
   int64_t n;
   int log_t, log_s, log_c;
+  const int* plan;
+  int64_t phases;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    return slot_merge<NCMP, P>(in, out, n, log_t, log_s, log_c, stream);
+    return slot_merge<NCMP, P>(in, out, n, log_t, log_s, log_c, plan, phases,
+                               stream);
   }
 };
 
@@ -895,10 +880,12 @@ int radx_cross_stage(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
 }
 
 // `in` and `out` point to np planes each (distinct buffers); n keys per
-// plane, radix chunks of 2^log_c keys, shared-memory tiles of 2^log_t.
+// plane, radix chunks of 2^log_c keys, shared-memory tiles of 2^log_t; the
+// plan of stages 1..log_t (kernels/bitonic.py::tile_plan).
 int radx_chunk_sort_cyclic(void* const* in, void* const* out, int64_t np,
                            int64_t ncmp, int64_t n, int64_t log_t,
-                           int64_t log_c, void* stream) {
+                           int64_t log_c, const int* plan, int64_t phases,
+                           void* stream) {
   CyclicLaunch launch;
   if (!make_planes(in, np, &launch.in) || !make_planes(out, np, &launch.out)) {
     return cudaErrorInvalidValue;
@@ -906,14 +893,18 @@ int radx_chunk_sort_cyclic(void* const* in, void* const* out, int64_t np,
   launch.n = n;
   launch.log_t = static_cast<int>(log_t);
   launch.log_c = static_cast<int>(log_c);
+  launch.plan = plan;
+  launch.phases = phases;
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }
 
-// Slots of 2^log_s keys inside radix chunks of 2^log_c keys.
+// Slots of 2^log_s keys inside radix chunks of 2^log_c keys; the plan of
+// levels log_s + 1 .. log_t, empty when log_s >= log_t.
 int radx_slot_merge(void* const* in, void* const* out, int64_t np,
                     int64_t ncmp, int64_t n, int64_t log_t, int64_t log_s,
-                    int64_t log_c, void* stream) {
+                    int64_t log_c, const int* plan, int64_t phases,
+                    void* stream) {
   SlotMergeLaunch launch;
   if (!make_planes(in, np, &launch.in) || !make_planes(out, np, &launch.out)) {
     return cudaErrorInvalidValue;
@@ -922,6 +913,8 @@ int radx_slot_merge(void* const* in, void* const* out, int64_t np,
   launch.log_t = static_cast<int>(log_t);
   launch.log_s = static_cast<int>(log_s);
   launch.log_c = static_cast<int>(log_c);
+  launch.plan = plan;
+  launch.phases = phases;
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }

@@ -43,10 +43,10 @@ _SIGNATURES = {
     "radx_cross_stage": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # planes, np, ncmp, n, log_t, invert, log_span, plan, phases, stream
     "radx_finish": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _P),
-    # in, out, np, ncmp, n, log_t, log_c, stream
-    "radx_chunk_sort_cyclic": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # in, out, np, ncmp, n, log_t, log_s, log_c, stream
-    "radx_slot_merge": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # in, out, np, ncmp, n, log_t, log_c, plan, phases, stream
+    "radx_chunk_sort_cyclic": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
+    # in, out, np, ncmp, n, log_t, log_s, log_c, plan, phases, stream
+    "radx_slot_merge": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P),
     # keys, n, log_tile, shift, bias, out, stream
     "radx_radix_hist": (_P, _I, _I, _I, _I, _P, _P),
     # keys, n_chunks, log_c, splitters, m, ranks, stream

@@ -33,9 +33,13 @@ Five kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
     inside each tile of T rows (``_finishw_kernel``), on the same engine;
   * ``chunk_sort_cyclic`` — the radix sort's phase 1: stages 1..log2(tile)
     of an ascending sort of every radix chunk, whose 1024-row tiles are
-    taken block-cyclically (``_chunk_sort_cyclic_kernel``);
+    taken block-cyclically (``_chunk_sort_cyclic_kernel``), on the same
+    engine with chunk_sort's plan, the tile loaded from its cyclic places;
   * ``slot_merge`` — the radix sort's phase C: odd slots reversed, then the
-    merge levels above the slot up to the tile (``_slot_merge_kernel``).
+    merge levels above the slot up to the tile (``_slot_merge_kernel``), on
+    the same engine, the odd slots read backwards by the first load (an
+    empty plan, a copy through that load, when the slot is at least the
+    tile).
 
 A radix chunk is larger than a block's shared memory, so its levels above
 the tile run as cross / finish passes with a direction ``span``: the
@@ -320,7 +324,7 @@ def _launch(name, fn_name, planes, ncmp, *args):
                   x.device, _ptrs(planes), len(planes), ncmp, x.numel(), *args)
 
 
-# --- the phase plan of chunk_sort and finish -----------------------------------
+# --- the phase plan of the register tile engine -----------------------------
 
 
 def tile_plan(log_t, kk_first, kk_last, r):
@@ -337,7 +341,9 @@ def tile_plan(log_t, kk_first, kk_last, r):
     levels that run all their bits inside bits 0..r-1 share one phase (the
     first r stages of a chunk sort).  Between two phases the tile makes one
     round trip through shared memory; the first phase reads device memory
-    and the last one writes it."""
+    and the last one writes it.  With no level (``kk_first > kk_last``:
+    ``slot_merge`` with the slot at least the tile) the plan is empty and
+    the pass is a copy."""
     phases = []
     for kk in range(kk_first, kk_last + 1):
         hi = min(log_t, kk) - 1
@@ -364,8 +370,10 @@ def phase_rows(phase, log_t, r):
 
 
 def round_trips(log_t, kk_first, kk_last, planes):
-    """Shared-memory round trips of one tile pass at ``planes`` planes."""
-    return len(tile_plan(log_t, kk_first, kk_last, max_fusion(planes))) - 1
+    """Shared-memory round trips of one tile pass at ``planes`` planes (0
+    for an empty plan: a copy)."""
+    return max(len(tile_plan(log_t, kk_first, kk_last,
+                             max_fusion(planes))) - 1, 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -475,8 +483,10 @@ def chunk_sort_cyclic(src, dst, ncmp, chunk, tile):
         for d, o in zip(dst, chunk_sort_cyclic_ref(src, ncmp, chunk, tile)):
             d.copy_(o)
         return dst
+    log_t = _log2(tile)
     _launch_io("chunk_sort_cyclic", "radx_chunk_sort_cyclic", src, dst, ncmp,
-               _log2(tile), _log2(chunk))
+               log_t, _log2(chunk),
+               *_plan_arg(log_t, 1, log_t, max_fusion(len(src))))
     return dst
 
 
@@ -490,8 +500,10 @@ def slot_merge(src, dst, ncmp, chunk, slot, tile):
         for d, o in zip(dst, slot_merge_ref(src, ncmp, chunk, slot, tile)):
             d.copy_(o)
         return dst
-    _launch_io("slot_merge", "radx_slot_merge", src, dst, ncmp, _log2(tile),
-               _log2(slot), _log2(chunk))
+    log_t, log_s = _log2(tile), _log2(slot)
+    _launch_io("slot_merge", "radx_slot_merge", src, dst, ncmp, log_t, log_s,
+               _log2(chunk),
+               *_plan_arg(log_t, log_s + 1, log_t, max_fusion(len(src))))
     return dst
 
 

@@ -1,16 +1,20 @@
 """The phase plan of the register tile engine (csrc/bitonic.cu ``tile_pass``,
-the CUDA ``chunk_sort`` and ``finish``) against the plain network, on the CPU.
+the CUDA ``chunk_sort``, ``finish``, ``chunk_sort_cyclic`` and
+``slot_merge``) against the plain network, on the CPU.
 
 ``kernels/bitonic.py::tile_plan`` is the plan the wrappers pass to the
 kernels and ``phase_rows`` the rows a thread holds in a phase.  These tests
-run the network through that plan the way a kernel does: per phase they
+run the network through that plan the way a kernel does: the tile's rows
+come in through the kernel's load map (the tile itself, the block-cyclic
+tiles of a radix chunk, or the odd slots read backwards); per phase they
 gather every tile's rows into a (groups, 2^r) register view, run the
 phase's substages there with the kernel's direction rule (bit kk of the
 tile's base for kk >= log_t, else of the group's first row XOR of the
 register bits), and scatter the rows back.  Each result must be bit-equal
-to ``chunk_sort_ref`` / ``finish_ref`` (tolerance 0: integer keys with
-ties, so the tie-safe exchange and the riders' order are held too), and
-each phase's view a permutation of the tile's rows.  No JAX here.
+to ``chunk_sort_ref`` / ``finish_ref`` / ``chunk_sort_cyclic_ref`` /
+``slot_merge_ref`` (tolerance 0: integer keys with ties, so the tie-safe
+exchange and the riders' order are held too), and each phase's view a
+permutation of the tile's rows.  No JAX here.
 """
 
 import numpy as np
@@ -53,12 +57,15 @@ def _exchange(ncmp, a, b, up):
             [torch.where(swap, x, y) for x, y in zip(a, b)])
 
 
-def _run_plan(planes, ncmp, log_t, plan, r, dbase, invert):
+def _run_plan(planes, ncmp, log_t, plan, r, dbase, invert, src=None):
     """The planes after one tile pass of ``plan`` over every tile, computed
     phase by phase in (tiles, groups, 2^r) register views.  ``dbase``: each
-    tile's base in the direction index, int64 (tiles,)."""
+    tile's base in the direction index, int64 (tiles,).  ``src``: the load
+    map, the input row of every output row (default: in place); an empty
+    plan is a copy through it."""
     t, w = 1 << log_t, 1 << r
-    views = [p.reshape(-1, t).clone() for p in planes]
+    views = [(p if src is None else p[src]).reshape(-1, t).clone()
+             for p in planes]
     for phase in plan:
         kk_a, kk_b, hi, lo, wlo = phase
         rows = tb.phase_rows(phase, log_t, r)
@@ -118,6 +125,13 @@ def test_plan_shapes():
     assert tb.tile_plan(2, 9, 9, 4) == ((9, 9, 1, 0, 0),)
     # the largest plans fit the kernel's 64 phases
     assert len(tb.tile_plan(13, 1, 13, 2)) <= 64
+    # slot_merge at the radix sort's 2^14 tile: slots of 4096 keys, 8 phases
+    # (7 round trips); slots of 1024, 13 round trips
+    assert len(tb.tile_plan(14, 13, 14, 4)) == 8
+    assert tb.round_trips(14, 11, 14, 1) == 13
+    # a slot wider than the tile: no level, an empty plan (a copy)
+    assert tb.tile_plan(13, 14, 13, 4) == ()
+    assert tb.round_trips(13, 14, 13, 2) == 0
 
 
 @pytest.fixture(autouse=True)
@@ -160,3 +174,63 @@ def test_plan_matches_plain_network(log_t, mode):
                             r, tiles & mask, invert)
             want = tb.finish_ref(x, t, kk, invert, span=span, **kw)
             assert _equal(got, want), ("finish", r, kk, span, invert)
+
+
+def _cyclic_src(n, chunk):
+    """K4's load map, as the kernel computes it: output row lb + i of radix
+    chunk c reads row e = lb + i of the chunk's 1024-row tiles
+    {g * n_chunks + c}."""
+    o = torch.arange(n, dtype=torch.int64)
+    c, e = o // chunk, o % chunk
+    cyc = tb.CYCLIC_TILE
+    return ((e // cyc) * (n // chunk) + c) * cyc + e % cyc
+
+
+def _slot_src(n, slot):
+    """K5's load map: row g of an odd slot reads g ^ (slot - 1)."""
+    g = torch.arange(n, dtype=torch.int64)
+    return torch.where((g // slot) % 2 == 1, g ^ (slot - 1), g)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("log_t", (1, 2, 3, 5, 8, 10, 11, 13))
+def test_cyclic_plan_matches_plain(log_t, mode):
+    """chunk_sort_cyclic: chunk_sort's plan over tiles loaded through the
+    cyclic map, directions from the index within the radix chunk (chunks of
+    several tiles, so the tiles of a chunk alternate until the span
+    passes), bit-equal to ``chunk_sort_cyclic_ref``."""
+    rng = np.random.default_rng(2000 + 10 * log_t + len(mode))
+    t = 1 << log_t
+    chunk = max(tb.CYCLIC_TILE, 4 * t if log_t < 13 else 2 * t)
+    planes, ncmp = _planes(rng, mode, 2 * chunk)
+    r = tb.max_fusion(MODES[mode][1])
+    lb = torch.arange(2 * chunk // t, dtype=torch.int64) * t % chunk
+    got = _run_plan(planes, ncmp, log_t, tb.tile_plan(log_t, 1, log_t, r), r,
+                    lb, False, _cyclic_src(2 * chunk, chunk))
+    want = tb.chunk_sort_cyclic_ref(planes, ncmp, chunk, t)
+    assert _equal(got, tuple(want))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("log_t", (1, 2, 3, 5, 8, 11, 13))
+def test_slot_merge_plan_matches_plain(log_t, mode):
+    """slot_merge: levels log2(slot)+1 .. log_t over tiles loaded with the
+    odd slots reversed, directions from the index within the chunk, for
+    slots a quarter of the tile, half of it (one level), the tile and twice
+    the tile (the empty plan: a copy), bit-equal to ``slot_merge_ref``."""
+    rng = np.random.default_rng(3000 + 10 * log_t + len(mode))
+    t = 1 << log_t
+    chunk = 4 * t
+    planes, ncmp = _planes(rng, mode, 2 * chunk)
+    r = tb.max_fusion(MODES[mode][1])
+    base = torch.arange(2 * chunk // t, dtype=torch.int64) * t % chunk
+    for slot in (t // 4, t // 2, t, 2 * t):
+        if slot < 1:
+            continue
+        log_s = slot.bit_length() - 1
+        plan = tb.tile_plan(log_t, log_s + 1, log_t, r)
+        assert (plan == ()) == (slot >= t)
+        got = _run_plan(planes, ncmp, log_t, plan, r, base, False,
+                        _slot_src(2 * chunk, slot))
+        want = tb.slot_merge_ref(planes, ncmp, chunk, slot, t)
+        assert _equal(got, tuple(want)), slot
