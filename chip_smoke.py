@@ -19,9 +19,12 @@ Phases, one line each (any failure raises and exits nonzero):
      and above the tile's level and as a span pass, tied lex planes), and
      on the same engine ``chunk_sort_cyclic`` / ``slot_merge`` in every
      mode (radix chunks of one and of several tiles, slots below, at and
-     above the tile, planes not 16-byte aligned),
-     compact for 1-3 planes at densities 0, 0.5 and 1 on a
-     ragged n, segscan for every op x value dtype, the dense aggregates
+     above the tile, planes not 16-byte aligned), the single-pass
+     ``compact`` and ``segscan`` (``single_pass_checks``: bool and int32
+     masks, 1-4 planes, densities 0, 0.5 and 1, offset planes, every op x
+     value dtype and fill with 1-4 planes on 5000 / 7 / 1 groups and
+     all-equal keys, the many-tile cases three times with the same bits,
+     the float32 sum bit-equal to the CPU model), the dense aggregates
      (sums for 128 / 256 / 8192 / 65536 bins, extrema for 128 / 256 / 8192)
      at 2^26 rows with a ragged n_valid on uniform, one-key, Zipf and
      out-of-range keys; the radix kernels (``radix_checks``): radix_hist at
@@ -61,8 +64,8 @@ Phases, one line each (any failure raises and exits nonzero):
      engine's kernels with their shared-memory round trips per tile); then
      the metrics of radx_tpu_torch/bench.py, the radix ones with the
      bitonic rate beside them, the breakdowns by kernel of the keys-only
-     sort (2^23, 2^26), group-by, join and radix sort, and the launch path
-     of one small kernel (``bench.measure_launch``).
+     sort (2^23, 2^26), group-by, join, the dense query and radix sort, and
+     the launch path of one small kernel (``bench.measure_launch``).
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -109,10 +112,12 @@ def _ptxas_name(kernel, args):
         return kernel + _suffix(a[0], a[1])
     if kernel == "dense_extrema":
         return f"dense_extrema<{'min' if a[0] else 'max'}>"
-    if kernel.startswith("segscan"):
+    if kernel == "segscan":
         op = ("sum", "min", "max", "fill")[a[0]]
         dt = ("u32", "i32", "f32")[a[1]]
         return f"{kernel}<{op}{a[2] if op == 'fill' else ','+dt}>"
+    if kernel == "compact":
+        return f"compact<P{a[0]},mask{a[1]}B>"
     return kernel + (f"<{a[0]}>" if a else "")
 
 
@@ -124,8 +129,7 @@ def ptxas_report(log):
         found = re.search(
             r"Compiling entry function .*?(chunk_sort_cyclic|slot_merge|"
             r"chunk_sort|finish|cross_stage|radix_hist|radix_rank|radix_pack|"
-            r"radix_concat|compact_count|compact_write|segscan_tile|"
-            r"segscan_carry|segscan_apply|dense_sums_smem|dense_sums_global|"
+            r"radix_concat|compact|segscan|dense_sums_smem|dense_sums_global|"
             r"dense_extrema)_kernel(I(?:L[ib]\d+E)+E)?", ln)
         if found:
             kernel = _ptxas_name(found.group(1), found.group(2))
@@ -590,6 +594,134 @@ def radix_path(dev):
     _line("slice", input=f"tile_histograms_n{n26}", shifts=[0, 8, 16, 24],
           equal_reference=True)
     del same, got, x, hists
+    torch.cuda.empty_cache()
+
+
+def _bits_equal(runs):
+    """Whether every run of a kernel gave the same bits."""
+    return all(torch.equal(_i32(a), _i32(runs[0])) for a in runs[1:])
+
+
+def single_pass_checks(dev, cfg, rng):
+    """Phase 3 for the single-pass kernels with a decoupled look-back,
+    ``compact`` (K7) and ``segscan`` (K6), on ragged sizes:
+
+    * compact bit-equal to ``compact_ref`` at 2^26 + 4097 rows (16,386
+      tiles) for bool and int32 masks, P = 1..4 planes, densities 0 / 0.01
+      / 0.5 / 1 (a warp's few kept rows written directly, many staged),
+      planes (and mask) aligned and offset by one row (the scalar loads),
+      each case three times with the same bits, and a device row limit
+      n_valid;
+    * segscan bit-equal to ``segscan_ref`` (float32 sums within 1e-5 x the
+      run's sum of |v|) for sum / min / max over uint32 / int32 / float32
+      and fill with M = 1..4, on 5000 / 7 / 1 groups and all-equal keys
+      0xFFFFFFFF, at tiles of 256 rows (32769 tiles) three times, every run
+      with the same bits (float sums included), and at the paths' tile;
+      offset planes; and the float32 sum bit-equal to the CPU model
+      ``segscan_lookback`` at 2^18 rows."""
+    from radx_tpu_torch.kernels import compact as CP
+    from radx_tpu_torch.kernels import segscan as SG
+
+    def rand32(n):
+        return torch.from_numpy(rng.integers(-(2**31), 2**31, n,
+                                             dtype=np.int64).astype(np.int32)
+                                ).to(dev)
+
+    n = (1 << 26) + 4097
+    planes = [rand32(n + 1) for _ in range(4)]
+    for density in (0.0, 0.01, 0.5, 1.0):
+        keep = torch.from_numpy(rng.random(n + 1) < density).to(dev)
+        for kind, mask in (("bool", keep), ("int32", keep.to(torch.int32))):
+            for p in (1, 2, 3, 4):
+                for off in (0, 1):
+                    m = mask[off: off + n]
+                    ps = [x[off: off + n] for x in planes[:p]]
+                    limit = (torch.tensor(n // 3, dtype=torch.int32, device=dev)
+                             if density == 0.5 and p == 2 else None)
+                    want, wcount = CP.compact_ref(m, ps, limit)
+                    c = int(wcount)
+                    runs = [CP.compact(m, ps, cfg.compact_elems,
+                                       n_valid=limit) for _ in range(3)]
+                    torch.cuda.synchronize()
+                    e = max(abs(int(count) - c) + max(
+                        [int((o[:c].long() - w[:c].long()).abs().max())
+                         if c else 0 for o, w in zip(outs, want)])
+                        for outs, count in runs)
+                    same = all(_bits_equal([r[0][i][:c] for r in runs])
+                               for i in range(p))
+                    record(list(CP.KERNELS), e, e == 0 and same, n=n,
+                           mask=kind, planes=p, density=density, kept=c,
+                           offset_rows=off, tiles=-(-n // CP.TILE),
+                           n_valid=None if limit is None else n // 3,
+                           runs=len(runs))
+    del planes, keep, mask, m, ps, want
+
+    scan_n = (1 << 23) + 33
+    many = 256
+
+    def check_scan(name, keys, vals, op, dtype, flags=None, **case):
+        want = SG.segscan_ref(keys, vals, op, dtype, flags)
+        for tile, reps in ((many, 3), (cfg.scan_elems, 1)):
+            runs = [SG.segscan_planes(keys, vals, op, dtype, tile, flags)
+                    for _ in range(reps)]
+            torch.cuda.synchronize()
+            if op == "fill":
+                got = [x for r in runs for x in r[0] + r[1]]
+                ref = (want[0] + want[1]) * reps
+                e = max(int((a.long() - b.long()).abs().max())
+                        for a, b in zip(got, ref))
+                ok = e == 0
+            elif op == "sum" and dtype == torch.float32:
+                tols = [_segscan_tol(SG, keys, vals, r, want) for r in runs]
+                e, ok = max(t[0] for t in tols), all(t[1] for t in tols)
+            else:
+                e = max(int((r.long() - want.long()).abs().max()) for r in runs)
+                ok = e == 0
+            same = (all(_bits_equal([r[0][j] for r in runs])
+                        for j in range(len(vals)))
+                    if op == "fill" else _bits_equal(runs))
+            record(list(SG.KERNELS), e, ok and same, n=keys.numel(),
+                   keys=name, op=op, dtype=str(dtype), tile=tile,
+                   tiles=-(-keys.numel() // tile), runs=reps, **case)
+
+    for groups in (5000, 7, 1, "all_ffffffff"):
+        if groups == "all_ffffffff":
+            keys = torch.full((scan_n,), -1, dtype=torch.int32, device=dev)
+        else:
+            keys = torch.from_numpy(np.sort(rng.integers(
+                0, groups, scan_n).astype(np.uint32)).view(np.int32)).to(dev)
+        for dtype in (torch.uint32, torch.int32, torch.float32):
+            vals = (torch.from_numpy(rng.standard_normal(scan_n).astype(
+                np.float32).view(np.int32)).to(dev)
+                if dtype == torch.float32 else rand32(scan_n))
+            for op in ("sum", "min", "max"):
+                check_scan(f"groups_{groups}", keys, vals, op, dtype)
+        for m in (1, 2, 3, 4):
+            flags = [torch.from_numpy((rng.random(scan_n) < 0.01).astype(
+                np.int32)).to(dev) for _ in range(m)]
+            fvals = [rand32(scan_n) for _ in range(m)]
+            check_scan(f"groups_{groups}", keys, fvals, "fill", torch.int32,
+                       flags, planes=m)
+    # planes offset by one row
+    keys = torch.from_numpy(np.sort(rng.integers(0, 7, scan_n + 1).astype(
+        np.uint32)).view(np.int32)).to(dev)
+    vals = rand32(scan_n + 1)
+    check_scan("groups_7_offset_row", keys[1:], vals[1:], "sum", torch.uint32)
+    # the float32 sum against the CPU model, bit for bit
+    small = (1 << 18) + 33
+    for groups in (5000, 7, 1):
+        keys = np.sort(rng.integers(0, groups, small).astype(np.uint32)).view(
+            np.int32)
+        vals = rng.standard_normal(small).astype(np.float32).view(np.int32)
+        kt, vt = torch.from_numpy(keys), torch.from_numpy(vals)
+        got = SG.segscan_planes(kt.to(dev), vt.to(dev), "sum", torch.float32,
+                                many).cpu()
+        model = SG.segscan_lookback(kt, vt, "sum", torch.float32, many,
+                                    torch.Generator().manual_seed(groups))
+        e = int((got.long() - model.long()).abs().max())
+        record(list(SG.KERNELS), e, e == 0, n=small, groups=groups, op="sum",
+               dtype="torch.float32", tile=many, against="segscan_lookback")
+    del keys, vals, flags, fvals
     torch.cuda.empty_cache()
 
 
@@ -1091,61 +1223,8 @@ def main():
     del tie_plane, riders
     tile_engine_checks(dev, cfg)
 
-    ragged = n + 4097
-    planes = [torch.from_numpy(rng.integers(-(2**31), 2**31, ragged,
-                                            dtype=np.int64).astype(np.int32)
-                               ).to(dev) for _ in range(3)]
-    for density in (0.0, 0.5, 1.0):
-        mask = torch.from_numpy(
-            (rng.random(ragged) < density).astype(np.int32)).to(dev)
-        for p in (1, 2, 3):
-            outs, count = CP.compact(mask, planes[:p], cfg.compact_elems)
-            want, wcount = CP.compact_ref(mask, planes[:p])
-            torch.cuda.synchronize()
-            c = int(wcount)
-            e = max([abs(int(count) - c)] + [
-                int((o[:c].long() - w[:c].long()).abs().max()) if c else 0
-                for o, w in zip(outs, want)])
-            record(list(CP.KERNELS), e, e == 0, n=ragged, planes=p,
-                   density=density, kept=c)
-    del planes, mask
-
-    scan_n = n + 33
-    for groups in (5000, 7, 1):
-        keys = torch.from_numpy(np.sort(rng.integers(0, groups, scan_n).astype(
-            np.uint32)).view(np.int32)).to(dev)
-        for dtype in (torch.uint32, torch.int32, torch.float32):
-            if dtype == torch.float32:
-                vals = torch.from_numpy(rng.standard_normal(scan_n).astype(
-                    np.float32).view(np.int32)).to(dev)
-            else:
-                vals = torch.from_numpy(rng.integers(
-                    -(2**31), 2**31, scan_n, dtype=np.int64).astype(np.int32)
-                ).to(dev)
-            for op in ("sum", "min", "max"):
-                got = SG.segscan_planes(keys, vals, op, dtype, cfg.scan_elems)
-                want = SG.segscan_ref(keys, vals, op, dtype)
-                torch.cuda.synchronize()
-                if op == "sum" and dtype == torch.float32:
-                    e, ok = _segscan_tol(SG, keys, vals, got, want)
-                else:
-                    e = int((got.long() - want.long()).abs().max())
-                    ok = e == 0
-                record(list(SG.KERNELS), e, ok, n=scan_n, groups=groups,
-                       op=op, dtype=str(dtype))
-    flags = [torch.from_numpy((rng.random(scan_n) < 0.01).astype(np.int32)
-                              ).to(dev) for _ in range(2)]
-    fvals = [torch.from_numpy(rng.integers(-(2**31), 2**31, scan_n,
-                                           dtype=np.int64).astype(np.int32)
-                              ).to(dev) for _ in range(2)]
-    gv, gh = SG.segscan_planes(keys, fvals, "fill", torch.int32,
-                               cfg.scan_elems, flags)
-    wv, wh = SG.segscan_ref(keys, fvals, "fill", torch.int32, flags)
-    torch.cuda.synchronize()
-    e = max(int((a.long() - b.long()).abs().max()) for a, b in
-            zip(gv + gh, wv + wh))
-    record(list(SG.KERNELS), e, e == 0, n=scan_n, op="fill", planes=2)
-    del base, ties, iota, keys, vals, got, want, flags, fvals, gv, gh, wv, wh
+    del base, ties, iota
+    single_pass_checks(dev, cfg, rng)
 
     # the dense aggregates at 2^26 rows, a ragged n_valid
     n26 = 1 << 26
@@ -1506,38 +1585,52 @@ def main():
                   _cx_ops(n, ll, p), round_trips=B.round_trips(ll, 23, 23, p))
     del x, lex
 
+    # compact on the filter's shape (int32 mask, density 0.5, one plane);
+    # beside it a bool mask, and the group-by's two planes by its run ends
     mask = torch.from_numpy((rng.integers(0, 2, n26)).astype(np.int32)).to(dev)
     col = torch.from_numpy(rng.integers(-(2**31), 2**31, n26, dtype=np.int64
                                         ).astype(np.int32)).to(dev)
-    counts = CP.count_tiles(mask, cfg.compact_elems)
-    inclusive = torch.cumsum(counts, 0)
-    kept = int(inclusive[-1])
     bmask = mask.bool()
-    plain_compact = lambda: CP.compact_ref(mask, [col])  # noqa: E731
-    time_pair("compact_count", log_n,
-              lambda: CP.count_tiles(mask, cfg.compact_elems), plain_compact,
-              4 * n26 + 8 * counts.numel(), n26,
-              lambda: torch.count_nonzero(mask.view(-1, cfg.compact_elems), 1))
-    time_pair("compact_write", log_n,
-              lambda: CP.write_tiles(mask, [col], inclusive, cfg.compact_elems),
-              plain_compact, 8 * n26 + 8 * counts.numel() + 4 * kept, n26,
+    time_pair("compact", log_n,
+              lambda: CP.compact(mask, [col], cfg.compact_elems),
+              lambda: CP.compact_ref(mask, [col]),
+              bench.compact_bytes(mask, [col]), n26,
               lambda: torch.masked_select(col, bmask))
-    del mask, col, counts, inclusive, bmask
-
+    time_pair("compact/bool_mask", log_n,
+              lambda: CP.compact(bmask, [col], cfg.compact_elems),
+              lambda: CP.compact_ref(bmask, [col]),
+              bench.compact_bytes(bmask, [col]), n26,
+              lambda: torch.masked_select(col, bmask))
     skeys = torch.from_numpy(np.sort(rng.integers(0, 10007, n26).astype(
         np.uint32)).view(np.int32)).to(dev)
-    svals = torch.from_numpy(rng.integers(-(2**31), 2**31, n26, dtype=np.int64
-                                          ).astype(np.int32)).to(dev)
-    launch = SG.Launch(skeys, [svals], [], "sum", torch.uint32, cfg.scan_elems)
-    plain_scan = lambda: SG.segscan_ref(skeys, svals, "sum", torch.uint32)  # noqa: E731
-    tiles_b = 16 * (n26 // cfg.scan_elems)  # per-tile tails and carries
-    scan_bytes = {"segscan_tile": 12 * n26 + tiles_b,
-                  "segscan_carry": 2 * tiles_b,
-                  "segscan_apply": 12 * n26 + tiles_b}
-    for phase, name in enumerate(SG.KERNELS):
-        time_pair(name, log_n, lambda phase=phase: launch.run(phase),
-                  plain_scan, scan_bytes[name], n26 if phase != 1 else 0)
-    del skeys, svals, launch
+    last = torch.ones(n26, dtype=torch.bool, device=dev)
+    torch.ne(skeys[1:], skeys[:-1], out=last[:-1])
+    time_pair("compact/groupby_run_ends", log_n,
+              lambda: CP.compact(last, [skeys, col], cfg.compact_elems),
+              lambda: CP.compact_ref(last, [skeys, col]),
+              bench.compact_bytes(last, [skeys, col]), n26)
+    del mask, bmask, last
+
+    # segscan on the group-by's shape: u32 sum over 10007 sorted groups;
+    # beside it the float32 sum, and one-plane fill (the join's)
+    plain_scan = lambda: SG.segscan_ref(skeys, col, "sum", torch.uint32)  # noqa: E731
+    time_pair("segscan", log_n,
+              lambda: SG.segscan_planes(skeys, col, "sum", torch.uint32,
+                                        cfg.scan_elems), plain_scan,
+              12 * n26, n26)
+    time_pair("segscan/float32_sum", log_n,
+              lambda: SG.segscan_planes(skeys, col, "sum", torch.float32,
+                                        cfg.scan_elems),
+              lambda: SG.segscan_ref(skeys, col, "sum", torch.float32),
+              12 * n26, n26)
+    hflag = (col & 63) == 0
+    hflag32 = hflag.to(i32)
+    time_pair("segscan/fill", log_n,
+              lambda: SG.segscan_planes(skeys, [col], "fill", torch.int32,
+                                        cfg.scan_elems, [hflag32]),
+              lambda: SG.segscan_ref(skeys, [col], "fill", torch.int32,
+                                     [hflag32]), 20 * n26, n26)
+    del skeys, col, hflag, hflag32
 
     # the dense aggregates at 2^26 rows, 256 bins (the config-3 shape)
     dk = torch.randint(0, 256, (n26,), dtype=i32, generator=gen,
@@ -1656,7 +1749,7 @@ def main():
     _line("elapsed", seconds=time.perf_counter() - t_start)
     for prof in (bench.profile_sort(1 << 23), bench.profile_sort(1 << 26),
                  bench.profile_groupby(), bench.profile_join(),
-                 bench.profile_radix(1 << 26)):
+                 bench.profile_query_dense(), bench.profile_radix(1 << 26)):
         _line("breakdown", **prof)
         torch.cuda.empty_cache()
     _line("launch", **bench.measure_launch())

@@ -38,8 +38,11 @@ plain torch reference on the card):
     which also prints ``profile_radix``, the breakdown by kernel).
 
 ``sweep`` runs the tile sweep of the keys-only, rider and lexicographic
-sorts, ``profile`` the keys-only sort, group-by and join breakdowns by layer
-(torch.profiler), ``launch`` the cost of one small kernel's launch path.
+sorts, ``sweep_scan`` times the single-pass compaction on three shapes and
+sweeps the segmented scan's tile,
+``profile`` the keys-only sort, group-by, join and dense-query breakdowns by
+layer (torch.profiler), ``launch`` the cost of one small kernel's launch
+path.
 
 Inputs are made from fixed seeds, with numpy or, for the large slice-3
 inputs, with a seeded generator on the card (the card has no JAX, so the
@@ -58,7 +61,7 @@ import numpy as np
 import torch
 
 from radx_tpu_torch.config import SortConfig
-from radx_tpu_torch.kernels import msd
+from radx_tpu_torch.kernels import compact, msd, segscan
 from radx_tpu_torch.ops.filter import filter_columns
 from radx_tpu_torch.ops.groupby import groupby
 from radx_tpu_torch.ops.sort import argsort, sort, sort_pairs
@@ -483,6 +486,73 @@ def sweep_tiles(n: int = 1 << 26):
     return rows
 
 
+def compact_bytes(mask, planes) -> int:
+    """Bytes a compaction of ``planes`` by ``mask`` must move: the mask
+    read once, in each plane the 32-byte sectors that hold a kept row
+    read, and the kept rows written.  Where few rows are kept (the
+    group-by's run ends), most of a plane is never read."""
+    keep = mask != 0
+    n = keep.numel()
+    total = mask.element_size() * n + 4 * len(planes) * int(keep.sum())
+    for p in planes:
+        lead = p.data_ptr() % 32 // 4  # rows of p's first sector before it
+        rows = torch.zeros(-(-(lead + n) // 8) * 8, dtype=torch.bool,
+                           device=keep.device)
+        rows[lead: lead + n] = keep
+        total += min(32 * int(rows.view(-1, 8).any(1).sum()), 4 * n)
+    return total
+
+
+def sweep_single_pass(n: int = 1 << 26) -> list[dict]:
+    """The single-pass kernels at n rows, one row each, every result first
+    held against its plain version: ``compact`` (its one tile) on the
+    filter's shape (int32 mask of density 0.5, one plane: the staged
+    writes), on the group-by's (the bool run ends of 10007 sorted groups,
+    two planes: the direct writes) and on the lazy filter's (bool mask of
+    density 0.5, three planes), and ``segscan`` over tiles 2^9..2^13 on the
+    group-by's uint32 sum.  ``bound_ms``: the bytes the call must move
+    (``compact_bytes``; the scan reads keys and values and writes the
+    output once) over 3.35 TB/s."""
+    g = _generator(19)
+    col = _randint(-(2**31), 2**31, n, g)
+    skeys = torch.sort(_randint(0, 10007, n, g)).values
+    last = torch.ones(n, dtype=torch.bool, device=col.device)
+    torch.ne(skeys[1:], skeys[:-1], out=last[:-1])
+    half = _randint(0, 2, n, g)
+    shapes = {"filter_int32_mask": (half, [col]),
+              "groupby_run_ends": (last, [skeys, col]),
+              "lazy_filter_3_planes": (half != 0, [col, skeys, half])}
+    rows = []
+
+    def row(kernel, case, fn, bytes_, **tile):
+        t = timing.time_cuda(fn, iters=10, repeats=5)
+        rows.append({"kernel": kernel, "case": case, "n": n, **tile,
+                     "ms": t.seconds * 1e3, "spread_pct": t.spread_pct,
+                     "bound_ms": bytes_ / 3.35e9,
+                     "device": timing.device_info()})
+
+    for case, (mask, planes) in shapes.items():
+        want, wcount = compact.compact_ref(mask, planes)
+        kept = int(wcount)
+        outs, count = compact.compact(mask, planes, compact.TILE)
+        if int(count) != kept or not all(torch.equal(o[:kept], w[:kept])
+                                         for o, w in zip(outs, want)):
+            raise AssertionError(f"compact differs ({case})")
+        row("compact", case, lambda: compact.compact(mask, planes,
+                                                     compact.TILE),
+            compact_bytes(mask, planes), tile=compact.TILE)
+    kp = skeys.view(torch.int32)
+    want = segscan.segscan_ref(kp, col, "sum", torch.uint32)
+    for log_t in range(9, 14):
+        if not torch.equal(segscan.segscan_planes(kp, col, "sum", torch.uint32,
+                                                  1 << log_t), want):
+            raise AssertionError(f"segscan differs (tile 2^{log_t})")
+        row("segscan", "groupby_u32_sum", lambda t=1 << log_t:
+            segscan.segscan_planes(kp, col, "sum", torch.uint32, t), 12 * n,
+            tile=1 << log_t)
+    return rows
+
+
 def _profile(fn, calls: int, layer_of, what: str) -> dict:
     """Device time per call by layer (torch.profiler) and the device's idle
     share of the profiled wall time."""
@@ -527,6 +597,22 @@ def profile_join(n: int = 10**8, calls: int = 2) -> dict:
 
     return _profile(lambda: probe.join(build, "k", "v", "w"), calls, layer_of,
                     f"Table.join inner n={n} x {n}, ms of device time per call")
+
+
+def _dense_layer(name: str) -> str:
+    if "dense_" in name:
+        return "dense"
+    return "compact" if "compact" in name else "elementwise"
+
+
+def profile_query_dense(n: int = 1 << 30, calls: int = 2, table=None) -> dict:
+    """The config-3 dense query through LazyTable (``run_query_dense``, sum)
+    by layer: compact (the filter and the compaction of the bins), dense
+    (K8 / K9), elementwise (masks, validity, the lazy count)."""
+    table = table if table is not None else query_dense_data(n)
+    return _profile(lambda: run_query_dense(table, "sum"), calls, _dense_layer,
+                    f"dense query (LazyTable) n={table.num_rows}, ms of "
+                    "device time per call")
 
 
 def _sort_layer(name: str) -> str:
@@ -643,8 +729,9 @@ MEASURES = {
     "join": lambda: [measure_join()],
     "dense": lambda: [measure_query_dense()],
     "sweep": lambda: sweep_tiles(),
+    "sweep_scan": lambda: sweep_single_pass(),
     "profile": lambda: [profile_sort(1 << 23), profile_sort(), profile_groupby(),
-                        profile_join()],
+                        profile_join(), profile_query_dense()],
     "launch": lambda: [measure_launch()],
     "radix": lambda: [measure_radix(1 << 26), measure_radix(1 << 28),
                       profile_radix()],

@@ -23,8 +23,11 @@ take any size.  The relational paths have tiles of their own:
     the planes grow so the footprint in shared memory stays within that of
     three (``lex_tiles``);
   * ``topk_chunk_elems`` — top_k's per-chunk (key, index) sort;
-  * ``compact_elems`` — keys per block of the mask compaction;
-  * ``scan_elems`` — keys per block of the segmented scan.
+  * ``compact_elems`` — rows per chunk of the mask compaction, the JAX
+    ``compact_chunk_rows`` counterpart; the card's kernel runs its own
+    4096-row tiles (``kernels/compact.TILE``), whatever it says;
+  * ``scan_elems`` — rows per tile (one block) of the single-pass
+    segmented scan.
 
 ``strategy="radix"`` has no tile of its own: its chunk grows from the
 mode's chunk tile (kernels/radix_sort.pick_chunk), as the JAX chunk grows
@@ -67,7 +70,8 @@ class SortConfig:
         quartered at 7-8 (powers of two, the chunk >= 8, finish >= chunk).
       topk_chunk_elems: rows per chunk of top_k's selection pass (power of
         two >= 2); k <= topk_chunk_elems // 2 takes the selection route.
-      compact_elems: rows per block of the mask compaction (power of two).
+      compact_elems: rows per chunk of the mask compaction (power of two;
+        the card's kernel runs 4096-row tiles whatever it says).
       scan_elems: rows per block of the segmented scan (power of two
         >= 256).
     """
@@ -90,8 +94,12 @@ class SortConfig:
     stable_chunk_elems: int = 1 << 13
     stable_finish_elems: int = 1 << 13
     topk_chunk_elems: int = 1 << 13
+    # The single-pass kernels' tiles, from a sweep at 2^26 rows on one H100
+    # (PERF.md): 2^12 fastest for the scan (2^13 +7%, 2^11 +28%); for the
+    # compaction, whose kernel has it built in, within 6% of the fastest
+    # on each of its three shapes (2^11 and 2^13 up to 21% and 9% off).
     compact_elems: int = 1 << 12
-    scan_elems: int = 1 << 11
+    scan_elems: int = 1 << 12
 
     def lex_tiles(self, planes: int) -> tuple[int, int]:
         """(chunk, finish) tiles of a lexicographic sort of ``planes``
@@ -166,8 +174,8 @@ def config_from_jax(cfg) -> SortConfig:
     the lexicographic ones from ``stable_chunk_rows`` (cut as at three
     planes; the JAX ``stable2_chunk_rows`` has no counterpart, since the
     port's two-plane sorts take the same tiles),
-    top_k's chunk from ``topk_chunk_rows`` and the compaction block
-    from ``compact_chunk_rows``.  The engine holds no weights; data passes
+    top_k's chunk from ``topk_chunk_rows`` and the compaction tile from
+    ``compact_chunk_rows``.  The engine holds no weights; data passes
     between the two packages as numpy arrays.
     """
     chunk, finish = _jax_tiles(cfg.chunk_rows, 1)

@@ -1,5 +1,5 @@
 // Segmented inclusive scan over sorted keys for Hopper (sm_90a): the port of
-// radx_tpu/kernels/segscan.py::_segscan_kernel (:78).
+// radx_tpu/kernels/segscan.py::_segscan_kernel (:78), in one pass.
 //
 // Input: n int32 keys in which equal keys are contiguous (sorted), and the
 // values as raw 32-bit planes.  Output: each value combined, inclusive, with
@@ -21,29 +21,43 @@
 //
 // The TPU runs the chunks in order over its grid and carries the open run
 // from one chunk to the next in SMEM.  Blocks on a GPU run in no order, so
-// the port is reduce-then-scan in three kernels:
+// the carry becomes a decoupled look-back (Merrill & Garland, "Single-pass
+// Parallel Prefix Scan with Decoupled Look-back") over run summaries:
 //
-//   segscan_tile   — one block per tile of 2^log_tile rows: the tile is
-//                    staged in shared memory, each thread scans its rows
-//                    serially, a block scan (warp shuffles, then the warp
-//                    totals) carries runs across threads, and the tile is
-//                    written back.  Thread last also writes the tile's tail:
-//                    its last key, the aggregate of its last run, and whether
-//                    the whole tile is one run;
-//   segscan_carry  — one block scans the tiles' tails in rounds of 1024, so
-//                    tail t becomes the aggregate of the run that is open at
-//                    the end of tile t, across all tiles before it;
-//   segscan_apply  — one block per tile t >= 1 combines carry t-1 into the
-//                    rows of tile t whose key equals its key: with sorted
-//                    keys that is a prefix of the tile, so the block stops at
-//                    the first round of rows that is not all in the run.
+//   * a block takes its tile of 2^log_tile rows from an atomic counter, so
+//     every tile it waits on belongs to a block already running;
+//   * the tile is staged in shared memory; each thread scans its rows
+//     serially, a block scan (warp shuffles, then the warp totals) carries
+//     runs across threads, giving the tile's summary A (its last key,
+//     whether it is one run, the aggregate of its last run);
+//   * where the row before the tile has another key than its first row, no
+//     run crosses into the tile: it publishes P(t) = A(t) (not one run with
+//     what precedes it) at once and needs no look-back.  Else it publishes
+//     A under flag A, and warp 0 walks back from tile t - 1 to the nearest
+//     tile whose summary starts the fold: one that carries its inclusive
+//     prefix (flag P), or
+//     whose A is not one run, or whose key is not this tile's first key
+//     (there the open run starts, so its A is the prefix already).  It then
+//     folds left, from that summary forward to t - 1, so the prefix is
+//     always join(P(t - 2), A(t - 1)) whatever the walk saw: float32 sums
+//     come out bit-identical from run to run.  (Integer ops, min / max and
+//     fill are associative bit for bit, so there a window of 32 summaries
+//     folds as a tree; the float32 sum folds one summary at a time.)
+//   * the block publishes P(t) = join(prefix, A(t)), folds the prefix into
+//     the tile's leading run while writing the tile out once.  One thread
+//     publishes while the others go on, so a release stalls only its warp.
 //
-// Bound on the card: device-memory bandwidth.  segscan_tile reads and writes
-// each plane once; segscan_apply reads one round of keys per tile (all of
-// the tile only where a run covers it); segscan_carry touches one row per
-// tile.  Every element a run element combines with is in registers or
-// shared memory; offsets are 64-bit.
+// A tile's status record is 16 words: the flag, then the A and the P
+// summaries (key, whole, fill flags, M values).  A summary is written first
+// and its flag released after it (cuda::atomic_ref, release / acquire at
+// device scope); readers acquire the flag before they read the summary.
+//
+// Bound on the card: device-memory bandwidth.  Keys and values are read
+// once and the values written once, in int4s where the planes are 16-byte
+// aligned; the look-back reads records of 64 bytes a tile from L2.  Offsets
+// are 64-bit.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,8 +72,13 @@ constexpr int kI32 = 1;
 constexpr int kF32 = 2;
 constexpr int kMaxFill = 4;
 constexpr int kTileThreads = 256;
-constexpr int kCarryThreads = 1024;
 constexpr int kStaticSmemBytes = 48 * 1024;
+// status record of a tile: [flag, A summary, P summary], kSummary words each
+constexpr int kSummary = 3 + kMaxFill;
+constexpr int kRecord = 16;
+constexpr uint32_t kEmpty = 0;
+constexpr uint32_t kAggregate = 1;
+constexpr uint32_t kPrefix = 2;
 
 struct Planes {
   const uint32_t* v[kMaxFill];
@@ -188,66 +207,199 @@ __device__ void block_scan(Run<OP, DT, M>& x, Run<OP, DT, M>& prev,
 // their own consecutive rows (stride = rows per thread) hit distinct banks.
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
-// Tile tails / carries: struct of arrays over the tiles.
-struct Tails {
-  int* key;
-  int* whole;
-  uint32_t* h;
-  uint32_t* v;  // v[j * tiles + t]
-  int64_t tiles;
-};
-
-Tails tails_of(void* scratch, int64_t tiles) {
-  int* p = static_cast<int*>(scratch);
-  return Tails{p, p + tiles, reinterpret_cast<uint32_t*>(p + 2 * tiles),
-               reinterpret_cast<uint32_t*>(p + 3 * tiles), tiles};
-}
+using FlagRef = cuda::atomic_ref<uint32_t, cuda::thread_scope_device>;
 
 template <int OP, int DT, int M>
-__device__ __forceinline__ Val<OP, DT, M> load_tail(const Tails& t, int64_t i) {
-  Val<OP, DT, M> x;
+__device__ __forceinline__ Run<OP, DT, M> shfl_idx(const Run<OP, DT, M>& r,
+                                                   int src) {
+  Run<OP, DT, M> o;
+  o.key = __shfl_sync(~0u, r.key, src);
+  o.whole = __shfl_sync(~0u, r.whole, src);
 #pragma unroll
-  for (int j = 0; j < M; ++j) x.v[j] = t.v[j * t.tiles + i];
-  x.h = t.h[i];
-  return x;
+  for (int j = 0; j < M; ++j) o.val.v[j] = __shfl_sync(~0u, r.val.v[j], src);
+  o.val.h = __shfl_sync(~0u, r.val.h, src);
+  return o;
 }
 
 template <int OP, int DT, int M>
-__device__ __forceinline__ void store_tail(const Tails& t, int64_t i,
-                                           const Run<OP, DT, M>& r) {
-  t.key[i] = r.key;
-  t.whole[i] = r.whole;
+__device__ __forceinline__ Run<OP, DT, M> shfl_down(const Run<OP, DT, M>& r,
+                                                    int off) {
+  Run<OP, DT, M> o;
+  o.key = __shfl_down_sync(~0u, r.key, off);
+  o.whole = __shfl_down_sync(~0u, r.whole, off);
 #pragma unroll
-  for (int j = 0; j < M; ++j) t.v[j * t.tiles + i] = r.val.v[j];
-  t.h[i] = r.val.h;
+  for (int j = 0; j < M; ++j) o.val.v[j] = __shfl_down_sync(~0u, r.val.v[j], off);
+  o.val.h = __shfl_down_sync(~0u, r.val.h, off);
+  return o;
 }
 
 template <int OP, int DT, int M>
-__global__ void segscan_tile_kernel(const int* __restrict__ key, Planes io,
-                                    int64_t n, int log_tile, Tails tails) {
+__device__ __forceinline__ void store_summary(uint32_t* s,
+                                              const Run<OP, DT, M>& r) {
+  s[0] = static_cast<uint32_t>(r.key);
+  s[1] = static_cast<uint32_t>(r.whole);
+  s[2] = r.val.h;
+#pragma unroll
+  for (int j = 0; j < M; ++j) s[3 + j] = r.val.v[j];
+}
+
+template <int OP, int DT, int M>
+__device__ __forceinline__ Run<OP, DT, M> load_summary(const uint32_t* s) {
+  Run<OP, DT, M> r;
+  r.key = static_cast<int>(__ldcg(s));
+  r.whole = static_cast<int>(__ldcg(s + 1));
+  r.val.h = __ldcg(s + 2);
+#pragma unroll
+  for (int j = 0; j < M; ++j) r.val.v[j] = __ldcg(s + 3 + j);
+  return r;
+}
+
+// The prefix of tile t (t >= 1) for its leading run, by warp 0: the summary
+// of tiles 0 .. t-1 (its key is tile t-1's last key; where that is not
+// first_key, a summary of a stretch that ends at t-1, which t does not
+// read).  records: tile u's status record at records + kRecord * u.
+template <int OP, int DT, int M>
+__device__ Run<OP, DT, M> look_back(uint32_t* records, int64_t t,
+                                    int first_key) {
+  using R = Run<OP, DT, M>;
+  constexpr bool kTree = !(OP == kSum && DT == kF32);
+  const int lane = threadIdx.x & 31;
+  // phase 1: the nearest tile that starts the fold, and its flag
+  int64_t base = t - 1;
+  int64_t stop;
+  bool stop_prefix;
+  while (true) {
+    const int64_t u = base - lane;
+    uint32_t f = kPrefix;  // past tile 0 (tile 0 publishes P: never reached)
+    bool halt = true;
+    if (u >= 0) {
+      uint32_t* rec = records + kRecord * u;
+      f = FlagRef(*rec).load(cuda::memory_order_acquire);
+      if (f == kAggregate) {
+        halt = __ldcg(rec + 2) == 0 || static_cast<int>(__ldcg(rec + 1)) !=
+                                            first_key;
+      } else {
+        halt = f == kPrefix;
+      }
+    }
+    const unsigned valid = __ballot_sync(~0u, f != kEmpty);
+    const unsigned halts = __ballot_sync(~0u, halt && f != kEmpty);
+    if (halts) {
+      const int h = __ffs(halts) - 1;
+      const unsigned upto = h == 31 ? ~0u : (2u << h) - 1;
+      if ((valid & upto) == upto) {
+        stop = base - h;
+        stop_prefix = __shfl_sync(~0u, f, h) == kPrefix;
+        break;
+      }
+    } else if (valid == ~0u) {
+      base -= 32;
+    }
+  }
+  __syncwarp();  // orders the lanes' acquires before every lane's reads
+  // phase 2: fold left from the stop's summary through A(stop+1 .. t-1)
+  R acc = load_summary<OP, DT, M>(records + kRecord * stop + 1 +
+                                  (stop_prefix ? kSummary : 0));
+  for (int64_t v0 = stop + 1; v0 < t; v0 += 32) {
+    const int64_t v = v0 + lane;
+    const int cnt = static_cast<int>(t - v0 < 32 ? t - v0 : 32);
+    R x = acc;  // lanes past t-1 hold a value nothing reads
+    if (v < t) x = load_summary<OP, DT, M>(records + kRecord * v + 1);
+    if constexpr (kTree) {
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const R y = shfl_down(x, off);
+        if (lane + off < cnt && (lane & (2 * off - 1)) == 0) x = join(x, y);
+      }
+      acc = join(acc, shfl_idx(x, 0));
+    } else {
+      for (int i = 0; i < cnt; ++i) acc = join(acc, shfl_idx(x, i));
+    }
+  }
+  return acc;
+}
+
+// scratch: the tile counter (words 0-1), then one status record a tile
+// from word kRecord on, all zero at launch.  vec: every plane is 16-byte
+// aligned, so a whole tile of at least 4 rows a thread moves in int4s.
+template <int OP, int DT, int M>
+__global__ void __launch_bounds__(kTileThreads)
+    segscan_kernel(const int* __restrict__ key, Planes io, int64_t n,
+                   int log_tile, bool vec, uint32_t* __restrict__ scratch) {
   using V = Val<OP, DT, M>;
   using R = Run<OP, DT, M>;
   constexpr bool kFlags = OP == kFill;
   extern __shared__ uint32_t smem[];
   __shared__ R warp_tot[32];
+  __shared__ R s_tile;
+  __shared__ R s_prefix;
+  __shared__ int64_t s_t;
+  __shared__ int s_prev_key;
   const int tile = 1 << log_tile;
   const int width = pad(tile);
   int* sk = reinterpret_cast<int*>(smem);
   uint32_t* sv = smem + width;             // M planes
   uint32_t* sh = smem + (1 + M) * width;   // flags, fill only
-  const int64_t base = static_cast<int64_t>(blockIdx.x) << log_tile;
+  uint32_t* records = scratch + kRecord;
+  if (threadIdx.x == 0) {
+    s_t = static_cast<int64_t>(
+        atomicAdd(reinterpret_cast<unsigned long long*>(scratch), 1ull));
+  }
+  __syncthreads();
+  const int64_t t = s_t;
+  const int64_t base = t << log_tile;
+  if (threadIdx.x == 0 && t > 0) s_prev_key = key[base - 1];
+  const bool quad = vec && base + tile <= n && tile >= 4 * blockDim.x;
+  const int quads = tile >> 2;
 
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int64_t g = base + i;
-    const bool in = g < n;
-    sk[pad(i)] = in ? key[g] : -1;
+  if (quad) {  // int4 loads, four rounds in flight
+#pragma unroll 4
+    for (int c = threadIdx.x; c < quads; c += blockDim.x) {
+      const int64_t g = base + 4 * c;
+      const int4 k4 = __ldg(reinterpret_cast<const int4*>(key + g));
+      uint4 v4[M];
+      uint32_t h[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int j = 0; j < M; ++j) sv[j * width + pad(i)] = in ? io.v[j][g] : 0u;
-    if constexpr (kFlags) {
-      uint32_t h = 0;
+      for (int j = 0; j < M; ++j) {
+        v4[j] = __ldg(reinterpret_cast<const uint4*>(io.v[j] + g));
+        if constexpr (kFlags) {
+          const int4 f = __ldg(reinterpret_cast<const int4*>(io.h[j] + g));
+          h[0] |= (f.x != 0 ? 1u : 0u) << j;
+          h[1] |= (f.y != 0 ? 1u : 0u) << j;
+          h[2] |= (f.z != 0 ? 1u : 0u) << j;
+          h[3] |= (f.w != 0 ? 1u : 0u) << j;
+        }
+      }
+      const int i = pad(4 * c);  // four rows in one 32-row group
+      sk[i] = k4.x;
+      sk[i + 1] = k4.y;
+      sk[i + 2] = k4.z;
+      sk[i + 3] = k4.w;
 #pragma unroll
-      for (int j = 0; j < M; ++j) h |= (in && io.h[j][g] != 0 ? 1u : 0u) << j;
-      sh[pad(i)] = h;
+      for (int j = 0; j < M; ++j) {
+        sv[j * width + i] = v4[j].x;
+        sv[j * width + i + 1] = v4[j].y;
+        sv[j * width + i + 2] = v4[j].z;
+        sv[j * width + i + 3] = v4[j].w;
+      }
+      if constexpr (kFlags) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sh[i + r] = h[r];
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+      const int64_t g = base + i;
+      const bool in = g < n;
+      sk[pad(i)] = in ? key[g] : -1;
+#pragma unroll
+      for (int j = 0; j < M; ++j) sv[j * width + pad(i)] = in ? io.v[j][g] : 0u;
+      if constexpr (kFlags) {
+        uint32_t h = 0;
+#pragma unroll
+        for (int j = 0; j < M; ++j) h |= (in && io.h[j][g] != 0 ? 1u : 0u) << j;
+        sh[pad(i)] = h;
+      }
     }
   }
   __syncthreads();
@@ -290,6 +442,7 @@ __global__ void segscan_tile_kernel(const int* __restrict__ key, Planes io,
   R prev;
   bool has_prev = false;
   block_scan(acc, prev, has_prev, warp_tot);
+  if (threadIdx.x == blockDim.x - 1) s_tile = acc;
   if (has_prev) {
     for (int j = 0; j < items && sk[pad(i0 + j)] == prev.key; ++j) {
       V x = load(i0 + j);
@@ -297,150 +450,111 @@ __global__ void segscan_tile_kernel(const int* __restrict__ key, Planes io,
       store(i0 + j, x);
     }
   }
-  if (threadIdx.x == blockDim.x - 1) store_tail(tails, blockIdx.x, acc);
   __syncthreads();
 
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int64_t g = base + i;
-    if (g >= n) break;
-#pragma unroll
-    for (int j = 0; j < M; ++j) io.vo[j][g] = sv[j * width + pad(i)];
-    if constexpr (kFlags) {
-      const uint32_t h = sh[pad(i)];
-#pragma unroll
-      for (int j = 0; j < M; ++j) io.ho[j][g] = (h >> j) & 1;
+  // The status is published by one thread while the others go on (a
+  // release stalls only its own warp).  Where the row before the tile has
+  // another key, no run crosses into the tile: P(t) is A(t), not one run
+  // with what precedes it, and there is no look-back.
+  uint32_t* rec = records + kRecord * t;
+  const bool carry = t > 0 && s_prev_key == sk[pad(0)];
+  if (!carry) {
+    if (threadIdx.x == 0) {
+      R p = s_tile;
+      if (t > 0) p.whole = 0;
+      store_summary(rec + 1 + kSummary, p);
+      FlagRef(*rec).store(kPrefix, cuda::memory_order_release);
     }
-  }
-}
-
-// One block: tails[t] <- the summary of tiles 0..t (its value is the
-// aggregate of the run open at the end of tile t).
-template <int OP, int DT, int M>
-__global__ void segscan_carry_kernel(Tails tails) {
-  using R = Run<OP, DT, M>;
-  __shared__ R warp_tot[32];
-  __shared__ R carry;
-  for (int64_t r0 = 0; r0 < tails.tiles; r0 += blockDim.x) {
-    const int64_t t = r0 + threadIdx.x;
-    R x;
-    if (t < tails.tiles) {
-      x.key = tails.key[t];
-      x.whole = tails.whole[t];
-      x.val = load_tail<OP, DT, M>(tails, t);
-    } else {  // past the end: a summary that nothing before it reads
-      x.key = 0;
-      x.whole = 0;
-      x.val = Val<OP, DT, M>{};
+  } else {
+    if (threadIdx.x == 32) {
+      store_summary(rec + 1, s_tile);
+      FlagRef(*rec).store(kAggregate, cuda::memory_order_release);
     }
-    R prev;
-    bool has_prev;
-    block_scan(x, prev, has_prev, warp_tot);
-    if (r0 > 0) x = join(carry, x);
-    __syncthreads();  // every thread has read carry
-    if (t < tails.tiles) store_tail(tails, t, x);
-    if (threadIdx.x == blockDim.x - 1) carry = x;
+    if (threadIdx.x < 32) {
+      const R prefix = look_back<OP, DT, M>(records, t, sk[pad(0)]);
+      if (threadIdx.x == 0) s_prefix = prefix;
+    }
     __syncthreads();
+    if (threadIdx.x == 0) {
+      store_summary(rec + 1 + kSummary, join(s_prefix, s_tile));
+      FlagRef(*rec).store(kPrefix, cuda::memory_order_release);
+    }
   }
-}
 
-// One block per tile t >= 1: combine carry t-1 into the tile's leading rows
-// of the carry's key.
-template <int OP, int DT, int M>
-__global__ void segscan_apply_kernel(const int* __restrict__ key, Planes io,
-                                     int64_t n, int log_tile, Tails tails) {
-  using V = Val<OP, DT, M>;
-  const int64_t tile = blockIdx.x + 1;
-  const int64_t base = tile << log_tile;
-  const int64_t end_tile = base + (static_cast<int64_t>(1) << log_tile);
-  const int64_t end = end_tile < n ? end_tile : n;
-  const int ckey = tails.key[tile - 1];
-  const V cval = load_tail<OP, DT, M>(tails, tile - 1);
-  for (int64_t r0 = base; r0 < end; r0 += blockDim.x) {
-    const int64_t i = r0 + threadIdx.x;
-    const bool in_run = i < end && key[i] == ckey;
-    if (in_run) {
-      V x;
+  // write the tile out, the prefix folded into its leading run
+  auto carried = [&](int i) {
+    V x = load(i);
+    if (carry && sk[pad(i)] == s_prefix.key) x.absorb(s_prefix.val);
+    return x;
+  };
+  if (quad) {
+    for (int c = threadIdx.x; c < quads; c += blockDim.x) {
+      const int64_t g = base + 4 * c;
+      V x[4];
 #pragma unroll
-      for (int j = 0; j < M; ++j) x.v[j] = io.vo[j][i];
-      x.h = 0;
-      if constexpr (OP == kFill) {
+      for (int r = 0; r < 4; ++r) x[r] = carried(4 * c + r);
 #pragma unroll
-        for (int j = 0; j < M; ++j) x.h |= (io.ho[j][i] != 0 ? 1u : 0u) << j;
-      }
-      x.absorb(cval);
-#pragma unroll
-      for (int j = 0; j < M; ++j) io.vo[j][i] = x.v[j];
-      if constexpr (OP == kFill) {
-#pragma unroll
-        for (int j = 0; j < M; ++j) io.ho[j][i] = (x.h >> j) & 1;
+      for (int j = 0; j < M; ++j) {
+        *reinterpret_cast<uint4*>(io.vo[j] + g) =
+            make_uint4(x[0].v[j], x[1].v[j], x[2].v[j], x[3].v[j]);
+        if constexpr (kFlags) {
+          *reinterpret_cast<int4*>(io.ho[j] + g) = make_int4(
+              (x[0].h >> j) & 1, (x[1].h >> j) & 1, (x[2].h >> j) & 1,
+              (x[3].h >> j) & 1);
+        }
       }
     }
-    if (!__syncthreads_and(in_run)) break;
+  } else {
+    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+      const int64_t g = base + i;
+      if (g >= n) break;
+      const V x = carried(i);
+#pragma unroll
+      for (int j = 0; j < M; ++j) io.vo[j][g] = x.v[j];
+      if constexpr (kFlags) {
+#pragma unroll
+        for (int j = 0; j < M; ++j) io.ho[j][g] = (x.h >> j) & 1;
+      }
+    }
   }
 }
 
-int64_t num_tiles(int64_t n, int log_tile) { return ((n - 1) >> log_tile) + 1; }
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
 
 template <int OP, int DT, int M>
-cudaError_t run_tile(const int* key, const Planes& io, int64_t n, int log_tile,
-                     void* scratch, cudaStream_t stream) {
+cudaError_t run(const int* key, const Planes& io, int64_t n, int log_tile,
+                uint32_t* scratch, cudaStream_t stream) {
+  bool vec = aligned16(key);
+  for (int j = 0; j < M; ++j) {
+    vec = vec && aligned16(io.v[j]) && aligned16(io.vo[j]);
+    if (OP == kFill) vec = vec && aligned16(io.h[j]) && aligned16(io.ho[j]);
+  }
   const int tile = 1 << log_tile;
   const int threads = tile < kTileThreads ? tile : kTileThreads;
   const int planes = 1 + M + (OP == kFill ? 1 : 0);
   const size_t smem = sizeof(uint32_t) * planes * (tile + (tile >> 5));
-  auto kernel = segscan_tile_kernel<OP, DT, M>;
+  auto kernel = segscan_kernel<OP, DT, M>;
   if (smem > kStaticSmemBytes) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int64_t tiles = num_tiles(n, log_tile);
+  const int64_t tiles = ((n - 1) >> log_tile) + 1;
   kernel<<<static_cast<unsigned>(tiles), threads, smem, stream>>>(
-      key, io, n, log_tile, tails_of(scratch, tiles));
+      key, io, n, log_tile, vec, scratch);
   return cudaGetLastError();
-}
-
-template <int OP, int DT, int M>
-cudaError_t run_carry(int64_t n, int log_tile, void* scratch,
-                      cudaStream_t stream) {
-  segscan_carry_kernel<OP, DT, M><<<1, kCarryThreads, 0, stream>>>(
-      tails_of(scratch, num_tiles(n, log_tile)));
-  return cudaGetLastError();
-}
-
-template <int OP, int DT, int M>
-cudaError_t run_apply(const int* key, const Planes& io, int64_t n,
-                      int log_tile, void* scratch, cudaStream_t stream) {
-  const int tile = 1 << log_tile;
-  const int threads = tile < kTileThreads ? tile : kTileThreads;
-  const int64_t tiles = num_tiles(n, log_tile);
-  segscan_apply_kernel<OP, DT, M>
-      <<<static_cast<unsigned>(tiles - 1), threads, 0, stream>>>(
-          key, io, n, log_tile, tails_of(scratch, tiles));
-  return cudaGetLastError();
-}
-
-// phase 0: tile, 1: carry, 2: apply
-template <int OP, int DT, int M>
-cudaError_t run(int phase, const int* key, const Planes& io, int64_t n,
-                int log_tile, void* scratch, cudaStream_t stream) {
-  switch (phase) {
-    case 0: return run_tile<OP, DT, M>(key, io, n, log_tile, scratch, stream);
-    case 1: return run_carry<OP, DT, M>(n, log_tile, scratch, stream);
-    case 2: return run_apply<OP, DT, M>(key, io, n, log_tile, scratch, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 template <int OP>
-cudaError_t run_typed(int phase, int dtype, const int* key, const Planes& io,
-                      int64_t n, int log_tile, void* scratch,
-                      cudaStream_t stream) {
+cudaError_t run_typed(int dtype, const int* key, const Planes& io, int64_t n,
+                      int log_tile, uint32_t* scratch, cudaStream_t stream) {
   switch (dtype) {
-    case kU32: return run<OP, kU32, 1>(phase, key, io, n, log_tile, scratch, stream);
-    case kI32: return run<OP, kI32, 1>(phase, key, io, n, log_tile, scratch, stream);
-    case kF32: return run<OP, kF32, 1>(phase, key, io, n, log_tile, scratch, stream);
+    case kU32: return run<OP, kU32, 1>(key, io, n, log_tile, scratch, stream);
+    case kI32: return run<OP, kI32, 1>(key, io, n, log_tile, scratch, stream);
+    case kF32: return run<OP, kF32, 1>(key, io, n, log_tile, scratch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -449,16 +563,14 @@ cudaError_t run_typed(int phase, int dtype, const int* key, const Planes& io,
 
 extern "C" {
 
-// One phase of the scan (0: segscan_tile, 1: segscan_carry, 2:
-// segscan_apply) of op (0 sum, 1 min, 2 max, 3 fill) over values of dtype
-// (0 uint32, 1 int32, 2 float32; ignored by fill) with m value planes (1,
-// or 1..4 for fill).  vals / flags / outs / out_flags: host arrays of m
-// device pointers (flags only for fill).  scratch: int32 device memory of
-// (3 + m) * tiles words, shared by the three phases.
-int radx_segscan(int64_t phase, void* key, int64_t n, int64_t log_tile,
-                 void** vals, void** flags, void** outs, void** out_flags,
-                 void* scratch, int64_t op, int64_t dtype, int64_t m,
-                 void* stream) {
+// The scan of op (0 sum, 1 min, 2 max, 3 fill) over values of dtype (0
+// uint32, 1 int32, 2 float32; ignored by fill) with m value planes (1, or
+// 1..4 for fill), in one launch.  vals / flags / outs / out_flags: host
+// arrays of m device pointers (flags only for fill).  scratch: kRecord *
+// (tiles + 1) zeroed 32-bit words.
+int radx_segscan(void* key, int64_t n, int64_t log_tile, void** vals,
+                 void** flags, void** outs, void** out_flags, void* scratch,
+                 int64_t op, int64_t dtype, int64_t m, void* stream) {
   const bool fill = op == kFill;
   if (n < 1 || m < 1 || m > (fill ? kMaxFill : 1)) return cudaErrorInvalidValue;
   Planes io = {};
@@ -471,22 +583,22 @@ int radx_segscan(int64_t phase, void* key, int64_t n, int64_t log_tile,
     }
   }
   const int* k = static_cast<const int*>(key);
-  const int p = static_cast<int>(phase);
   const int lt = static_cast<int>(log_tile);
+  uint32_t* sc = static_cast<uint32_t*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (op) {
     case kSum:
       // uint32 and int32 sums are the same mod-2^32 add
-      return dtype == kF32 ? run<kSum, kF32, 1>(p, k, io, n, lt, scratch, s)
-                           : run<kSum, kU32, 1>(p, k, io, n, lt, scratch, s);
-    case kMin: return run_typed<kMin>(p, static_cast<int>(dtype), k, io, n, lt, scratch, s);
-    case kMax: return run_typed<kMax>(p, static_cast<int>(dtype), k, io, n, lt, scratch, s);
+      return dtype == kF32 ? run<kSum, kF32, 1>(k, io, n, lt, sc, s)
+                           : run<kSum, kU32, 1>(k, io, n, lt, sc, s);
+    case kMin: return run_typed<kMin>(static_cast<int>(dtype), k, io, n, lt, sc, s);
+    case kMax: return run_typed<kMax>(static_cast<int>(dtype), k, io, n, lt, sc, s);
     case kFill:
       switch (m) {
-        case 1: return run<kFill, kU32, 1>(p, k, io, n, lt, scratch, s);
-        case 2: return run<kFill, kU32, 2>(p, k, io, n, lt, scratch, s);
-        case 3: return run<kFill, kU32, 3>(p, k, io, n, lt, scratch, s);
-        case 4: return run<kFill, kU32, 4>(p, k, io, n, lt, scratch, s);
+        case 1: return run<kFill, kU32, 1>(k, io, n, lt, sc, s);
+        case 2: return run<kFill, kU32, 2>(k, io, n, lt, sc, s);
+        case 3: return run<kFill, kU32, 3>(k, io, n, lt, sc, s);
+        case 4: return run<kFill, kU32, 4>(k, io, n, lt, sc, s);
         default: return cudaErrorInvalidValue;
       }
     default: return cudaErrorInvalidValue;

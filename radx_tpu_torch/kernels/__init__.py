@@ -5,9 +5,11 @@
                  the per-level finish (sources in ../csrc/bitonic.cu);
   * aggregate.py — dense GROUP BY: per-bin sums / counts and extrema
                  (../csrc/aggregate.cu);
-  * compact.py — stable mask compaction: per-tile counts and the ranked
-                 write (../csrc/compact.cu);
-  * segscan.py — segmented inclusive scan over sorted keys: tile scan,
-                 carry across tiles, carry apply (../csrc/segscan.cu);
+  * compact.py — stable mask compaction in one pass, tiles chained by a
+                 decoupled look-back (../csrc/compact.cu);
+  * segscan.py — segmented inclusive scan over sorted keys in one pass,
+                 run summaries chained by a decoupled look-back
+                 (../csrc/segscan.cu);
+  * lookback.py — the CPU model of the look-back walk both share;
   * _build.py  — builds ../csrc/*.cu with nvcc and binds them with ctypes.
 """

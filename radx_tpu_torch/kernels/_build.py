@@ -60,13 +60,12 @@ _SIGNATURES = {
     "radx_dense_sums": (_P, _P, _I, _I, _P, _P, _P, _P),
     # keys, ovals, n, bins, is_min, n_valid (or null), ext, counts, stream
     "radx_dense_extrema": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # mask, n, log_tile, counts, stream
-    "radx_compact_count": (_P, _I, _I, _P, _P),
-    # mask, n, log_tile, inclusive counts, ins, outs, planes, stream
-    "radx_compact_write": (_P, _I, _I, _P, _P, _P, _I, _P),
-    # phase, keys, n, log_tile, vals, flags, outs, out_flags, scratch, op,
-    # dtype, m, stream
-    "radx_segscan": (_I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # mask, mask bytes, n, n_valid (or null), ins, outs, planes, scratch,
+    # count, stream
+    "radx_compact": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P),
+    # keys, n, log_tile, vals, flags, outs, out_flags, scratch, op, dtype, m,
+    # stream
+    "radx_segscan": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -41,8 +41,8 @@ def unique(keys, return_counts: bool = False, cfg: SortConfig | None = None,
     else:
         sort_ops._engine([plane], cfg, 1, n)
     s = plane[:n]
-    first = torch.ones_like(s)
-    first[1:] = (s[1:] != s[:-1]).to(torch.int32)
+    first = torch.ones_like(s, dtype=torch.bool)
+    torch.ne(s[1:], s[:-1], out=first[1:])
     cols = [s]
     if return_counts:
         cols.append(torch.arange(n, dtype=torch.int32, device=s.device))

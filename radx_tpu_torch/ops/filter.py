@@ -22,15 +22,19 @@ from radx_tpu_torch.ops.sort import _as_tensor
 MAX_ROWS = 1 << 30
 
 
-def _compact(mask: torch.Tensor, cols, cfg: SortConfig):
-    """Stable compaction of 32-bit columns by a mask: ([int32 planes],
-    count), at most ``compact.MAX_PLANES`` columns per kernel pass."""
-    m = mask.ne(0).to(torch.int32)
+def _compact(mask: torch.Tensor, cols, cfg: SortConfig, n_valid=None):
+    """Stable compaction of 32-bit columns by a mask (only the rows below
+    ``n_valid``, a 0-d int32 device tensor, if given): ([int32 planes],
+    count), at most ``compact.MAX_PLANES`` columns per kernel pass.  A
+    bool / uint8 / int32 mask goes to the kernel as it is (it tests nonzero
+    itself); any other dtype is compared with 0 first."""
+    m = (mask.contiguous() if mask.dtype in compact.MASK_BYTES
+         else mask.ne(0))
     planes = [c.contiguous().view(torch.int32) for c in cols]
     outs = []
     for i in range(0, len(planes), compact.MAX_PLANES):
         part, count = compact.compact(m, planes[i: i + compact.MAX_PLANES],
-                                      cfg.compact_elems)
+                                      cfg.compact_elems, n_valid=n_valid)
         outs += part
     return outs, count
 

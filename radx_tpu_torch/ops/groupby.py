@@ -73,8 +73,8 @@ def _groupby(enc: torch.Tensor, values: torch.Tensor, cfg: SortConfig,
     skeys, acc = sort_ops._sort_rider(enc, payload, cfg, n, neutral)
     kp = skeys.view(torch.int32)  # (no uint32 comparisons on the CPU)
     acc = segscan.segscan_planes(kp, acc, op, acc_dtype, cfg.scan_elems)
-    is_last = torch.ones_like(kp)
-    is_last[:-1] = (kp[1:] != kp[:-1]).to(torch.int32)
+    is_last = torch.ones_like(kp, dtype=torch.bool)
+    torch.ne(kp[1:], kp[:-1], out=is_last[:-1])
     (uk, out), num_groups = _compact(is_last, [skeys, acc], cfg)
     phantom = ~is_max.any() & ((n if n_valid is None else n_valid) < kp.numel())
     return (uk.view(torch.uint32), out.view(acc_dtype),

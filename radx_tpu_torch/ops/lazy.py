@@ -51,9 +51,10 @@ def _count(value: int, device) -> torch.Tensor:
 
 
 def filter_lazy(mask, cols, count, cfg: SortConfig):
-    """Stable compaction by mask and validity: (int32 planes, new count)."""
-    valid = (mask != 0) & (_pos(mask.numel(), mask.device) < count)
-    return _compact(valid, cols, cfg)
+    """Stable compaction by mask and validity: (int32 planes, new count).
+    The compaction takes the rows below ``count`` itself (on the card the
+    kernel reads it on the device)."""
+    return _compact(mask, cols, cfg, n_valid=count.to(torch.int32))
 
 
 def groupby_lazy(enc, values, count, agg: str, cfg: SortConfig):

@@ -131,20 +131,43 @@ def test_rider_kernel_matches_plain(cuda, case):
     assert torch.equal(torch.sort(r).values, rider)  # no rider lost
 
 
-@pytest.mark.parametrize("planes", [1, 2, 3])
+@pytest.mark.parametrize("planes", [1, 2, 3, 4])
 @pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
-def test_compact_matches_plain(cuda, planes, density):
+@pytest.mark.parametrize("mask_dtype", [torch.int32, torch.bool])
+def test_compact_matches_plain(cuda, planes, density, mask_dtype):
+    """The single pass over many tiles (1025) on a ragged n, int32 and
+    bool masks."""
     rng = np.random.default_rng(planes)
-    n = N + 17
-    mask = torch.from_numpy((rng.random(n) < density).astype(np.int32)).to(cuda)
+    n = 4 * N + 17
+    mask = torch.from_numpy(rng.random(n) < density).to(mask_dtype).to(cuda)
     ps = [_keys(cuda, n, seed=p) for p in range(planes)]
-    outs, count = tc.compact(mask, ps, CFG.compact_elems)
     want, wcount = tc.compact_ref(mask, ps)
-    torch.cuda.synchronize()
     c = int(wcount)
+    outs, count = tc.compact(mask, ps, CFG.compact_elems)
+    torch.cuda.synchronize()
     assert int(count) == c
     for o, w in zip(outs, want):
         assert torch.equal(o[:c], w[:c])
+
+
+@pytest.mark.parametrize("density", [0.01, 0.4])
+def test_compact_unaligned_planes_and_n_valid(cuda, density):
+    """Planes and mask offset by one row (scalar loads), few and many kept
+    rows a warp (direct and staged writes), a device row limit n_valid."""
+    rng = np.random.default_rng(21)
+    n = N + 3
+    mask = torch.from_numpy(rng.random(n + 1) < density).to(cuda)[1:]
+    ps = [_keys(cuda, n + 1, seed=p)[1:] for p in range(3)]
+    for n_valid in (None, torch.tensor(n // 3, dtype=torch.int32,
+                                       device=cuda)):
+        outs, count = tc.compact(mask, ps, CFG.compact_elems,
+                                 n_valid=n_valid)
+        want, wcount = tc.compact_ref(mask, ps, n_valid)
+        torch.cuda.synchronize()
+        c = int(wcount)
+        assert int(count) == c
+        for o, w in zip(outs, want):
+            assert torch.equal(o[:c], w[:c])
 
 
 def _sorted_keys(cuda, n, groups, seed=0):
@@ -165,18 +188,22 @@ def _values(cuda, n, dtype, seed=1):
 
 
 @pytest.mark.parametrize("tile", [256, CFG.scan_elems])
-@pytest.mark.parametrize("groups", [1, 7, 5000])
+@pytest.mark.parametrize("groups", [1, 7, 5000, "all_ffffffff"])
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
 @pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32])
 def test_segscan_matches_plain(cuda, tile, groups, op, dtype):
-    """One run over every tile, runs across many tiles, short runs; tile 256
-    gives > 1024 tiles (several rounds of segscan_carry)."""
+    """One run over every tile (also of 0xFFFFFFFF keys, the group-by's pad
+    key), runs across many tiles, short runs; tile 256 gives 4097 tiles
+    for the look-back.  Float32 sums: the same bits in two runs."""
     n = N + 33
-    k = _sorted_keys(cuda, n, groups)
+    k = (torch.full((n,), -1, dtype=torch.int32, device=cuda)
+         if groups == "all_ffffffff" else _sorted_keys(cuda, n, groups))
     v = _values(cuda, n, dtype)
     got = tsg.segscan_planes(k, v, op, dtype, tile)
+    again = tsg.segscan_planes(k, v, op, dtype, tile)
     want = tsg.segscan_ref(k, v, op, dtype)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     if op == "sum" and dtype == torch.float32:
         # |got - want| <= 1e-5 * (running sum of |v| over the run so far)
         absv = tsg.segscan_ref(k, (v.view(torch.float32).abs()).view(
@@ -187,19 +214,36 @@ def test_segscan_matches_plain(cuda, tile, groups, op, dtype):
         assert torch.equal(got, want)
 
 
-def test_segscan_fill_matches_plain(cuda):
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_segscan_fill_matches_plain(cuda, m):
     n = N + 5
     k = _sorted_keys(cuda, n, 300)
     rng = np.random.default_rng(9)
-    vals = [_values(cuda, n, torch.int32, seed=j) for j in range(2)]
+    vals = [_values(cuda, n, torch.int32, seed=j) for j in range(m)]
     flags = [torch.from_numpy((rng.random(n) < 0.01).astype(np.int32)).to(cuda)
-             for _ in range(2)]
-    got_v, got_h = tsg.segscan_planes(k, vals, "fill", torch.int32,
-                                      CFG.scan_elems, flags)
-    want_v, want_h = tsg.segscan_ref(k, vals, "fill", torch.int32, flags)
-    torch.cuda.synchronize()
-    for a, b in zip(got_v + got_h, want_v + want_h):
-        assert torch.equal(a, b)
+             for _ in range(m)]
+    for tile in (256, CFG.scan_elems):
+        got_v, got_h = tsg.segscan_planes(k, vals, "fill", torch.int32, tile,
+                                          flags)
+        want_v, want_h = tsg.segscan_ref(k, vals, "fill", torch.int32, flags)
+        torch.cuda.synchronize()
+        for a, b in zip(got_v + got_h, want_v + want_h):
+            assert torch.equal(a, b)
+
+
+def test_segscan_offset_planes_and_model(cuda):
+    """Keys and values offset by one row; the float32 sum bit-equal to the
+    CPU model of the kernel (``segscan_lookback``)."""
+    n = (1 << 16) + 7
+    k = _sorted_keys(cuda, n + 1, 40)[1:]
+    v = _values(cuda, n + 1, torch.float32)[1:]
+    got = tsg.segscan_planes(k, v, "sum", torch.float32, 256)
+    model = tsg.segscan_lookback(k.cpu(), v.cpu(), "sum", torch.float32, 256,
+                                 torch.Generator().manual_seed(0))
+    assert torch.equal(got.cpu(), model)
+    vi = _values(cuda, n + 1, torch.int32)[1:]
+    assert torch.equal(tsg.segscan_planes(k, vi, "max", torch.int32, 256),
+                       tsg.segscan_ref(k, vi, "max", torch.int32))
 
 
 def _group_ref(keys, vals):
