@@ -28,9 +28,12 @@ Phases, one line each (any failure raises and exits nonzero):
      (sums for 128 / 256 / 8192 / 65536 bins, extrema for 128 / 256 / 8192)
      at 2^26 rows with a ragged n_valid on uniform, one-key, Zipf and
      out-of-range keys; the radix kernels (``radix_checks``): radix_hist at
-     2^26 (K10's chunks and K14's tiles, ragged n, bias 0 and 0x80000000,
-     shifts 0 / 8 / 16 / 24), and K4, K11, K12, K5, K13 at the radix
-     geometry of 2^26 keys in the keys, rider, lex2 and lex3 modes;
+     2^26 (K10's chunks with the totals row and K14's tiles, ragged n, bias
+     0 and 0x80000000, shifts 0 / 8 / 16 / 24, all-equal and two-valued
+     keys), and K4, K11 (splitters, ranks, run bounds, overflow flag and
+     segment tables in one launch), K12, K5, K13 at the radix geometries of
+     2^26 keys (keys, rider, lex2, lex3) and 2^28 keys (keys, lex3), K11
+     also on the rider path's n_valid = 3 * 2^24 and on overflowing keys;
   4. the paths through the public entry points, each in a window of its
      own (``window``): the launch counts are set to 0 just before the path
      and read just after it, and every kernel the path runs must show >= 1
@@ -63,9 +66,11 @@ Phases, one line each (any failure raises and exits nonzero):
      one PyTorch call computes the same function, that call (the tile
      engine's kernels with their shared-memory round trips per tile); then
      the metrics of radx_tpu_torch/bench.py, the radix ones with the
-     bitonic rate beside them, the breakdowns by kernel of the keys-only
-     sort (2^23, 2^26), group-by, join, the dense query and radix sort, and
-     the launch path of one small kernel (``bench.measure_launch``).
+     bitonic rate beside them, both countings of radix_hist on uniform,
+     all-equal and two-valued keys (``bench.sweep_hist``), the breakdowns
+     by kernel of the keys-only sort (2^23, 2^26), group-by, join, the dense
+     query and radix sort (with its idle share by phase), and K11's launch
+     beside the composition it replaces (``bench.measure_launch``).
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -397,12 +402,17 @@ def _radix_tile_checks(planes, ncmp, cfg):
 
 def radix_checks(dev):
     """Phase 3 for the radix kernels, every output bit-equal to its plain
-    version: radix_hist at 2^26 (K10's 2^19-key chunks and K14's 1024-key
-    tiles, a ragged n, bias 0 and 0x80000000, shifts 0 / 8 / 16 / 24), then
-    K4, K11, K12, K5 and K13 at the two radix geometries of the main path:
-    2^26 keys (C = 2^19, 128 chunks, slots of 4096, nb_pad 168) in the keys,
-    rider, lex2 and lex3 modes, and 2^28 keys (C = 2^19, 512 chunks, slots
-    of 1024) in the keys and lex3 modes."""
+    version: radix_hist at 2^26 (K10's 2^19-key chunks with the totals row
+    and K14's 1024-key tiles, a ragged n, bias 0 and 0x80000000, shifts 0 /
+    8 / 16 / 24 on uniform keys, and all-equal and two-valued keys), then
+    K4, K11 (``rank_runs``: splitters, ranks, run bounds, overflow flag and
+    segment tables), K12, K5 and K13 at the two radix geometries of the main
+    path: 2^26 keys (C = 2^19, 128 chunks, slots of 4096, nb_pad 168) in the
+    keys, rider, lex2 and lex3 modes, and 2^28 keys (C = 2^19, 512 chunks,
+    slots of 1024) in the keys and lex3 modes; and K11 alone on the rider
+    path's n_valid = 3 * 2^24 (a tail: the last quarter pads, sentinel keys
+    among the valid ones) and on inputs that overflow (all-equal keys, 97
+    distinct keys) at both geometries."""
     from radx_tpu_torch.kernels import radix as RX
 
     n = RADIX_N
@@ -410,22 +420,70 @@ def radix_checks(dev):
     x = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, generator=gen,
                       device=dev)
     ragged = n - 12345
+
+    def hist(keys, tile, shift, bias, dist):
+        totals = tile > RX.TILE  # as the radix sort counts
+        got = RX.histograms(keys, tile, shift, bias, ragged, totals=totals)
+        want = RX.histograms_ref(keys, tile, shift, bias, ragged, totals)
+        torch.cuda.synchronize()
+        e = int((got - want).abs().max())
+        record(["radix_hist" if tile > RX.TILE else "radix_hist/tile"],
+               e, e == 0, n=n, n_valid=ragged, tile=tile, shift=shift,
+               bias=bias, keys=dist, totals=totals)
+
     for bias in (0, 0x80000000):
         for shift in (0, 8, 16, 24):
             for tile in (RX.TILE, 1 << 19):
-                got = RX.histograms(x, tile, shift, bias, ragged)
-                want = RX.histograms_ref(x, tile, shift, bias, ragged)
-                torch.cuda.synchronize()
-                e = int((got - want).abs().max())
-                record(["radix_hist" if tile > RX.TILE else "radix_hist/tile"],
-                       e, e == 0, n=n, n_valid=ragged, tile=tile, shift=shift,
-                       bias=bias)
-    del x
+                hist(x, tile, shift, bias, "uniform")
+    two = torch.where(x < 0, 0x11223344, -0x11223345).to(torch.int32)
+    for dist, keys in (("all_equal", torch.full_like(x, 0x12345678)),
+                       ("two_keys", two)):
+        for tile, shift, bias in ((RX.TILE, 8, 0), (1 << 19, 24, 0x80000000)):
+            hist(keys, tile, shift, bias, dist)
+    del x, two, keys
     geometries = [(RADIX_N, m) for m in MODES] + [
         (RADIX_N_BIG, m) for m in ("keys", "lex3")]
     for n, mode in geometries:
         _radix_geometry_check(dev, n, mode, gen)
         torch.cuda.empty_cache()
+    for n in (RADIX_N, RADIX_N_BIG):
+        for dist in ("rider_path", "all_equal", "lowcard"):
+            if dist != "rider_path" or n == RADIX_N:
+                _rank_check(dev, n, dist, gen)
+        torch.cuda.empty_cache()
+
+
+def _rank_check(dev, n, dist, gen):
+    """K11 alone on one input at the radix geometry of n keys: the rider
+    path's tail (n_valid = 3 n / 4, 1% sentinel keys among the valid ones),
+    all-equal keys or 97 distinct keys (both overflow); every output
+    bit-equal to ``rank_runs_ref``."""
+    from radx_tpu_torch import SortConfig
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import radix_sort as RS
+
+    cfg = SortConfig(strategy="radix")
+    p = RS.plan(n, RS.pick_chunk(n, cfg.chunk_elems))
+    keys = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                         generator=gen, device=dev)
+    nv, tail = n, dist == "rider_path"
+    if tail:
+        nv = n - n // 4
+        keys[: n // 100] = PAD
+        keys = keys[torch.randperm(n, generator=gen, device=dev)]
+        keys[nv:] = PAD
+    elif dist == "all_equal":
+        keys.fill_(0x12345678)
+    else:
+        keys = keys.remainder(97)
+    sorted_ = B.sort_chunks_ascending_cyclic([keys], 1, p.C,
+                                             *cfg.mode_tiles(1, 1))[0]
+    args = RS.rank_args(sorted_, keys, p, nv, cfg.mode_tiles(1, 1), tail)
+    got, want = RS.rank_runs(*args), RS.rank_runs_ref(*args)
+    e = _max_err([*got, got.ranks], [*want, want.ranks])
+    ok = e == 0 and int(got.overflow) == (dist != "rider_path")
+    record(["radix_rank"], e, ok, n=n, keys=dist, n_valid=nv, tail=tail,
+           overflow=int(got.overflow), C=p.C, nb_pad=p.nb_pad)
 
 
 def _radix_geometry_check(dev, n, mode, gen):
@@ -453,14 +511,11 @@ def _radix_geometry_check(dev, n, mode, gen):
     del out
     sorted_ = B.sort_chunks_ascending_cyclic(planes, ncmp, p.C, c, f)
     tail = mode == "rider"
-    spl = RS.choose_splitters(sorted_[0], planes[0], p, n,
-                              cfg.mode_tiles(1, 1), tail)
-    if tail:
-        spl = torch.cat((spl, spl.new_full((1,), PAD)))
-    ranks = M.splitter_ranks(sorted_[0], spl, p.C)
-    e = _max_err([ranks], [M.splitter_ranks_ref(sorted_[0], spl, p.C)])
-    record(["radix_rank"], e, e == 0, splitters=spl.numel(), **case)
-    b = RS.run_bounds(ranks, p, n, tail)
+    args = RS.rank_args(sorted_[0], planes[0], p, n, cfg.mode_tiles(1, 1),
+                        tail)
+    b, want = RS.rank_runs(*args), RS.rank_runs_ref(*args)
+    e = _max_err([*b, b.ranks], [*want, want.ranks])
+    record(["radix_rank"], e, e == 0, splitters=b.splitters.numel(), **case)
     if bool(b.overflow):
         _fail(f"the radix geometry overflowed on the {mode} inputs")
     packed = M.pack(sorted_, b.bounds, p.C, p.slot, p.nb_pad, ncmp)
@@ -1657,20 +1712,25 @@ def main():
     rp = RS.plan(n26, RS.pick_chunk(n26, rcfg.chunk_elems))
     hx = torch.randint(-(2**31), 2**31, (n26,), dtype=i32, generator=gen,
                        device=dev)
-    for name, tile, shift, bias in (("radix_hist", rp.C, 24, 0x80000000),
-                                    ("radix_hist/tile", RX.TILE, 8, 0)):
+    for name, tile, shift, bias, tot in (
+            ("radix_hist", rp.C, 24, 0x80000000, True),
+            ("radix_hist/tile", RX.TILE, 8, 0, False)):
         idx = ((torch.arange(n26, device=dev) // tile) * 256
                + ((((_i32(hx).long() & 0xFFFFFFFF) ^ bias) >> shift) & 255))
         time_pair(name, log_n,
-                  lambda tile=tile, s=shift, b=bias:
-                  RX.histograms(hx, tile, s, b, name=name),
-                  lambda tile=tile, s=shift, b=bias:
-                  RX.histograms_ref(hx, tile, s, b, n26),
-                  4 * n26 + 1024 * (n26 // tile), 3 * n26,
+                  lambda tile=tile, s=shift, b=bias, tot=tot:
+                  RX.histograms(hx, tile, s, b, name=name, totals=tot),
+                  lambda tile=tile, s=shift, b=bias, tot=tot:
+                  RX.histograms_ref(hx, tile, s, b, n26, tot),
+                  4 * n26 + 1024 * (n26 // tile + tot), 3 * n26,
                   lambda idx=idx, tile=tile: torch.bincount(
                       idx, minlength=(n26 // tile) * 256))
         del idx
     del hx
+    # both countings on uniform, all-equal and two-valued keys
+    for row in bench.sweep_hist(n26):
+        _line("hist_sweep", **{k: v for k, v in row.items() if k != "device"},
+              **card)
     gen_r = torch.Generator(device=dev).manual_seed(61)
     for mode, (ncmp, np_) in MODES.items():
         planes = _mode_planes(dev, mode, n26, gen_r)
@@ -1688,22 +1748,19 @@ def main():
                   round_trips=B.round_trips(log_c, 1, log_c, np_))
         sorted_ = B.sort_chunks_ascending_cyclic(planes, ncmp, rp.C, c, f)
         tail = mode == "rider"
-        spl = RS.choose_splitters(sorted_[0], planes[0], rp, n26,
-                                  rcfg.mode_tiles(1, 1), tail)
-        if tail:
-            spl = torch.cat((spl, spl.new_full((1,), PAD)))
-        m = spl.numel()
-        ranks = M.splitter_ranks(sorted_[0], spl, rp.C)
+        args = RS.rank_args(sorted_[0], planes[0], rp, n26,
+                            rcfg.mode_tiles(1, 1), tail)
+        b = RS.rank_runs(*args)
         if mode == "keys":
+            time_pair("radix_rank", log_n, lambda: RS.rank_runs(*args),
+                      lambda: RS.rank_runs_ref(*args), *bench.rank_bytes(rp),
+                      lambda: bench.rank_runs_library(*args))
             view = sorted_[0].view(rp.n_chunks, rp.C)
-            spl2 = spl.expand(rp.n_chunks, m).contiguous()
-            log_cc = rp.C.bit_length() - 1
-            time_pair("radix_rank", log_n,
-                      lambda: M.splitter_ranks(sorted_[0], spl, rp.C),
-                      lambda: M.splitter_ranks_ref(sorted_[0], spl, rp.C),
-                      4 * rp.n_chunks * m * (log_cc + 2), rp.n_chunks * m *
-                      log_cc, lambda: torch.searchsorted(view, spl2))
-        b = RS.run_bounds(ranks, rp, n26, tail)
+            spl2 = b.splitters.expand(rp.n_chunks, rp.nb - 1).contiguous()
+            ts = timing.time_cuda(lambda: torch.searchsorted(view, spl2),
+                                  iters=10, repeats=5)
+            _line("context", what="torch.searchsorted alone (radix_rank's "
+                  "ranks)", n=n26, ms=ts.seconds * 1e3, **card)
         packed = M.pack(sorted_, b.bounds, rp.C, rp.slot, rp.nb_pad, ncmp)
         slots = rp.nb_pad * rp.C
         time_pair(pack, log_n,
@@ -1733,7 +1790,7 @@ def main():
                   lambda: M.concat_ref(merged, src, b.start, b.src, rp.nb_pad,
                                        n26, ncmp),
                   8 * np_ * n26 + 16 * b.src.numel())
-        del planes, out, sorted_, merged, cout, ranks, b, src
+        del planes, out, sorted_, merged, cout, args, b, src
         torch.cuda.empty_cache()
 
     _line("elapsed", seconds=time.perf_counter() - t_start)
@@ -1752,7 +1809,9 @@ def main():
                  bench.profile_query_dense(), bench.profile_radix(1 << 26)):
         _line("breakdown", **prof)
         torch.cuda.empty_cache()
-    _line("launch", **bench.measure_launch())
+    for n in (RADIX_N, RADIX_N_BIG):
+        _line("launch", **bench.measure_launch(n))
+        torch.cuda.empty_cache()
 
     source = {"bitonic": "radx_tpu_torch/csrc/bitonic.cu",
               "compact": "radx_tpu_torch/csrc/compact.cu",

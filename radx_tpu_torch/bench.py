@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from radx_tpu_torch.config import SortConfig
-from radx_tpu_torch.kernels import compact, msd, segscan
+from radx_tpu_torch.kernels import bitonic, compact, msd, radix_sort, segscan
 from radx_tpu_torch.ops.filter import filter_columns
 from radx_tpu_torch.ops.groupby import groupby
 from radx_tpu_torch.ops.sort import argsort, sort, sort_pairs
@@ -553,9 +553,10 @@ def sweep_single_pass(n: int = 1 << 26) -> list[dict]:
     return rows
 
 
-def _profile(fn, calls: int, layer_of, what: str) -> dict:
+def _profile(fn, calls: int, layer_of, what: str, split=None) -> dict:
     """Device time per call by layer (torch.profiler) and the device's idle
-    share of the profiled wall time."""
+    share of the profiled wall time; ``split(device_ops, calls, layer_of,
+    wall_ms)``, where given, adds its fields (the idle share by phase)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -578,12 +579,73 @@ def _profile(fn, calls: int, layer_of, what: str) -> dict:
         layer = layer_of(ev.key)
         layers[layer] = layers.get(layer, 0.0) + dev_us / 1e3 / calls
     busy = sum(layers.values())
+    extra = {} if split is None else split(_device_ops(prof), calls, layer_of,
+                                           wall * 1e3)
     return {"what": what, "layers_ms": layers, "busy_ms": busy,
             "wall_ms_per_call": wall * 1e3 / calls,
             "idle_pct": 100.0 * (1 - busy / (wall * 1e3 / calls)),
             "top_kernels_ms": dict(sorted(kernels.items(),
                                           key=lambda kv: -kv[1])[:12]),
-            "device": timing.device_info()}
+            **extra, "device": timing.device_info()}
+
+
+def _device_ops(prof) -> list[tuple[float, float, str]]:
+    """(start µs, end µs, name) of every operation the device ran in a
+    profile (kernels, copies, memsets), in the order they started."""
+    return sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                  for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def radix_idle_split(ops, calls, layer_of, wall_ms) -> dict:
+    """Where the device idles in ``calls`` back-to-back radix sorts.  Each
+    sort is anchored on its K10 ``radix_hist`` launch (the first operation
+    after phase 1), its flag read (the device-to-host copy after it) and
+    its K13 ``radix_concat`` launch followed by as many operations as
+    follow the last sort's (the unbias); a dropped profiler event moves no
+    anchor.  Each gap between two operations is charged by the one after
+    it: ``between_calls`` (the first of a sort), ``phase1`` (up to K10),
+    ``before_read`` (from K10 to the read: host enqueue slower than the
+    tiny kernels), ``at_read`` (the first operation after the read: the
+    host's wait and its first enqueue after it) or ``phase_c`` (the rest);
+    ``edges`` is the wall time before the first and after the last
+    operation.  ms per sort, and % of the wall time.  ``ops_per_sort``:
+    device operations (launches, copies, memsets) per sort;
+    ``ops_before_read``: those of the first sort from K10 up to the read,
+    also by layer."""
+    names = [name for _, _, name in ops]
+    hist = [i for i, m in enumerate(names) if "radix_hist" in m]
+    concat = [i for i, m in enumerate(names) if "radix_concat" in m]
+    read = [next((i for i in range(h, len(ops)) if "Memcpy DtoH" in names[i]),
+                 None) for h in hist]
+    if not (len(hist) == len(concat) == calls) or None in read:
+        return {"idle_split": None, "idle_split_reason":
+                f"{len(hist)} K10, {len(concat)} K13 launches, {calls} sorts"}
+    tail = len(ops) - 1 - concat[-1]
+    first = [0] + [c + tail + 1 for c in concat[:-1]]
+    phase = [""] * len(ops)
+    for k in range(calls):
+        end = concat[k] + tail
+        for i in range(first[k], end + 1):
+            phase[i] = ("between_calls" if i == first[k] else
+                        "phase1" if i <= hist[k] else
+                        "before_read" if i <= read[k] else
+                        "at_read" if i == read[k] + 1 else "phase_c")
+    gaps = dict.fromkeys(("phase1", "before_read", "at_read", "phase_c",
+                          "between_calls"), 0.0)
+    end = ops[0][1]
+    for i in range(1, len(ops)):
+        gaps[phase[i]] += max(0.0, ops[i][0] - end) / 1e3
+        end = max(end, ops[i][1])
+    busy = sum(e - s for s, e, _ in ops) / 1e3
+    gaps["edges"] = wall_ms - busy - sum(gaps.values())
+    before = {}
+    for m in names[hist[0]: read[0]]:
+        before[layer_of(m)] = before.get(layer_of(m), 0) + 1
+    return {"idle_split_ms": {k: v / calls for k, v in gaps.items()},
+            "idle_split_pct": {k: 100.0 * v / wall_ms for k, v in gaps.items()},
+            "ops_per_sort": len(ops) / calls, "ops_before_read": read[0] - hist[0],
+            "ops_before_read_by_layer": before}
 
 
 def profile_join(n: int = 10**8, calls: int = 2) -> dict:
@@ -631,25 +693,78 @@ def profile_sort(n: int = 1 << 26, calls: int = 5) -> dict:
                     f"sort n={n}, ms of device time per call")
 
 
-def measure_launch(launches: int = 200) -> dict:
-    """The launch path of one small kernel, K11 ``radix_rank`` at the 2^26
-    radix geometry (128 sorted chunks of 2^19 keys, 160 splitters): host
-    microseconds per wrapper call (the enqueue, no synchronisation), CUDA
-    events time per call and the profiler's device time per launch, beside
-    ``torch.searchsorted`` on the same inputs."""
-    dev = timing.require_cuda()
-    g = _generator(17)
-    chunk, n_chunks, m = 1 << 19, 128, 160
-    keys = torch.sort(_randint(-(2**31), 2**31, chunk * n_chunks, g).view(
-        n_chunks, chunk), dim=1).values.reshape(-1)
-    spl = torch.sort(_randint(-(2**31), 2**31, m, g)).values
-    want = torch.searchsorted(keys.view(n_chunks, chunk),
-                              spl.expand(n_chunks, m).contiguous())
-    if not torch.equal(msd.splitter_ranks(keys, spl, chunk).long(), want):
-        raise AssertionError("radix_rank differs from torch.searchsorted")
+def rank_inputs(n: int = 1 << 26):
+    """The arguments K11 ``radix_rank`` gets in a radix sort of n
+    permutation keys at the default radix geometry
+    (``radix_sort.rank_args``)."""
+    cfg = RADIX
+    p = radix_sort.plan(n, radix_sort.pick_chunk(n, cfg.chunk_elems))
+    keys = torch.from_numpy(permutation_keys(n)).to(timing.require_cuda())
+    keys = keys.view(torch.int32) ^ _SIGN
+    sorted_ = bitonic.sort_chunks_ascending_cyclic([keys], 1, p.C,
+                                                   *cfg.mode_tiles(1, 1))[0]
+    return radix_sort.rank_args(sorted_, keys, p, n, cfg.mode_tiles(1, 1),
+                                False)
+
+
+def rank_runs_library(keys, heads, samples, totals, p, n_valid, pads, tail):
+    """What K11 replaces, with the ranks from ``torch.searchsorted``: the
+    splitter clamp, the ranks and ``run_bounds`` (its library call)."""
+    n_keys = n_valid if pads is None else n_valid - pads
+    spl = radix_sort.clamp_splitters(samples, totals, p, n_keys)
+    if tail:
+        spl = torch.cat((spl, spl.new_full((1,), msd._PAD)))
+    ranks = torch.searchsorted(keys.view(p.n_chunks, p.C),
+                               spl.expand(p.n_chunks, spl.numel()).contiguous())
+    return radix_sort.run_bounds(ranks, p, n_valid, tail)
+
+
+def rank_bytes(p, tail: bool = False) -> tuple[int, int]:
+    """(bytes, 32-bit operations) that K11 must move and do at plan p: the
+    256 totals and the m sampled splitters read, one 32-byte sector a
+    (chunk, splitter) (the one that holds its rank's boundary), the
+    splitters, bounds rows, flag and segment tables written; a binary
+    search's compares a (chunk, splitter)."""
+    m = p.nb - 1 + tail
+    n_seg = p.nb_pad + (p.n_chunks if tail else 0)
+    read = 4 * 256 + 4 * m + 32 * p.n_chunks * m
+    written = 4 * m + 4 * p.n_chunks * (p.nb_pad + 1) + 4 + 8 * (2 * n_seg + 1)
+    return read + written, p.n_chunks * m * (p.C.bit_length() - 1)
+
+
+def _device_ops_per_call(fn, calls: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return len(_device_ops(prof)) / calls
+
+
+def measure_launch(n: int = 1 << 26, launches: int = 200) -> dict:
+    """K11 ``radix_rank`` (``radix_sort.rank_runs``: splitters, ranks, run
+    bounds, overflow flag and segment tables) on a radix sort's own inputs
+    at n keys (2^26: 128 sorted chunks of 2^19 keys, 160 splitters): host
+    microseconds per call (the enqueue, no synchronisation), CUDA-events
+    time per call and the profiler's device time of the kernel, with the
+    device operations per call; beside it the composition it replaces on the
+    card (``rank_runs_library``: the clamp, ``torch.searchsorted``,
+    ``run_bounds``) and ``torch.searchsorted`` alone."""
+    args = rank_inputs(n)
+    got, want = radix_sort.rank_runs(*args), radix_sort.rank_runs_ref(*args)
+    if not all(torch.equal(getattr(got, f), getattr(want, f))
+               for f in radix_sort.Ranked._fields):
+        raise AssertionError("radix_rank differs from its plain version")
+    lib = rank_runs_library(*args)
+    if not all(torch.equal(a, b) for a, b in zip(
+            (got.bounds, got.start, got.src),
+            (lib.bounds, lib.start, lib.src))):
+        raise AssertionError("radix_rank differs from the library composition")
 
     def call():
-        return msd.splitter_ranks(keys, spl, chunk)
+        return radix_sort.rank_runs(*args)
 
     host = []
     for _ in range(5):
@@ -662,19 +777,70 @@ def measure_launch(launches: int = 200) -> dict:
     events = timing.time_cuda(call, iters=launches, repeats=5)
     prof = _profile(call, launches, lambda name: "radix_rank"
                     if "radix_rank" in name else "other", "radix_rank")
-    view, spl2 = keys.view(n_chunks, chunk), spl.expand(n_chunks, m).contiguous()
-    lib = timing.time_cuda(lambda: torch.searchsorted(view, spl2),
-                           iters=launches, repeats=5)
-    return {"what": "radix_rank launch path (128 chunks of 2^19, 160 "
+    keys, p = args[0], args[4]
+    view = keys.view(p.n_chunks, p.C)
+    spl = got.splitters.expand(p.n_chunks, got.splitters.numel()).contiguous()
+    composition = timing.time_cuda(lambda: rank_runs_library(*args),
+                                   iters=20, repeats=5)
+    search = timing.time_cuda(lambda: torch.searchsorted(view, spl),
+                              iters=launches, repeats=5)
+    return {"what": f"radix_rank (rank_runs) at the radix geometry of {n} "
+                    f"keys ({p.n_chunks} chunks of {p.C}, {p.nb - 1} "
                     "splitters)",
             "host_us_per_launch": min(host) * 1e6,
             "events_ms": events.seconds * 1e3,
             "device_ms": prof["layers_ms"].get("radix_rank", 0.0),
-            "searchsorted_ms": lib.seconds * 1e3,
+            "other_device_ms": prof["layers_ms"].get("other", 0.0),
+            "device_ops_per_call": _device_ops_per_call(call),
+            "composition_ms": composition.seconds * 1e3,
+            "composition_device_ops_per_call":
+                _device_ops_per_call(lambda: rank_runs_library(*args)),
+            "searchsorted_ms": search.seconds * 1e3,
             "device": timing.device_info()}
 
 
 # --- slice 4: strategy="radix" ---------------------------------------------
+
+
+def hist_inputs(n: int, seed: int = 23) -> dict:
+    """The digit-histogram inputs: uniform keys, all-equal keys and two
+    distinct keys (every byte of the two differs) in random order."""
+    g = _generator(seed)
+    two = torch.tensor([0x11223344, -0x11223345], dtype=torch.int32,
+                       device=timing.require_cuda())
+    return {"uniform": _randint(-(2**31), 2**31, n, g),
+            "all_equal": torch.full((n,), 0x12345678, dtype=torch.int32,
+                                    device=two.device),
+            "two_keys": two[_randint(0, 2, n, g).long()]}
+
+
+def sweep_hist(n: int = 1 << 26) -> list[dict]:
+    """``radix_hist`` on each ``hist_inputs`` case at n keys, as K10 (the
+    radix sort's 2^19-key chunks, top byte, sign bias, with the totals row)
+    and as K14 (1024-key tiles, shift 8), every result first held against
+    ``histograms_ref``.  ``bound_ms``: the keys read and the rows written
+    once, over 3.35 TB/s."""
+    from radx_tpu_torch.kernels import radix
+
+    rows = []
+    for case, x in hist_inputs(n).items():
+        for name, tile, shift, bias, totals in (
+                ("radix_hist", 1 << 19, 24, _SIGN, True),
+                ("radix_hist/tile", radix.TILE, 8, 0, False)):
+            def call():
+                return radix.histograms(x, tile, shift, bias, name=name,
+                                        totals=totals)
+
+            if not torch.equal(call(), radix.histograms_ref(
+                    x, tile, shift, bias, n, totals)):
+                raise AssertionError(f"{name} differs on {case} keys")
+            t = timing.time_cuda(call, iters=10, repeats=5)
+            rows.append({"kernel": name, "case": case, "n": n, "tile": tile,
+                         "ms": t.seconds * 1e3, "spread_pct": t.spread_pct,
+                         "bound_ms": (4 * n + 1024 * (-(-n // tile) + totals))
+                         / 3.35e9, "device": timing.device_info()})
+    return rows
+
 
 RADIX = SortConfig(strategy="radix")
 
@@ -714,10 +880,12 @@ def _radix_layer(name: str) -> str:
 def profile_radix(n: int = 1 << 26, calls: int = 3) -> dict:
     """``sort`` under strategy="radix" by kernel: K4 (chunk_sort_cyclic),
     K5 (slot_merge), the span passes of both and the sample sort
-    (cross_stage, finish, chunk_sort), K10-K13, elementwise."""
+    (cross_stage, finish, chunk_sort), K10-K13, elementwise; and where the
+    device idles (``radix_idle_split``)."""
     keys = torch.from_numpy(permutation_keys(n)).to(timing.require_cuda())
     return _profile(lambda: sort(keys, RADIX), calls, _radix_layer,
-                    f"sort strategy=radix n={n}, ms of device time per call")
+                    f"sort strategy=radix n={n}, ms of device time per call",
+                    radix_idle_split)
 
 
 MEASURES = {
@@ -732,7 +900,9 @@ MEASURES = {
     "sweep_scan": lambda: sweep_single_pass(),
     "profile": lambda: [profile_sort(1 << 23), profile_sort(), profile_groupby(),
                         profile_join(), profile_query_dense()],
-    "launch": lambda: [measure_launch()],
+    "launch": lambda: [measure_launch(1 << 26), measure_launch(1 << 28)],
+    "sweep_hist": lambda: sweep_hist(),
+    "profile_radix": lambda: [profile_radix()],
     "radix": lambda: [measure_radix(1 << 26), measure_radix(1 << 28),
                       profile_radix()],
 }

@@ -47,10 +47,13 @@ _SIGNATURES = {
     "radx_chunk_sort_cyclic": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
     # in, out, np, ncmp, n, log_t, log_s, log_c, plan, phases, stream
     "radx_slot_merge": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P),
-    # keys, n, log_tile, shift, bias, out, stream
-    "radx_radix_hist": (_P, _I, _I, _I, _I, _P, _P),
-    # keys, n_chunks, log_c, splitters, m, ranks, stream
-    "radx_radix_rank": (_P, _I, _I, _P, _I, _P, _P),
+    # keys, n, rows, log_tile, shift, bias, out, totals, stream
+    "radx_radix_hist": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # keys, n_chunks, log_c, heads, log_r, first, samples, n_samples,
+    # totals, pads, n_valid, log_tile, log_slot, nb, nb_pad, tail,
+    # splitters, bounds, start, src, overflow, scratch, stream
+    "radx_radix_rank": (_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # in, out, np, ncmp, n_chunks, log_c, bounds, nb_pad, log_slot, stream
     "radx_radix_pack": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
     # merged, sorted, out, np, ncmp, start, src, n_seg, n_merged, total,

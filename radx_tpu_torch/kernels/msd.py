@@ -2,8 +2,12 @@
 parts of radx_tpu/kernels/msd.py that ``strategy="radix"`` uses
 (``sort_msd`` itself is not ported: only a JAX test calls it).
 
-  * ``splitter_ranks(keys, splitters, chunk)`` — ranks[c, j] = the number of
-    keys of sorted chunk c (plane 0) below splitter j (K11, ``_rank_kernel``);
+  * ``splitter_ranks_ref(keys, splitters, chunk)`` — ranks[c, j] = the
+    number of keys of sorted chunk c (plane 0) below splitter j: the plain
+    version of the ranks of K11 (``_rank_kernel``), whose launch,
+    ``radix_rank``, is ``radix_sort.rank_runs`` (splitters, ranks, run
+    bounds and segment tables in one kernel; its launches are counted
+    here);
   * ``pack(planes, bounds, chunk, slot, nb_pad, ncmp)`` — the run
     [bounds[c, b], bounds[c, b+1]) of every sorted chunk c copied to slot
     (b, c) of a bucket-major buffer of nb_pad x n_chunks slots, padded with
@@ -14,11 +18,11 @@ parts of radx_tpu/kernels/msd.py that ``strategy="radix"`` uses
     chunks, rows from start[-1] (the valid count) on get the fill (K13,
     ``_concat_kernel``).
 
-On a CUDA tensor each runs its kernel of ``radx_tpu_torch/csrc/radix.cu``
-(``radix_rank``, ``radix_pack<mode>``, ``radix_concat<mode>``; the mode
-suffixes are those of kernels/bitonic.py); on a CPU tensor its plain
-PyTorch version.  Planes are contiguous 1-D int32 tensors; bounds are
-int32, segment tables int64.
+On a CUDA tensor pack and concat run their kernels of
+``radx_tpu_torch/csrc/radix.cu`` (``radix_pack<mode>``,
+``radix_concat<mode>``; the mode suffixes are those of kernels/bitonic.py);
+on a CPU tensor their plain PyTorch versions.  Planes are contiguous 1-D
+int32 tensors; bounds are int32, segment tables int64.
 """
 
 from __future__ import annotations
@@ -52,8 +56,8 @@ def mode_kernels(ncmp: int, planes: int) -> tuple[str, ...]:
 KERNELS = ("radix_rank",) + tuple(k for m in bitonic.MODES
                                   for k in mode_kernels(*m))
 LAUNCHES = dict.fromkeys(KERNELS, 0)
-PLAIN_CALLS = dict.fromkeys(("radix_rank_ref", "radix_pack_ref",
-                             "radix_concat_ref"), 0)
+PLAIN_CALLS = dict.fromkeys(("radix_rank_ref", "radix_rank_model",
+                             "radix_pack_ref", "radix_concat_ref"), 0)
 
 
 def reset_counts() -> None:
@@ -93,32 +97,14 @@ def _ptrs(planes):
 
 
 def splitter_ranks_ref(keys, splitters, chunk):
-    """Plain version of ``splitter_ranks``: per splitter, a count of the
-    keys below it in every chunk."""
+    """Per splitter, a count of the keys below it in every chunk of
+    ``chunk`` keys of the int32 plane ``keys``: (n_chunks, m) int32."""
     PLAIN_CALLS["radix_rank_ref"] += 1
     x = keys.view(-1, chunk)
     ranks = torch.zeros(x.shape[0], splitters.numel(), dtype=torch.int32,
                         device=keys.device)
     for j, s in enumerate(splitters):
         ranks[:, j] = (x < s).sum(1)
-    return ranks
-
-
-def splitter_ranks(keys, splitters, chunk):
-    """(n_chunks, m) int32: the number of keys below splitter j in sorted
-    chunk c of ``chunk`` keys of the int32 plane ``keys``."""
-    if keys.dtype != torch.int32 or splitters.dtype != torch.int32:
-        raise ValueError("keys and splitters must be int32")
-    if keys.numel() % chunk or chunk & (chunk - 1):
-        raise ValueError(f"{keys.numel()} keys are not whole chunks of {chunk}")
-    if not _on_cuda([keys, splitters]):
-        return splitter_ranks_ref(keys, splitters, chunk)
-    n_chunks, m = keys.numel() // chunk, splitters.numel()
-    ranks = torch.empty(n_chunks, m, dtype=torch.int32, device=keys.device)
-    if m:
-        _call("radix_rank", "radx_radix_rank", keys, keys.data_ptr(), n_chunks,
-              chunk.bit_length() - 1, splitters.data_ptr(), m,
-              ranks.data_ptr())
     return ranks
 
 

@@ -9,10 +9,13 @@ granularity, on the port's kernels:
      sort_chunks_ascending_cyclic``: K4 in shared memory, then cross / finish
      passes with a span of C);
   2. **counting / partition** — the top-byte histograms of the pre-sort
-     plane (K10) give the exact digit CDF, which clamps regular samples of
-     the sorted chunks into the digit interval each bucket target falls in
-     (``choose_splitters``); K11 ranks the nb - 1 splitters in every sorted
-     chunk;
+     plane (K10) give the exact digit totals; one launch of K11
+     (``rank_runs``) turns them and the sorted regular samples of the
+     sorted chunks into the nb - 1 splitters (each sample quantile clamped
+     into the digit interval its bucket's target falls in:
+     ``clamp_splitters``), their ranks in every sorted chunk, the run
+     bounds, the overflow flag and the concatenation's segment tables
+     (``run_bounds``);
   3. **scattering** — K12 copies every (chunk, bucket) run into its slot of
      S = C / n_chunks keys, bucket-major, so every bucket is a region of C
      keys made of n_chunks ascending slots;
@@ -50,7 +53,7 @@ from typing import NamedTuple
 
 import torch
 
-from radx_tpu_torch.kernels import bitonic, msd, radix
+from radx_tpu_torch.kernels import _build, bitonic, msd, radix
 
 TILE = bitonic.CYCLIC_TILE  # keys per block-cyclic tile (JAX t_rows = 8)
 SAMPLE_STRIDE = 128  # keys between splitter samples at the densest rate
@@ -106,6 +109,67 @@ def plan(n: int, chunk: int) -> Plan | None:
     return Plan(chunk, n_chunks, slot, nb, nb_pad, s_pad, TILE)
 
 
+def sample_stride(p: Plan) -> tuple[int, int]:
+    """(stride, first): the splitter samples of a sorted chunk are its keys
+    first + k * stride, ns = min(2048, C / 128) of them."""
+    stride = p.C // min(_NS, p.C // SAMPLE_STRIDE)
+    return stride, stride // SAMPLE_STRIDE // 2 * SAMPLE_STRIDE
+
+
+def sample_heads(keys, p: Plan):
+    """(n_chunks, ns) int32: the regular samples of each sorted chunk of
+    ``keys`` (plane 0), every ``stride``-th key from ``first``
+    (``sample_stride``), a contiguous copy: K11 stages them as its heads."""
+    stride, first = sample_stride(p)
+    return keys.view(p.n_chunks, p.C)[:, first::stride].contiguous()
+
+
+def sort_samples(heads, sample_tiles):
+    """The samples ``heads`` flat and sorted, in a copy: on the keys-only
+    network (``sample_tiles``: its (chunk, finish) tiles) from 2^17 of
+    them."""
+    samples = heads.view(-1)
+    if samples.numel() < _SAMPLE_SORT_MIN:
+        return torch.sort(samples).values
+    samples = samples.clone()
+    bitonic.sort_planes(samples, *sample_tiles)
+    return samples
+
+
+def clamp_splitters(samples, totals, p: Plan, n_keys):
+    """nb - 1 ascending int32 cut values: the sample quantiles of the sorted
+    ``samples`` (those below the sentinel), clamped into the top-byte
+    interval that the exact digit CDF (``totals``: keys per top byte)
+    assigns each bucket's target j * n_keys / nb.  The plain version of
+    ``rank_runs``' prologue."""
+    totals = totals.to(torch.int64)
+    cdf = torch.cumsum(totals, 0) - totals  # keys with a smaller digit
+    nvs = (samples < msd._PAD).sum()
+    j = torch.arange(1, p.nb, dtype=torch.int64, device=samples.device)
+    spos = (j * nvs // p.nb).clamp(0, samples.numel() - 1)
+    sval = samples[spos].to(torch.int64)
+    t = j * n_keys // p.nb  # exact bucket targets (int64)
+    d = (cdf[None, 1:] <= t[:, None]).sum(1)  # target's top byte, [0, 255]
+    lo = (d ^ 128) << 24  # first biased key of that byte
+    lo = torch.where(lo >= 1 << 31, lo - (1 << 32), lo)
+    return torch.minimum(torch.maximum(sval, lo), lo + 0x00FFFFFF).to(
+        torch.int32)
+
+
+def digit_totals(flat_input, p: Plan, n_valid: int):
+    """The radix sort's counting step (K10): the top-byte histograms of the
+    pre-sort plane's valid prefix per radix chunk, with the digit totals as
+    their last row (original uint32 order: pads never count)."""
+    return radix.chunk_histograms(flat_input, 24, p.C, n=n_valid,
+                                  bias=_SIGN_U32, totals=True)
+
+
+def sentinel_keys(flat_input, n_valid: int):
+    """0-d int64: the sentinel keys among the first n_valid (a PyTorch
+    reduction): in the rider mode they skip the buckets."""
+    return (flat_input[:n_valid] == msd._PAD).sum()
+
+
 def choose_splitters(keys, flat_input, p: Plan, n_valid: int, sample_tiles,
                      skip_sentinel: bool = False):
     """nb - 1 ascending int32 cut values: sample quantiles of the sorted
@@ -117,35 +181,25 @@ def choose_splitters(keys, flat_input, p: Plan, n_valid: int, sample_tiles,
     the buckets, so the targets count only the other rows, as the samples
     do (else the targets run ahead of the samples and the clamp pins every
     cut to a digit boundary)."""
-    counts = radix.chunk_histograms(flat_input, 24, p.C, n=n_valid,
-                                    bias=_SIGN_U32)
-    totals = counts.sum(0, dtype=torch.int64)
-    cdf = torch.cumsum(totals, 0) - totals  # keys with a smaller digit
-
-    ns = min(_NS, p.C // SAMPLE_STRIDE)
-    stride = p.C // ns
-    first = stride // SAMPLE_STRIDE // 2 * SAMPLE_STRIDE
-    # a copy (the stride is >= 128 keys): the network sorts it in place
-    samples = keys.view(p.n_chunks, p.C)[:, first::stride].contiguous().view(-1)
-    if samples.numel() >= _SAMPLE_SORT_MIN:
-        bitonic.sort_planes(samples, *sample_tiles)
-    else:
-        samples = torch.sort(samples).values
-    nvs = (samples < msd._PAD).sum()
-    dev = keys.device
-    j = torch.arange(1, p.nb, dtype=torch.int64, device=dev)
-    spos = (j * nvs // p.nb).clamp(0, samples.numel() - 1)
-    sval = samples[spos].to(torch.int64)
-
+    totals = digit_totals(flat_input, p, n_valid)[-1]
     n_keys = n_valid
     if skip_sentinel:
-        n_keys = n_valid - (flat_input[:n_valid] == msd._PAD).sum()
-    t = j * n_keys // p.nb  # exact bucket targets (int64)
-    d = (cdf[None, 1:] <= t[:, None]).sum(1)  # target's top byte, [0, 255]
-    lo = (d ^ 128) << 24  # first biased key of that byte
-    lo = torch.where(lo >= 1 << 31, lo - (1 << 32), lo)
-    return torch.minimum(torch.maximum(sval, lo), lo + 0x00FFFFFF).to(
-        torch.int32)
+        n_keys = n_valid - sentinel_keys(flat_input, n_valid)
+    return clamp_splitters(sort_samples(sample_heads(keys, p), sample_tiles),
+                           totals, p, n_keys)
+
+
+def rank_args(keys, flat_input, p: Plan, n_valid: int, sample_tiles,
+              tail: bool) -> tuple:
+    """The arguments of ``rank_runs`` in a radix sort: the sorted chunks
+    ``keys``, their samples (heads, and sorted on the network of
+    ``sample_tiles``), the digit totals of the pre-sort plane
+    ``flat_input`` (K10), and with ``tail`` its sentinel keys."""
+    totals = digit_totals(flat_input, p, n_valid)[-1]
+    heads = sample_heads(keys, p)
+    return (keys, heads, sort_samples(heads, sample_tiles), totals, p,
+            n_valid, sentinel_keys(flat_input, n_valid) if tail else None,
+            tail)
 
 
 class Bounds(NamedTuple):
@@ -182,6 +236,193 @@ def run_bounds(ranks, p: Plan, n_valid: int, tail: bool) -> Bounds:
     return Bounds(bounds.to(torch.int32).contiguous(), overflow, start, src)
 
 
+# --- K11: from the samples to the run bounds, one launch -----------------------
+
+# the kernel's geometry (csrc/radix.cu): threads a block (one block a
+# chunk), keys a window part (a 16-byte load a lane)
+RANK_THREADS, RANK_PART = 1024, 128
+
+
+class Ranked(NamedTuple):
+    splitters: torch.Tensor  # (m,) int32: nb - 1 cuts (+ the sentinel: tail)
+    bounds: torch.Tensor  # (n_chunks, nb_pad + 1) int32 run bounds
+    overflow: torch.Tensor  # 0-d int64: 1 where a run outgrows its slot
+    start: torch.Tensor  # int64 segment starts of the concatenation
+    src: torch.Tensor  # int64 segment sources (merged, then sorted chunks)
+
+    @property
+    def ranks(self):
+        """(n_chunks, m) int32: the keys below each splitter in each chunk,
+        columns 1..m of the bounds."""
+        return self.bounds[:, 1: 1 + self.splitters.numel()]
+
+
+def rank_runs_ref(keys, heads, samples, totals, p, n_valid, pads,
+                  tail) -> Ranked:
+    """Plain version of ``rank_runs``: ``clamp_splitters`` (the sentinel
+    appended with ``tail``) -> ``msd.splitter_ranks_ref`` ->
+    ``run_bounds`` (``heads`` unused)."""
+    n_keys = n_valid if pads is None else n_valid - pads
+    spl = clamp_splitters(samples, totals, p, n_keys)
+    if tail:
+        spl = torch.cat((spl, spl.new_full((1,), msd._PAD)))
+    b = run_bounds(msd.splitter_ranks_ref(keys, spl, p.C), p, n_valid, tail)
+    return Ranked(spl, b.bounds, b.overflow.to(torch.int64), b.start, b.src)
+
+
+def rank_runs(keys, heads, samples, totals, p: Plan, n_valid: int, pads=None,
+              tail: bool = False) -> Ranked:
+    """K11 ``radix_rank``: from the sorted chunks ``keys`` (plane 0), their
+    regular samples (``sample_heads``) and those sorted (``sort_samples``),
+    and the 256 digit totals (the last row of ``digit_totals``) to the
+    splitters (``clamp_splitters`` with targets over n_valid keys, less
+    ``pads``, a 0-d int64 of sentinel keys, where given; with ``tail``, the
+    sentinel appended), their ranks in every chunk, and ``run_bounds``'
+    outputs.  On a CUDA tensor one launch (and one ``torch.zeros`` of its
+    buffer); on a CPU tensor the plain composition ``rank_runs_ref``."""
+    stride, first = sample_stride(p)
+    if (keys.dtype != torch.int32 or samples.dtype != torch.int32
+            or totals.dtype != torch.int32 or totals.shape != (256,)
+            or heads.dtype != torch.int32
+            or heads.shape != (p.n_chunks, p.C // stride)
+            or keys.numel() != p.n_chunks * p.C or samples.dim() != 1
+            or not (keys.is_contiguous() and samples.is_contiguous()
+                    and totals.is_contiguous() and heads.is_contiguous())
+            or (pads is not None and (pads.dtype != torch.int64
+                                      or pads.numel() != 1))):
+        raise ValueError("expected int32 chunks, heads, samples and 256 "
+                         "totals (pads: one int64)")
+    dev = keys.device
+    if (samples.device != dev or totals.device != dev or heads.device != dev
+            or (pads is not None and pads.device != dev)):
+        raise ValueError("expected tensors on one device")
+    if dev.type == "cpu":
+        return rank_runs_ref(keys, heads, samples, totals, p, n_valid, pads,
+                             tail)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if keys.data_ptr() % 16:
+        raise ValueError("the sorted chunks must be 16-byte aligned")
+    m = p.nb - 1 + tail
+    n_seg = p.nb_pad + (p.n_chunks if tail else 0)
+    cells = p.n_chunks * (p.nb_pad + 1)
+    # one zeroed int64 buffer: the scratch (ticket, bucket sums, tail
+    # counts), the flag, start, src, then the int32 bounds and splitters
+    flag = 1 + p.nb_pad + p.n_chunks
+    start = flag + 1
+    src = start + n_seg + 1
+    ints = src + n_seg
+    buf = torch.zeros(ints + (cells + m + 1) // 2, dtype=torch.int64,
+                      device=dev)
+    at = buf.data_ptr()
+    _build.launch(msd.LAUNCHES, "radix_rank", "radx_radix_rank", dev,
+                  keys.data_ptr(), p.n_chunks, p.C.bit_length() - 1,
+                  heads.data_ptr(), stride.bit_length() - 1, first,
+                  samples.data_ptr(), samples.numel(), totals.data_ptr(),
+                  None if pads is None else pads.data_ptr(), n_valid,
+                  p.tile.bit_length() - 1, p.slot.bit_length() - 1, p.nb,
+                  p.nb_pad, int(tail), at + 8 * ints + 4 * cells,
+                  at + 8 * ints, at + 8 * start, at + 8 * src, at + 8 * flag,
+                  at)
+    i32 = buf[ints:].view(torch.int32)
+    bounds = i32[:cells].view(p.n_chunks, p.nb_pad + 1)
+    return Ranked(i32[cells: cells + m], bounds, buf[flag], buf[start:src],
+                  buf[src:ints])
+
+
+def _samples_below_pad(samples, threads=RANK_THREADS):
+    """The kernel's count of the sorted samples below the sentinel: a probe
+    every w = ceil(S / threads) samples, then the w - 1 samples after the
+    last probe below it."""
+    n = samples.numel()
+    w = -(-n // threads)
+    below = int((samples[::w] < msd._PAD).sum())
+    if below == 0:
+        return 0
+    base = (below - 1) * w + 1
+    return base + int((samples[base: min(base + w - 1, n)] < msd._PAD).sum())
+
+
+def _chunk_valid(n_valid, c, p: Plan):
+    """The kernel's rows below n_valid in chunk c: its block-cyclic tiles
+    g * n_chunks + c, the first n_valid // tile of all tiles whole."""
+    tiles = p.C // p.tile
+    full, rem = divmod(n_valid, p.tile)
+    whole = min(-(-(full - c) // p.n_chunks), tiles) if full > c else 0
+    part = rem and full % p.n_chunks == c and full // p.n_chunks < tiles
+    return whole * p.tile + (rem if part else 0)
+
+
+def rank_runs_model(keys, heads, samples, totals, p: Plan, n_valid: int,
+                    pads=None, tail: bool = False) -> Ranked:
+    """Pure-torch model of the ``radix_rank`` kernel, for the CPU tests:
+    the prologue (the digit CDF, ``_samples_below_pad``, each splitter's
+    target and its top byte by a binary search of the CDF, the clamp), the
+    two-level search (i of the chunk's ``heads``, its keys first + k *
+    stride, below the splitter leave the window of stride keys from first +
+    (i - 1) * stride, or from 0, or to C; the keys below the splitter there,
+    in parts of 128), and the epilogue (each chunk's bounds row, bucket
+    sizes, overflow and tail count; the last block's scan of the bucket
+    sums, then of the tail counts, into the starts)."""
+    msd.PLAIN_CALLS["radix_rank_model"] += 1
+    m = p.nb - 1 + tail
+    n = samples.numel()
+    tot = totals.to(torch.int64)
+    cdf = (torch.cumsum(tot, 0) - tot).tolist()
+    nvs = _samples_below_pad(samples)
+    n_keys = n_valid if pads is None else n_valid - int(pads)
+    spl = []
+    for j in range(1, m + 1):
+        if j >= p.nb:  # the tail's sentinel
+            spl.append(msd._PAD)
+            continue
+        sval = int(samples[min(j * nvs // p.nb, n - 1)])
+        t = j * n_keys // p.nb
+        lo, hi = 1, 256
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (mid + 1, hi) if cdf[mid] <= t else (lo, mid)
+        dlo = ((lo - 1) ^ 128) << 24
+        dlo -= (dlo >= 1 << 31) << 32
+        spl.append(min(max(sval, dlo), dlo + 0x00FFFFFF))
+    splitters = torch.tensor(spl, dtype=torch.int32)
+
+    stride, first = sample_stride(p)
+    x = keys.view(p.n_chunks, p.C)
+    s = splitters.expand(p.n_chunks, m).contiguous()
+    i = torch.searchsorted(heads, s)
+    w0 = torch.where(i == 0, 0, first + (i - 1) * stride).clamp(
+        max=p.C - stride)
+    ranks = w0.clone()
+    for part in range(0, stride, RANK_PART):
+        idx = (w0 + part)[..., None] + torch.arange(RANK_PART)
+        window = x.gather(1, idx.view(p.n_chunks, -1)).view(p.n_chunks, m, -1)
+        ranks += (window < s[..., None]).sum(2)
+
+    bounds = torch.empty(p.n_chunks, p.nb_pad + 1, dtype=torch.int64)
+    scratch = torch.zeros(1 + p.nb_pad + p.n_chunks, dtype=torch.int64)
+    src = torch.empty(p.nb_pad + (p.n_chunks if tail else 0),
+                      dtype=torch.int64)
+    overflow = False
+    for c in range(p.n_chunks):
+        valid = _chunk_valid(n_valid, c, p)
+        top = int(ranks[c, p.nb - 1]) if tail else valid
+        bounds[c] = torch.cat((torch.zeros(1, dtype=torch.int64),
+                               ranks[c, : p.nb - 1],
+                               torch.full((p.nb_pad + 1 - p.nb,), top)))
+        sizes = bounds[c, 1: p.nb + 1] - bounds[c, : p.nb]
+        overflow |= bool((sizes > p.slot).any())
+        scratch[1: 1 + p.nb] += sizes
+        if tail:
+            scratch[1 + p.nb_pad + c] = valid - top
+            src[p.nb_pad + c] = c * p.C + top
+    src[: p.nb_pad] = torch.arange(p.nb_pad) * p.C
+    start = torch.cat((torch.zeros(1, dtype=torch.int64),
+                       torch.cumsum(scratch[1: 1 + src.numel()], 0)))
+    return Ranked(splitters, bounds.to(torch.int32),
+                  torch.tensor(int(overflow), dtype=torch.int64), start, src)
+
+
 def sort_radix(planes, chunk, num_cmp, cfg, n_valid=None):
     """Radix-distribution-sort int32 planes in place: ascending by plane 0,
     then plane 1 when num_cmp == 2; further planes ride along.  The length
@@ -201,12 +442,8 @@ def sort_radix(planes, chunk, num_cmp, cfg, n_valid=None):
 
     sorted_ = bitonic.sort_chunks_ascending_cyclic(planes, num_cmp, p.C,
                                                    *tiles)
-    splitters = choose_splitters(sorted_[0], planes[0], p, n_valid,
-                                 cfg.mode_tiles(1, 1), tail)
-    if tail:
-        splitters = torch.cat((splitters, splitters.new_full((1,), msd._PAD)))
-    b = run_bounds(msd.splitter_ranks(sorted_[0], splitters, p.C), p, n_valid,
-                   tail)
+    b = rank_runs(*rank_args(sorted_[0], planes[0], p, n_valid,
+                             cfg.mode_tiles(1, 1), tail))
     if bool(b.overflow):  # the one host read
         return planes, True
 

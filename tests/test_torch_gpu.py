@@ -445,12 +445,18 @@ def test_radix_phase_kernels_match_plain(cuda, mode):
 @pytest.mark.parametrize("shift,bias", [(0, 0), (8, 0), (16, 0), (24, 0),
                                         (24, 0x80000000)])
 def test_radix_hist_matches_plain(cuda, shift, bias):
+    """With and without the totals row, on uniform, all-equal and
+    two-valued keys, a ragged n and a misaligned start."""
     x = _keys(cuda, N + 4097)
-    for tile, n in ((1024, x.numel()), (R_CHUNK, N - 12345)):
-        got = tr.histograms(x, tile, shift, bias, n)
-        want = tr.histograms_ref(x, tile, shift, bias, n)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
+    two = torch.where(x[: N] < 0, 0x11223344, -0x11223345).to(torch.int32)
+    for keys in (x, x[1:], torch.full_like(x, 0x12345678), two):
+        for tile, n in ((1024, keys.numel()), (R_CHUNK, N - 12345),
+                        (1 << 13, N - 3), (1 << 14, N - 5)):
+            for totals in (False, True):
+                want = tr.histograms_ref(keys, tile, shift, bias, n, totals)
+                got = tr.histograms(keys, tile, shift, bias, n, totals=totals)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (tile, totals)
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -460,13 +466,16 @@ def test_radix_rank_pack_concat_match_plain(cuda, mode):
     c, f = RADIX.mode_tiles(p, ncmp)
     plan = trs.plan(N, 1 << 18)  # 4 chunks of 2^18, slots of 2^16
     sorted_ = tb.sort_chunks_ascending_cyclic(planes, ncmp, plan.C, c, f)
-    spl = trs.choose_splitters(sorted_[0], planes[0], plan, N,
-                               RADIX.mode_tiles(1, 1), True)
-    spl = torch.cat((spl, spl.new_full((1,), tm._PAD)))
-    ranks = tm.splitter_ranks(sorted_[0], spl, plan.C)
-    torch.cuda.synchronize()
-    assert torch.equal(ranks, tm.splitter_ranks_ref(sorted_[0], spl, plan.C))
-    b = trs.run_bounds(ranks, plan, N - 999, tail=True)
+    nv = N - 999
+    args = trs.rank_args(sorted_[0], planes[0], plan, nv,
+                         RADIX.mode_tiles(1, 1), True)
+    for pads in (None, args[6]):
+        args = args[:6] + (pads, True)
+        b = trs.rank_runs(*args)
+        want = trs.rank_runs_ref(*args)
+        torch.cuda.synchronize()
+        for field in (*trs.Ranked._fields, "ranks"):
+            assert torch.equal(getattr(b, field), getattr(want, field)), field
     packed = tm.pack(sorted_, b.bounds, plan.C, plan.slot, plan.nb_pad, ncmp)
     _assert_planes_equal(packed, tm.pack_ref(sorted_, b.bounds, plan.C,
                                              plan.slot, plan.nb_pad, ncmp))

@@ -6,7 +6,9 @@ package's, bit for bit (tolerance 0: integer keys), on the CPU:
     ``tile_histograms`` at shifts 0 / 8 / 16 / 24;
   * K4 ``sort_chunks_ascending_cyclic`` (keys, rider, lex2, lex3);
   * K5 ``merge_slots_ascending`` on ascending slots with sentinel tails;
-  * K11 ``splitter_ranks`` on sorted chunks.
+  * the ranks of K11 (``splitter_ranks_ref``, the plain version that the
+    fused ``radix_sort.rank_runs`` is held to; tests/test_torch_radix_plan.py
+    holds the kernel's CPU model) on sorted chunks.
 
 On the CPU every port wrapper runs its kernel's plain PyTorch version; the
 card-side comparison of kernel and plain version is tests/test_torch_gpu.py
@@ -229,8 +231,8 @@ def test_splitter_ranks_match_jax():
     p = jrs.plan(N, C_ROWS)
     want = np.asarray(jm._splitter_ranks(jnp.asarray(keys.reshape(-1, C_ROWS, 128)),
                                          jnp.asarray(splitters), p, True))
-    got = tm.splitter_ranks(torch.from_numpy(keys.reshape(-1)),
-                            torch.from_numpy(splitters[: p.nb - 1]), C)
+    got = tm.splitter_ranks_ref(torch.from_numpy(keys.reshape(-1)),
+                                torch.from_numpy(splitters[: p.nb - 1]), C)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         got.numpy(), [np.searchsorted(k, splitters[: p.nb - 1]) for k in keys])
@@ -245,8 +247,8 @@ def test_cpu_wrappers_count_plain_calls():
     rng = np.random.default_rng(8)
     planes = _torch(_planes(rng, N, "lex2"))
     out = tb.sort_chunks_ascending_cyclic(planes, 2, C, 1024, 2048)
-    tr.chunk_histograms(planes[0], 24, C)
-    tm.splitter_ranks(out[0], torch.tensor([0, 5], dtype=torch.int32), C)
+    trs.rank_runs(*trs.rank_args(out[0], planes[0], trs.plan(N, C), N,
+                                 (1024, 2048), False))
     assert not any(tb.LAUNCHES.values()) and not any(tm.LAUNCHES.values())
     assert not any(tr.LAUNCHES.values())
     assert tb.PLAIN_CALLS["chunk_sort_cyclic_ref"] == 1
