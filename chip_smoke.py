@@ -61,6 +61,17 @@ Phases, one line each (any failure raises and exits nonzero):
           all-equal keys at 2^23 (the overflow
           fallback to the network) and ``tile_histograms`` (K14) at 2^26,
           each window printing its overflow count, every result exact;
+       e. slice 9: BASELINE config 3 eager at 2^30 rows from host memory
+          (``filter_chunked`` + ``groupby_chunked``; rows/s, peak device
+          memory and slab beside the LazyTable query's rate) and
+          ``sort_chunked`` (8 runs of 2^26, and one slab); the distributed
+          sort on an in-process mesh of 8 shards on the one card, 2^28
+          keys (flat with and without overlap, hier, stable and unstable
+          pairs, argsort, ``_auto`` on presorted keys, ragged n on 6
+          shards, all-0xFFFFFFFF keys with payloads), one NCCL rank through
+          ``init_multihost`` / ``sort_sharded_guarded`` at 2^26 and
+          ``dryrun_multichip(8)``: every result exact against torch (or
+          numpy), every rate beside the one-device ``sort``;
   5. timings (CUDA events): every kernel beside its plain version, its bound
      (bytes over 3.35 TB/s or operations over 67 T/s, the larger) and, where
      one PyTorch call computes the same function, that call (the tile
@@ -1104,6 +1115,212 @@ def example_path(dev):
           lazy="sync guard until collect()", equal_numpy=True)
 
 
+def _timed(fn):
+    """(fn(), host seconds), the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def chunked_path(dev, card):
+    """Slice 9, the streaming operators: BASELINE config 3 eager at 2^30
+    rows from host memory (``filter_chunked`` + ``groupby_chunked``, slabs
+    of ``chunked.SLAB``) against the plain answer built in slabs on the
+    card, beside the LazyTable query on the same rows; ``sort_chunked`` of
+    5 * 2^26 + 7 keys in slabs of 2^26 (8 runs, three merge levels, a last
+    merge of 2^29 keys) and of one slab (the shortcut through ``sort``),
+    against ``torch.sort``."""
+    from radx_tpu_torch import bench
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import compact as CP
+    from radx_tpu_torch.kernels import segscan as SG
+    from radx_tpu_torch.ops import chunked
+    from radx_tpu_torch.utils import timing
+
+    n30 = 1 << 30
+    table = bench.query_dense_data(n30)
+    ref = bench.query_dense_ref(table)
+    lazy = timing.time_cuda(lambda: bench.run_query_dense(table, "sum"),
+                            iters=1, repeats=3, warmup=1)
+    cols = tuple(table.column(c).cpu().numpy()
+                 for c in ("bucket", "value", "pred"))
+    del table
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with window("config3_eager_chunked_2e30",
+                (*B.RIDER_KERNELS, *CP.KERNELS, *SG.KERNELS)):
+        res, first = _timed(lambda: bench.run_query_chunked(*cols))
+    peak = torch.cuda.max_memory_allocated()
+    g = bench.check_query_chunked(*res, ref)
+    _line("slice", input=f"config3_eager_chunked_n{n30}", kept=res[0],
+          groups=g, equal_reference=True)
+    del res
+    _, secs = _timed(lambda: bench.run_query_chunked(*cols))
+    _line("chunked", what="config 3 eager at 2^30 rows from host memory: "
+          "filter_chunked(pred < 2^31) + groupby_chunked sum by bucket, the "
+          "host mask and the copies included; seconds: a second run by the "
+          "host clock, first_seconds: the window's", rows_per_s=n30 / secs,
+          seconds=secs, first_seconds=first, slab=chunked.SLAB,
+          max_memory_allocated_bytes=peak,
+          lazytable_rows_per_s=n30 / lazy.seconds,
+          lazytable_ms=lazy.seconds * 1e3,
+          lazytable_spread_pct=lazy.spread_pct, **card)
+    del cols, ref
+    _line("chunked", **bench.measure_host_copies())
+
+    n = 5 * (1 << 26) + 7
+    gen = torch.Generator(device=dev).manual_seed(91)
+    keys_dev = bench._randint(-(2**31), 2**31, n, gen).view(torch.uint32)
+    keys = keys_dev.cpu().numpy()
+    for name, m, slab in (("sort_chunked_8_runs_2e26_slabs", n, 1 << 26),
+                          ("sort_chunked_one_slab", (1 << 26) - 5, 1 << 26)):
+        with window(name, B.KEY_KERNELS):
+            got, secs = _timed(lambda: chunked.sort_chunked(keys[:m],
+                                                            slab=slab))
+        want = bench.torch_sort_u32(keys_dev[:m])
+        ok = got.dtype == np.uint32 and torch.equal(
+            torch.from_numpy(got).to(dev).view(torch.int32), _i32(want))
+        _line("chunked", window=name, n=m, slab=slab, keys_per_s=m / secs,
+              seconds=secs, equal_torch_sort=ok, **card)
+        if not ok:
+            _fail(f"sort_chunked ({name}) differs from torch.sort")
+        del got, want
+    del keys, keys_dev
+    torch.cuda.empty_cache()
+
+
+def dist_path(dev, card):
+    """Slice 9, the distributed sort (``parallel/``): the in-process mesh
+    of 8 shards on the one card, 2^28 keys in all (flat with and without
+    overlap, hier 4 x 2, stable and unstable pairs on keys below 2^16,
+    argsort, ``sort_sharded_auto`` on presorted keys, ragged n on 6
+    shards, all-0xFFFFFFFF keys with payloads through
+    ``sort_pairs_sharded_auto``), each against torch; then one NCCL rank
+    through ``init_multihost`` -> ``shard_global`` ->
+    ``sort_sharded_guarded`` -> ``allgather_result`` at 2^26 keys, and
+    ``dryrun_multichip(8)``.  The shards share one card, so no rate here
+    says anything about scaling."""
+    import torch.distributed as dist
+
+    from radx_tpu_torch import bench, sort
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.parallel import Mesh, dryrun_multichip, multihost
+    from radx_tpu_torch.parallel import dist_sort as DS
+
+    n28 = 1 << 28
+    gen = torch.Generator(device=dev).manual_seed(92)
+    keys = bench._randint(-(2**31), 2**31, n28, gen).view(torch.uint32)
+    want = bench.torch_sort_u32(keys)
+    sort(keys)
+    _, t_single = _timed(lambda: sort(keys))
+    mesh8 = Mesh([dev] * 8)
+
+    def rows_equal(rows, valid, expect):
+        v = valid.tolist()
+        got = torch.cat([_i32(rows[d, : v[d]]) for d in range(len(v))])
+        return got.numel() == expect.numel() and torch.equal(got, _i32(expect))
+
+    def drive(name, required, n, fn, check):
+        """The path once in its window (checked by ``check(out) -> (ok,
+        fields)``), then once more by the host clock, warm."""
+        with window(name, required):
+            out, first = _timed(fn)
+        ok, extra = check(out)
+        del out
+        _, secs = _timed(fn)
+        _line("dist", window=name, n=n, keys_per_s=n / secs, seconds=secs,
+              first_seconds=first,
+              single_device_sort_keys_per_s_n2e28=n28 / t_single,
+              equal_reference=ok, note="the shards share one card: no "
+              "scaling can be read from this rate", **extra, **card)
+        if not ok:
+            _fail(f"{name} differs from the torch reference")
+
+    def keys_ok(expect):
+        return lambda o: (not o[2].any() and rows_equal(o[0], o[1], expect),
+                          {})
+
+    for name, kw in (("dist_sort_flat_overlap_8x2e25", {}),
+                     ("dist_sort_flat_no_overlap_8x2e25", {"overlap": False}),
+                     ("dist_sort_hier_4x2_8x2e25", {"exchange": "hier"})):
+        drive(name, B.KEY_KERNELS, n28,
+              lambda: DS.sort_sharded(keys, mesh8, **kw), keys_ok(want))
+
+    pk = bench._randint(0, 1 << 16, n28, gen)
+    pv = bench._randint(-(2**31), 2**31, n28, gen)
+    order = torch.sort(pk, stable=True).indices
+    want_k, want_v = pk[order], pv[order]
+    pk = pk.view(torch.uint32)
+    for stable in (True, False):
+        drive(f"dist_sort_pairs_{'stable' if stable else 'unstable'}_8x2e25",
+              _lex(3), n28,
+              lambda: DS.sort_pairs_sharded(pk, pv, mesh8, stable=stable),
+              lambda o: (not o[3].any() and rows_equal(o[0], o[2], want_k)
+                         and rows_equal(o[1], o[2], want_v), {}))
+    drive("dist_argsort_8x2e25", _lex(2), n28,
+          lambda: DS.argsort_sharded(pk, mesh8),
+          lambda o: (not o[3].any() and rows_equal(o[0], o[2], want_k)
+                     and rows_equal(o[1], o[2], order.to(torch.int32)), {}))
+    del pk, pv, order, want_k, want_v
+    drive("dist_sort_auto_presorted_8x2e25", B.KEY_KERNELS, n28,
+          lambda: DS.sort_sharded_auto(want, mesh8),
+          lambda o: (o[2] > 2 and rows_equal(o[0], o[1], want),
+                     {"capacity_used": o[2]}))
+    nr = n28 - 12345
+    drive("dist_sort_ragged_6_shards", B.KEY_KERNELS, nr,
+          lambda: DS.sort_sharded(keys[:nr], Mesh([dev] * 6)),
+          keys_ok(bench.torch_sort_u32(keys[:nr])))
+    del keys, want
+    torch.cuda.empty_cache()
+
+    nf = 1 << 26
+    fk = torch.full((nf,), -1, dtype=torch.int32, device=dev).view(torch.uint32)
+    fv = torch.arange(nf, dtype=torch.int32, device=dev)
+    drive("dist_sort_pairs_all_ffffffff_8x2e23", _lex(3), nf,
+          lambda: DS.sort_pairs_sharded_auto(fk, fv, mesh8),
+          lambda o: (rows_equal(o[0], o[2], fk) and rows_equal(o[1], o[2], fv),
+                     {"capacity_used": o[3]}))
+    del fk, fv
+    torch.cuda.empty_cache()
+
+    n26 = 1 << 26
+    host = np.random.default_rng(93).integers(0, 2**32, n26, dtype=np.uint32)
+    expect = bench.torch_sort_u32(torch.from_numpy(host).to(dev)).cpu().numpy()
+    multihost.init_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             [dev.index or 0])
+    try:
+        mesh = multihost.global_mesh()
+
+        def group_sort():
+            shard = multihost.shard_global(host, mesh)
+            out = multihost.sort_sharded_guarded(shard, mesh)
+            return [multihost.allgather_result(x) for x in out]
+
+        drive("dist_sort_nccl_one_rank_2e26", B.KEY_KERNELS, n26, group_sort,
+              lambda o: (not o[2].any()
+                         and np.array_equal(DS.collect(o[0], o[1]), expect),
+                         {"backend": dist.get_backend(),
+                          "world_size": dist.get_world_size()}))
+    finally:
+        dist.destroy_process_group()
+    del host, expect
+    with window("dryrun_multichip_8", (*B.KEY_KERNELS, "chunk_sort/lex3",
+                                       "finish/lex3")):
+        _, secs = _timed(lambda: dryrun_multichip(8, dev))
+    _line("dist", window="dryrun_multichip_8", seconds=secs, ok=True, **card)
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1531,6 +1748,11 @@ def main():
 
     # -- 4d. slice 4: strategy="radix" ----------------------------------------
     radix_path(dev)
+    _line("elapsed", seconds=time.perf_counter() - t_start)
+
+    # -- 4e. slice 9: the streaming operators and the distributed sort --------
+    chunked_path(dev, card)
+    dist_path(dev, card)
     _line("elapsed", seconds=time.perf_counter() - t_start)
 
     # -- 5. timings ------------------------------------------------------------

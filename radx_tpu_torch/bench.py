@@ -30,6 +30,12 @@ plain torch reference on the card):
     its own size through ``LazyTable``: ``filter(pred < 2^31)`` then
     ``groupby(bucket, value, "sum", bins=256)`` over 2^30 rows, one host
     sync;
+  * ``query_filter_groupby_chunked_rows_per_s_n2e30`` — the same query
+    eager from host memory (``python -m radx_tpu_torch.bench chunked``, at
+    slabs of 2^28, 2^29 and 2^30 with the peak device memory of each):
+    ``filter_chunked(pred < 2^31, [bucket, value])`` then
+    ``groupby_chunked`` sum by bucket, the mask made on the host and the
+    transfers included, one run by the host clock;
   * ``sort_radix_u32_keys_per_s_n2e26`` / ``_n2e28`` — ``sort`` under
     ``SortConfig(strategy="radix")`` on the permutation keys (the
     ``sort_radix_64m`` / ``_268m`` rows of the JAX ``bench_suite``), gated on
@@ -62,6 +68,7 @@ import torch
 
 from radx_tpu_torch.config import SortConfig
 from radx_tpu_torch.kernels import bitonic, compact, msd, radix_sort, segscan
+from radx_tpu_torch.ops import chunked
 from radx_tpu_torch.ops.filter import filter_columns
 from radx_tpu_torch.ops.groupby import groupby
 from radx_tpu_torch.ops.sort import argsort, sort, sort_pairs
@@ -410,6 +417,65 @@ def measure_query_dense(n: int = 1 << 30, cfg: SortConfig | None = None,
                          repeats=3, warmup=1)
     return _row(f"query_filter_groupby_dense_rows_per_s_{_name(n)}", n, t,
                 groups=g)
+
+
+def query_chunked_data(n: int, seed: int = 13):
+    """The dense query's table (``query_dense_data``) in host memory, as
+    the streaming operators take it: (bucket, value, pred) numpy columns,
+    and the plain answer built in slabs on the card (``query_dense_ref``).
+    Nothing of it stays on the card."""
+    table = query_dense_data(n, seed)
+    ref = query_dense_ref(table)
+    cols = tuple(table.column(c).cpu().numpy()
+                 for c in ("bucket", "value", "pred"))
+    del table
+    torch.cuda.empty_cache()
+    return cols, ref
+
+
+def run_query_chunked(bucket, value, pred, slab: int = chunked.SLAB,
+                      cfg=None):
+    """Config 3 eager on host columns: ``filter_chunked(pred < 2^31,
+    [bucket, value])`` then ``groupby_chunked`` sum by bucket; returns
+    (kept row count, (keys, sums, num_groups))."""
+    mask = pred.view(np.int32) >= 0  # pred < 2^31
+    (kb, kv), count = chunked.filter_chunked(mask, [bucket, value], cfg, slab)
+    return count, chunked.groupby_chunked(kb, kv, "sum", cfg, slab)
+
+
+def check_query_chunked(count, result, ref):
+    """Hold ``run_query_chunked``'s answer against ``query_dense_ref``;
+    returns the group count."""
+    counts, sums = ref[0].cpu().numpy(), ref[1].cpu().numpy()
+    uk, out, ng = result
+    present = np.flatnonzero(counts)
+    if not (count == int(counts.sum()) and ng == present.size
+            and np.array_equal(uk.astype(np.int64), present)
+            and np.array_equal(out.astype(np.int64), sums[present])):
+        raise AssertionError("the chunked query differs from the torch "
+                             "reference")
+    return ng
+
+
+def measure_query_chunked(n: int = 1 << 30, slab: int = chunked.SLAB,
+                          cfg: SortConfig | None = None, data=None) -> dict:
+    """``query_filter_groupby_chunked_rows_per_s_n2e30``: config 3 eager
+    from host memory (the mask on the host, the slabs to the card and the
+    results back included), one run by the host clock after a warm-up run,
+    with its peak device memory and the slab."""
+    (bucket, value, pred), ref = data or query_chunked_data(n)
+    res = run_query_chunked(bucket, value, pred, slab, cfg)
+    g = check_query_chunked(*res, ref)
+    del res
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_query_chunked(bucket, value, pred, slab, cfg)
+    torch.cuda.synchronize()
+    t = timing.Timing([time.perf_counter() - t0])
+    return _row(f"query_filter_groupby_chunked_rows_per_s_{_name(n)}", n, t,
+                groups=g, slab=slab,
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
 
 
 def _tile_pairs(chunks, finish_max):
@@ -888,6 +954,45 @@ def profile_radix(n: int = 1 << 26, calls: int = 3) -> dict:
                     radix_idle_split)
 
 
+def measure_host_copies(nbytes: int = 1 << 30) -> dict:
+    """GB/s of one copy of ``nbytes`` between host and card: numpy
+    (pageable) memory to the card and back, as the streaming operators
+    copy, and pinned memory for comparison (least of 3 copies each)."""
+    dev = timing.require_cuda()
+    n = nbytes // 4
+    host = np.random.default_rng(0).integers(0, 2**31, n, dtype=np.int32)
+    pinned = torch.from_numpy(host).pin_memory()
+    on_card = torch.from_numpy(host).to(dev)
+
+    def rate(fn):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return nbytes / best / 1e9
+
+    row = {"what": f"host <-> card copies of {nbytes} bytes, GB/s",
+           "pageable_to_card": rate(lambda: torch.from_numpy(host).to(dev)),
+           "card_to_pageable": rate(lambda: on_card.cpu().numpy()),
+           "pinned_to_card": rate(lambda: pinned.to(dev, non_blocking=True)),
+           "card_to_pinned": rate(lambda: pinned.copy_(on_card,
+                                                       non_blocking=True)),
+           "device": timing.device_info()}
+    del pinned, on_card
+    return row
+
+
+def _chunked_slabs() -> list[dict]:
+    """The eager config-3 query at 2^30 rows with slabs of 2^28, 2^29 and
+    2^30: the time and peak device memory that choose ``chunked.SLAB``."""
+    data = query_chunked_data(1 << 30)
+    return [measure_query_chunked(1 << 30, 1 << s, data=data)
+            for s in (28, 29, 30)]
+
+
 MEASURES = {
     "sort": lambda: [measure(N), measure(1 << 26)],
     "groupby": lambda: [measure_groupby()],
@@ -896,6 +1001,7 @@ MEASURES = {
     "pairs": lambda: [measure_sort_pairs()],
     "join": lambda: [measure_join()],
     "dense": lambda: [measure_query_dense()],
+    "chunked": lambda: [measure_host_copies(), *_chunked_slabs()],
     "sweep": lambda: sweep_tiles(),
     "sweep_scan": lambda: sweep_single_pass(),
     "profile": lambda: [profile_sort(1 << 23), profile_sort(), profile_groupby(),

@@ -604,6 +604,15 @@ def merge_slots_ascending(planes, ncmp, chunk, slot, chunk_elems,
     return out
 
 
+def merge_sorted_chunks(x, chunk_elems, finish_elems, rider=None, lex=None):
+    """Merge chunks of ``chunk_elems`` rows, chunk g sorted ascending for
+    even g and descending for odd g (the level invariant of the network),
+    into one ascending sequence in place: only the merge levels above the
+    chunk run."""
+    return _sort_pipeline(x, chunk_elems, finish_elems, presorted=True,
+                          rider=rider, lex=lex)
+
+
 def merge_sorted_runs(x, log_run, chunk_elems, finish_elems, descending=False,
                       rider=None, lex=None):
     """Merge runs of 2^log_run rows, run r sorted ascending for even r and

@@ -1,1 +1,2 @@
-"""Utilities: CUDA-event timing (timing.py)."""
+"""Utilities: CUDA-event timing (timing.py); the watchdog and deterministic
+retry around device steps (guard.py)."""

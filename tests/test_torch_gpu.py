@@ -499,3 +499,86 @@ def test_radix_sort_matches_torch_sort(cuda, n):
     assert torch.equal(sort(same, RADIX).view(torch.int32),
                        same.view(torch.int32))  # overflow: the network
     assert tm.LAUNCHES["radix_rank"] == 1 and tm.LAUNCHES["radix_concat"] == 0
+
+
+# --- slice 9: the streaming operators and the in-process mesh ----------------
+
+from radx_tpu_torch.kernels import compact as tcp  # noqa: E402
+from radx_tpu_torch.kernels import segscan as tsg  # noqa: E402
+from radx_tpu_torch.ops import chunked as tch  # noqa: E402
+from radx_tpu_torch.parallel import Mesh, dist_sort as tds  # noqa: E402
+
+SLAB9 = 1 << 16
+N9 = 5 * SLAB9 + 7
+
+
+def _reset_all():
+    for m in (tb, tcp, tsg):
+        m.reset_counts()
+
+
+def _no_plain_calls():
+    return not any(v for m in (tb, tcp, tsg) for v in m.PLAIN_CALLS.values())
+
+
+def test_chunked_ops_match_torch(cuda):
+    """filter_chunked, groupby_chunked (recursive merge) and sort_chunked
+    (8 runs) on the card, against torch; the network, compaction and scan
+    kernels launched, no plain version called."""
+    rng = np.random.default_rng(91)
+    keys = rng.integers(0, 2**32, N9, dtype=np.uint32)
+    vals = rng.integers(0, 2**32, N9, dtype=np.uint32)
+    mask = keys.view(np.int32) >= 0
+    _reset_all()
+    (fk, fv), count = tch.filter_chunked(mask, [keys, vals], slab=SLAB9)
+    gk = (keys & 63).astype(np.uint32)
+    uk, sums, ng = tch.groupby_chunked(gk, vals, "sum", slab=SLAB9)
+    got = tch.sort_chunked(keys, slab=SLAB9)
+    torch.cuda.synchronize()
+    assert _no_plain_calls()
+    assert tb.LAUNCHES["chunk_sort/rider"] and tb.LAUNCHES["chunk_sort"]
+    assert tcp.LAUNCHES["compact"] and tsg.LAUNCHES["segscan"]
+    m = torch.from_numpy(mask).to(cuda)
+    kd, vd = (torch.from_numpy(x).to(cuda) for x in (keys, vals))
+    assert count == int(m.sum())
+    assert torch.equal(torch.from_numpy(fk).to(cuda).view(torch.int32),
+                       kd.view(torch.int32)[m])
+    assert torch.equal(torch.from_numpy(fv).to(cuda).view(torch.int32),
+                       vd.view(torch.int32)[m])
+    g = torch.from_numpy(gk.view(np.int32)).to(cuda).long()
+    want = torch.zeros(64, dtype=torch.int64, device=cuda).index_add_(
+        0, g, vd.view(torch.int32).long() & 0xFFFFFFFF) & 0xFFFFFFFF
+    assert ng == 64 and np.array_equal(uk, np.arange(64, dtype=np.uint32))
+    assert np.array_equal(sums.astype(np.int64), want.cpu().numpy())
+    assert torch.equal(torch.from_numpy(got).to(cuda).view(torch.int32),
+                       torch_sort_u32(kd).view(torch.int32))
+
+
+@pytest.mark.parametrize("exchange,overlap", [("flat", True), ("flat", False),
+                                              ("hier", True)])
+def test_in_process_mesh_matches_torch(cuda, exchange, overlap):
+    """The distributed sort on 4 shards of the one card: keys, stable
+    pairs and argsort against torch.sort, network kernels only."""
+    rng = np.random.default_rng(92)
+    n = (1 << 20) - 333
+    keys = torch.from_numpy(rng.integers(0, 1 << 12, n, dtype=np.uint32)).to(cuda)
+    vals = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda)
+    mesh = Mesh([cuda] * 4)
+    _reset_all()
+    out, valid, ovf = tds.sort_sharded(keys, mesh, exchange=exchange,
+                                       overlap=overlap)
+    k, v, pvalid, povf = tds.sort_pairs_sharded(keys, vals, mesh, stable=True,
+                                                exchange=exchange,
+                                                overlap=overlap)
+    ak, idx, avalid, aovf = tds.argsort_sharded(keys, mesh, overlap=overlap)
+    torch.cuda.synchronize()
+    assert _no_plain_calls() and tb.LAUNCHES["chunk_sort"]
+    assert tb.LAUNCHES["chunk_sort/lex3"] and tb.LAUNCHES["chunk_sort/lex2"]
+    assert not (ovf.any() or povf.any() or aovf.any())
+    o = torch.sort(keys.view(torch.int32), stable=True)
+    assert np.array_equal(tds.collect(out, valid), o.values.cpu().numpy())
+    assert np.array_equal(tds.collect(k, pvalid), o.values.cpu().numpy())
+    assert np.array_equal(tds.collect(v, pvalid), vals.view(torch.int32)[
+        o.indices].cpu().numpy().view(np.uint32))
+    assert np.array_equal(tds.collect(idx, avalid),
+                          o.indices.to(torch.int32).cpu().numpy())

@@ -1,6 +1,6 @@
-"""The port imports neither JAX nor Triton and touches no CUDA state when
-imported (it must load on machines without a card, and a test worker that
-imports it must not initialise CUDA)."""
+"""The port imports neither JAX, Triton nor the JAX package (radx_tpu) and
+touches no CUDA state when imported (it must load on machines without a
+card, and a test worker that imports it must not initialise CUDA)."""
 
 import subprocess
 import sys
@@ -23,6 +23,14 @@ MODULES = (
     "radx_tpu_torch.ops.join",
     "radx_tpu_torch.ops.table",
     "radx_tpu_torch.ops.lazy",
+    "radx_tpu_torch.ops.chunked",
+    "radx_tpu_torch.parallel",
+    "radx_tpu_torch.parallel.mesh",
+    "radx_tpu_torch.parallel.dist_sort",
+    "radx_tpu_torch.parallel.multihost",
+    "radx_tpu_torch.parallel.dryrun",
+    "radx_tpu_torch.parallel._worker",
+    "radx_tpu_torch.utils.guard",
     "radx_tpu_torch.examples.query_pipeline",
     "radx_tpu_torch.utils.timing",
     "radx_tpu_torch.bench",
@@ -35,7 +43,8 @@ def test_import_is_backend_free(module):
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
         "import torch\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'triton') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'triton', 'radx_tpu') if m in sys.modules]\n"
+        "bad += [m for m in sys.modules if m.startswith('radx_tpu.')]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised at import'\n"
     )
