@@ -72,10 +72,19 @@ Phases, one line each (any failure raises and exits nonzero):
           ``init_multihost`` / ``sort_sharded_guarded`` at 2^26 and
           ``dryrun_multichip(8)``: every result exact against torch (or
           numpy), every rate beside the one-device ``sort``;
+       f. slice 10: every config of ``radx_tpu_torch.bench_suite`` but
+          ``sort_chunked_1g``, each gated and then timed in a window that
+          requires its op's kernels (one row each with its peak device
+          memory; ``arbn_600m`` with the power-of-two rate beside it), the
+          radix / bitonic A/B of radx_tpu_torch/tools/bench_strategies.py
+          at 2^23 and 2^26, ``tuned()`` (the H100 row of ``TUNING``) and
+          ``utils.timing.trace`` (a Chrome trace that ``json.load`` reads);
   5. timings (CUDA events): every kernel beside its plain version, its bound
      (bytes over 3.35 TB/s or operations over 67 T/s, the larger) and, where
      one PyTorch call computes the same function, that call (the tile
-     engine's kernels with their shared-memory round trips per tile); then
+     engine's kernels with their shared-memory round trips per tile;
+     ``cross_stage<1>`` at the last merge level and ``finish`` on bitonic
+     tiles, each first held equal to ``torch.sort`` of its view); then
      the metrics of radx_tpu_torch/bench.py, the radix ones with the
      bitonic rate beside them, both countings of radix_hist on uniform,
      all-equal and two-valued keys (``bench.sweep_hist``), the breakdowns
@@ -1321,6 +1330,63 @@ def dist_path(dev, card):
     torch.cuda.empty_cache()
 
 
+def suite_path(dev, card):
+    """Slice 10, the measuring surface: every config of
+    ``radx_tpu_torch.bench_suite`` but the host-bound ``sort_chunked_1g``
+    (``DEFAULT_SET``), each gated before it is timed (``bench_suite.run``,
+    three repeats of three calls) in a window of its own that requires the
+    kernels of its op (``Config.kernels``); the strategy A/B of
+    radx_tpu_torch/tools/bench_strategies.py at 2^23 and 2^26; ``tuned()``
+    on the card, which must give the ``TUNING`` row of an H100; and a
+    ``utils.timing.trace`` whose Chrome trace ``json.load`` reads."""
+    import tempfile
+    import pathlib
+
+    from radx_tpu_torch import bench_suite as BS
+    from radx_tpu_torch import config, sort, tuned
+    from radx_tpu_torch.tools import bench_strategies
+    from radx_tpu_torch.utils import timing
+
+    t0 = time.perf_counter()
+    for name in BS.DEFAULT_SET:
+        with window(f"suite_{name}", BS.CONFIGS[name].kernels):
+            m, row = BS.run(name, iters=3, repeats=3)
+        _line("suite", metrics_row=m.row(), **row, **card)
+        if name == "arbn_600m" and not row["decomposition"]:
+            _fail("arbn_600m did not take the arbitrary-N path")
+    _line("suite_phase", configs=len(BS.DEFAULT_SET),
+          seconds=time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    with window("bench_strategies_2e23_2e26", BS.CONFIGS["sort_radix_64m"]
+                .kernels):
+        rows = bench_strategies.run([23, 26], iters=3, repeats=3)
+    for n in (1 << 23, 1 << 26):
+        r = {row["strategy"]: row for row in rows if row["n"] == n}
+        _line("strategies", n=n, radix_ms=r["radix"]["ms"],
+              bitonic_ms=r["bitonic"]["ms"],
+              radix_over_bitonic=r["bitonic"]["ms"] / r["radix"]["ms"],
+              **card)
+    kind = config.device_kind()
+    got = tuned()
+    if kind.startswith("NVIDIA H100") and got != config.SortConfig(
+            **config.TUNING["NVIDIA H100"]):
+        _fail(f"tuned() on {kind} is not the NVIDIA H100 row: {got}")
+    keys = torch.randint(-(2**31), 2**31, (1 << 20,), dtype=torch.int32,
+                         device=dev).view(torch.uint32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        with timing.trace(path):
+            sort(keys)
+        events = json.load(open(path)).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        _fail("the trace holds no kernel event")
+    _line("tools", device_kind=kind, tuned=repr(got), trace_events=len(events),
+          trace_kernel_events=len(kernels),
+          seconds=time.perf_counter() - t1, **card)
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1755,6 +1821,10 @@ def main():
     dist_path(dev, card)
     _line("elapsed", seconds=time.perf_counter() - t_start)
 
+    # -- 4f. slice 10: the benchmark suite and its tools -------------------------
+    suite_path(dev, card)
+    _line("elapsed", seconds=time.perf_counter() - t_start)
+
     # -- 5. timings ------------------------------------------------------------
     rows = {}
 
@@ -1802,17 +1872,37 @@ def main():
                   lambda: B.chunk_sort_ref(x, C), 8 * nx,
                   _cx_ops(nx, log_c * (log_c + 1) // 2, 1), tile_sort(x, C),
                   round_trips=B.round_trips(log_c, 1, log_c, 1))
+        # cross_stage<1> at distance T of the last merge level, where every
+        # block ascends: torch.sort(dim=1) of the (n / 2T, 2, T) view
+        # computes the same function
+        lib_cross = lambda: torch.sort(x.view(-1, 2, T), dim=1)  # noqa: E731
+        y = x.clone()
+        B.cross_stage(y, log_t, 1, log_n)
+        if not torch.equal(y, lib_cross().values.view(-1)):
+            _fail("cross_stage<1> at the last level differs from torch.sort "
+                  "of the (n / 2T, 2, T) view")
         for f in B.CROSS_FUSION:
-            kk = log_t + f
+            kk = log_n if f == 1 else log_t + f
             time_pair(f"cross_stage<{f}>", log_n,
                       lambda f=f, kk=kk: B.cross_stage(x, log_t, f, kk),
                       lambda f=f, kk=kk: B.cross_stage_ref(x, log_t, f, kk),
-                      8 * nx, _cx_ops(nx, f, 1))
-        time_pair("finish", log_n, lambda: B.finish(x, T, log_n),
-                  lambda: B.finish_ref(x, T, log_n), 8 * nx,
-                  _cx_ops(nx, log_t, 1),
+                      8 * nx, _cx_ops(nx, f, 1), lib_cross if f == 1 else None)
+        # finish on tiles that are bitonic (an ascending half, a descending
+        # half), at the last level: it sorts each tile, as torch.sort(dim=1)
+        # of the (n / T, T) view does
+        halves = torch.sort(x.view(-1, 2, T // 2), dim=2).values
+        halves[:, 1] = halves[:, 1].flip(-1)
+        xb = halves.view(-1)
+        y = xb.clone()
+        B.finish(y, T, log_n)
+        if not torch.equal(y, tile_sort(xb, T)().values.view(-1)):
+            _fail("finish on bitonic tiles differs from torch.sort of the "
+                  "tile view")
+        time_pair("finish", log_n, lambda: B.finish(xb, T, log_n),
+                  lambda: B.finish_ref(xb, T, log_n), 8 * nx,
+                  _cx_ops(nx, log_t, 1), tile_sort(xb, T),
                   round_trips=B.round_trips(log_t, log_n, log_n, 1))
-        del x, keys
+        del x, keys, y, xb, halves
 
     log_n = 26
     x = torch.from_numpy(rng.integers(0, 10007, n26).astype(np.int32)).to(dev)

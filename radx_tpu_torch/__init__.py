@@ -18,10 +18,11 @@ builds its CUDA kernels (``csrc/``) with nvcc at their first launch.
     aggregate kernels (``kernels/aggregate.py``);
   * ``Table`` / ``LazyTable`` — the columnar query surface (filter,
     group-by, join, sort, top_k, distinct), eager or with one host sync;
-  * ``SortConfig`` — strategy and shared-memory tile sizes.
+  * ``SortConfig`` — strategy and shared-memory tile sizes; ``DEFAULT``,
+    and ``tuned()``, the tiles measured on the card in use.
 """
 
-from radx_tpu_torch.config import SortConfig  # noqa: F401
+from radx_tpu_torch.config import DEFAULT, SortConfig, tuned  # noqa: F401
 from radx_tpu_torch.ops.distinct import unique  # noqa: F401
 from radx_tpu_torch.ops.filter import filter_columns  # noqa: F401
 from radx_tpu_torch.ops.groupby import groupby, groupby_dense  # noqa: F401

@@ -484,15 +484,34 @@ def _tile_pairs(chunks, finish_max):
     return [(c, f) for c in chunks for f in range(max(c, 13), finish_max + 1)]
 
 
-def sweep_tiles(n: int = 1 << 26):
-    """The chunk x finish tiles of the network at n rows, one row each:
-    keys only (``sort``, chunk 2^12..2^15 x finish 2^13..2^15), the rider
-    sort (``groupby`` sum, up to 2^14: two planes of 2^15 exceed a block's
-    shared memory) and the lexicographic tiles (``stable_*``, stated at two
-    and three planes, up to 2^14): ``argsort`` (lex2), ``sort_pairs``
-    (lex3) and the join's tagged-union sort (lex4, n/2 rows a side)."""
+SWEEP_GROUPS = ("keys", "rider", "lex")  # ``sweep``: the PR 5 sweep
+
+
+def sweep_tiles(n: int = 1 << 26, groups=SWEEP_GROUPS):
+    """The tiles of the network at n rows, one row each, every result first
+    gated on a torch reference.  ``groups``:
+
+      * ``keys``: ``sort`` on permutation keys, chunk 2^12..2^15 x finish
+        2^13..2^15;
+      * ``radix``: the same tiles under ``strategy="radix"`` (its chunk
+        grows from ``chunk_elems``; its phases run on the mode's tiles),
+        gated on the overflow flag too;
+      * ``rider``: ``groupby`` sum (rider tiles, up to 2^14: two planes of
+        2^15 exceed a block's shared memory);
+      * ``lex``: the lexicographic tiles (``stable_*``, stated at two and
+        three planes, up to 2^14): ``argsort`` (lex2), ``sort_pairs``
+        (lex3) and the join's tagged-union sort (lex4, n/2 rows a side);
+      * ``lex_wide``: the same tiles under ``sort_multi`` with 3..6
+        payloads (lex5..lex8, whose tiles ``lex_tiles`` halves and
+        quarters);
+      * ``topk``: ``top_k`` (k = 1024, largest) over topk_chunk_elems
+        2^11..2^14 on uniform keys.
+
+    ``radx_tpu_torch/tools/autotune.py`` runs every group and picks the
+    tiles; ``python -m radx_tpu_torch.bench sweep`` the first three."""
     from radx_tpu_torch.ops import join as join_ops
-    from radx_tpu_torch.ops.sort import _encode_keys
+    from radx_tpu_torch.ops.sort import _encode_keys, sort_multi
+    from radx_tpu_torch.ops.topk import top_k
 
     dev = timing.require_cuda()
     rows = []
@@ -502,53 +521,98 @@ def sweep_tiles(n: int = 1 << 26):
         t = timing.time_cuda(fn, iters=3, repeats=3)
         rows.append(_row(f"{metric}_{_name(n)}", n, t, **tiles))
 
-    keys = torch.from_numpy(permutation_keys(n)).to(dev)
-    want = torch_sort_u32(keys).view(torch.int32)
+    if "keys" in groups or "radix" in groups:
+        keys = torch.from_numpy(permutation_keys(n)).to(dev)
+        want = torch_sort_u32(keys).view(torch.int32)
 
-    def check_sort(cfg):
-        if not torch.equal(sort(keys, cfg).view(torch.int32), want):
-            raise AssertionError("sort differs from torch.sort")
+        def check_sort(cfg):
+            msd.reset_counts()
+            if not torch.equal(sort(keys, cfg).view(torch.int32), want):
+                raise AssertionError("sort differs from torch.sort")
+            if cfg.strategy == "radix" and not (
+                    msd.LAUNCHES["radix_rank"] == msd.LAUNCHES["radix_concat"]
+                    == 1):
+                raise AssertionError("the radix sort overflowed")
 
-    for c, f in _tile_pairs((12, 13, 14, 15), 15):
-        cfg = SortConfig(chunk_elems=1 << c, finish_elems=1 << f)
-        run("sort_u32_keys_per_s", lambda: sort(keys, cfg),
-            lambda: check_sort(cfg), chunk_elems=1 << c, finish_elems=1 << f)
-    del keys, want
-    gk, gv = groupby_data(n)
-    for c, f in _tile_pairs((12, 13, 14), 14):
-        cfg = SortConfig(rider_chunk_elems=1 << c, rider_finish_elems=1 << f)
-        run("groupby_sum_rows_per_s", lambda: groupby(gk, gv, "sum", cfg),
-            lambda: _check_groups(*groupby(gk, gv, "sum", cfg), gk, gv),
-            rider_chunk_elems=1 << c, rider_finish_elems=1 << f)
-    del gk, gv
-    keys, payload = pairs_data(n)
-    order = torch.sort(keys.view(torch.int32), stable=True).indices
-    want = torch_sort_pairs(keys, payload)[1].view(torch.int32)
-    bk, bv, pk, pv = join_data(n // 2, n // 2)
-    for c, f in _tile_pairs((12, 13, 14), 14):
-        cfg = SortConfig(stable_chunk_elems=1 << c,
-                         stable_finish_elems=1 << f)
-        tiles = {"stable_chunk_elems": 1 << c, "stable_finish_elems": 1 << f}
+        for strategy in [g for g in ("keys", "radix") if g in groups]:
+            name = "sort_radix" if strategy == "radix" else "sort"
+            for c, f in _tile_pairs((12, 13, 14, 15), 15):
+                cfg = SortConfig(chunk_elems=1 << c, finish_elems=1 << f,
+                                 strategy="radix" if strategy == "radix"
+                                 else "bitonic")
+                run(f"{name}_u32_keys_per_s", lambda: sort(keys, cfg),
+                    lambda: check_sort(cfg), chunk_elems=1 << c,
+                    finish_elems=1 << f)
+        del keys, want
+    if "rider" in groups:
+        gk, gv = groupby_data(n)
+        for c, f in _tile_pairs((12, 13, 14), 14):
+            cfg = SortConfig(rider_chunk_elems=1 << c,
+                             rider_finish_elems=1 << f)
+            run("groupby_sum_rows_per_s", lambda: groupby(gk, gv, "sum", cfg),
+                lambda: _check_groups(*groupby(gk, gv, "sum", cfg), gk, gv),
+                rider_chunk_elems=1 << c, rider_finish_elems=1 << f)
+        del gk, gv
+    if "lex" in groups or "lex_wide" in groups:
+        keys, payload = pairs_data(n)
+        order = torch.sort(keys.view(torch.int32), stable=True).indices
+        want = torch_sort_pairs(keys, payload)[1].view(torch.int32)
+        bk, bv, pk, pv = join_data(n // 2, n // 2)
+        pays = ([_randint(-(2**31), 2**31, n, _generator(29))
+                 for _ in range(6)] if "lex_wide" in groups else [])
+        for c, f in _tile_pairs((12, 13, 14), 14):
+            cfg = SortConfig(stable_chunk_elems=1 << c,
+                             stable_finish_elems=1 << f)
+            tiles = {"stable_chunk_elems": 1 << c,
+                     "stable_finish_elems": 1 << f}
 
-        def check_argsort():
-            if not torch.equal(argsort(keys, cfg).long(), order):
-                raise AssertionError("argsort differs from torch.sort")
+            def check_argsort():
+                if not torch.equal(argsort(keys, cfg).long(), order):
+                    raise AssertionError("argsort differs from torch.sort")
 
-        def check_pairs():
-            got = sort_pairs(keys, payload, cfg)[1].view(torch.int32)
-            if not torch.equal(got, want):
-                raise AssertionError("sort_pairs differs from torch.sort")
+            def check_pairs():
+                got = sort_pairs(keys, payload, cfg)[1].view(torch.int32)
+                if not torch.equal(got, want):
+                    raise AssertionError("sort_pairs differs from torch.sort")
 
-        def union():
-            return join_ops.tagged_union(_encode_keys(bk), bv,
-                                         _encode_keys(pk), pv, cfg)
+            def check_multi(m):
+                _, got = sort_multi(keys, pays[:m], cfg)
+                if not all(torch.equal(g, p[order])
+                           for g, p in zip(got, pays)):
+                    raise AssertionError(f"sort_multi ({m} payloads) differs "
+                                         "from torch.sort")
 
-        run("argsort_rows_per_s", lambda: argsort(keys, cfg), check_argsort,
-            **tiles)
-        run("sort_pairs_u32_pairs_per_s", lambda: sort_pairs(keys, payload,
-                                                              cfg),
-            check_pairs, **tiles)
-        run("join_union_sort_rows_per_s", union, lambda: None, **tiles)
+            def union():
+                return join_ops.tagged_union(_encode_keys(bk), bv,
+                                             _encode_keys(pk), pv, cfg)
+
+            if "lex" in groups:
+                run("argsort_rows_per_s", lambda: argsort(keys, cfg),
+                    check_argsort, **tiles)
+                run("sort_pairs_u32_pairs_per_s",
+                    lambda: sort_pairs(keys, payload, cfg), check_pairs,
+                    **tiles)
+                run("join_union_sort_rows_per_s", union, lambda: None,
+                    **tiles)
+            for m in range(3, 7) if "lex_wide" in groups else ():
+                run(f"sort_multi_{m}_payloads_rows_per_s",
+                    lambda m=m: sort_multi(keys, pays[:m], cfg),
+                    lambda m=m: check_multi(m), planes=2 + m, **tiles)
+        del keys, payload, order, want, bk, bv, pk, pv, pays
+    if "topk" in groups:
+        keys = _randint(-(2**31), 2**31, n, _generator(31)).view(torch.uint32)
+        order = torch.sort(keys.view(torch.int32) ^ _SIGN, descending=True,
+                           stable=True).indices[:1024]
+        for c in range(11, 15):
+            cfg = SortConfig(topk_chunk_elems=1 << c)
+
+            def check_topk():
+                if not torch.equal(top_k(keys, 1024, True, cfg)[1].long(),
+                                   order):
+                    raise AssertionError("top_k differs from torch.sort")
+
+            run("top_k_k1024_keys_per_s", lambda: top_k(keys, 1024, True, cfg),
+                check_topk, topk_chunk_elems=1 << c)
     return rows
 
 

@@ -29,6 +29,11 @@ take any size.  The relational paths have tiles of their own:
   * ``scan_elems`` — rows per tile (one block) of the single-pass
     segmented scan.
 
+``TUNING`` holds the tiles measured on each kind of card, keyed by a
+prefix of its name; ``tuned()`` is ``SortConfig`` with the row of the card
+in use (the counterpart of the JAX per-TPU table, produced by
+``radx_tpu_torch/tools/autotune.py``).
+
 ``strategy="radix"`` has no tile of its own: its chunk grows from the
 mode's chunk tile (kernels/radix_sort.pick_chunk), as the JAX chunk grows
 from ``chunk_rows`` and its siblings, and its sorts and merges run on the
@@ -38,6 +43,7 @@ mode's tiles (``mode_tiles``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 # One H100 block's dynamic shared memory, in bytes: 2^15 int32 keys of one
 # plane (128 KB) fit, 2^16 (256 KB) do not.
@@ -191,3 +197,51 @@ def config_from_jax(cfg) -> SortConfig:
 
 
 DEFAULT = SortConfig()
+
+# Tiles by card, keyed by a prefix of the name ``device_kind`` returns (the
+# longest matching prefix wins); values override SortConfig fields.  A card
+# with no row runs the SortConfig defaults.
+TUNING: dict[str, dict] = {
+    # radx_tpu_torch/tools/autotune.py at 2^26 keys on one H100 80GB HBM3
+    # at 700 W (PERF.md): no tile beat these, the defaults of PR 5's sweep,
+    # by more than the spread of the repeats.
+    "NVIDIA H100": {"chunk_elems": 1 << 14, "finish_elems": 1 << 14,
+                    "rider_chunk_elems": 1 << 13,
+                    "rider_finish_elems": 1 << 13,
+                    "stable_chunk_elems": 1 << 13,
+                    "stable_finish_elems": 1 << 13,
+                    "topk_chunk_elems": 1 << 13},
+    # CPU runs (the plain PyTorch versions): small tiles make the tests'
+    # small inputs run every pass of the pipeline.
+    "cpu": {"chunk_elems": 256, "finish_elems": 1024,
+            "rider_chunk_elems": 256, "rider_finish_elems": 1024,
+            "stable_chunk_elems": 256, "stable_finish_elems": 1024,
+            "topk_chunk_elems": 256, "compact_elems": 256,
+            "scan_elems": 256},
+}
+
+
+@functools.cache
+def device_kind() -> str:
+    """The name of the current CUDA card (``torch.cuda.get_device_name``),
+    or ``"cpu"`` without CUDA.  Called lazily: importing the package
+    touches no CUDA."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return "cpu"
+    return torch.cuda.get_device_name()
+
+
+def tuned(**overrides) -> SortConfig:
+    """SortConfig for the current card: the longest prefix of
+    ``device_kind()`` in ``TUNING``, then ``overrides``; a card with no
+    row gets the defaults."""
+    kind = device_kind()
+    params: dict = {}
+    for prefix in sorted(TUNING, key=len, reverse=True):
+        if kind.startswith(prefix):
+            params.update(TUNING[prefix])
+            break
+    params.update(overrides)
+    return SortConfig(**params)

@@ -8,10 +8,18 @@ warm-up and reports the least per-call time with the spread of the repeats.
 A repeat that reads zero or less is dropped, never clamped to a tiny
 positive time that would report an absurd rate.  With no CUDA device every
 function here raises: a measurement never falls back to the CPU.
+
+``time_op`` wraps ``time_cuda`` in the JAX package's interface and returns a
+``Metrics`` row (items/s, GB/s, the JAX row format).  The JAX ``time_op``
+chains k applications inside one ``jit`` and reports (t_k - t_1)/(k - 1):
+that defeats XLA's dead-code elimination and a relay's asynchronous
+dispatch, neither of which PyTorch has, so it is not ported.  ``trace``
+records a ``torch.profiler`` trace of the enclosed calls.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import shutil
 import subprocess
@@ -85,3 +93,59 @@ def time_cuda(fn: Callable[[], object], *, iters: int = 10, repeats: int = 5,
     if not samples:
         raise RuntimeError("every timing repeat read zero or less")
     return Timing(samples)
+
+
+@dataclasses.dataclass
+class Metrics:
+    """One timed operation: least seconds per call, the items and bytes one
+    call processes, and the spread of the repeats (the JAX ``Metrics`` with
+    ``spread_pct`` added)."""
+
+    name: str
+    seconds: float
+    items: int
+    bytes_moved: int = 0
+    spread_pct: float = 0.0
+
+    @property
+    def items_per_s(self) -> float:
+        return self.items / self.seconds if self.seconds > 0 else float("inf")
+
+    @property
+    def gbytes_per_s(self) -> float:
+        return self.bytes_moved / self.seconds / 1e9 if self.seconds > 0 else 0.0
+
+    def row(self) -> str:
+        return (
+            f"{self.name:32s} {self.seconds*1e3:9.3f} ms  "
+            f"{self.items_per_s/1e9:8.3f} G items/s  "
+            f"{self.gbytes_per_s:8.1f} GB/s"
+        )
+
+
+def time_op(fn: Callable, x, *, name: str = "op", items: int | None = None,
+            bytes_moved: int = 0, iters: int = 8, repeats: int = 3,
+            warmup: int = 2) -> Metrics:
+    """``Metrics`` of ``fn(x)`` on the card: ``time_cuda`` over
+    back-to-back calls (CUDA events, least of ``repeats`` runs of ``iters``
+    calls).  ``items`` defaults to ``x.numel()`` (give it where ``x`` is
+    not one tensor)."""
+    t = time_cuda(lambda: fn(x), iters=iters, repeats=repeats, warmup=warmup)
+    return Metrics(name=name, seconds=t.seconds,
+                   items=x.numel() if items is None else items,
+                   bytes_moved=bytes_moved, spread_pct=t.spread_pct)
+
+
+@contextlib.contextmanager
+def trace(path):
+    """Profile the enclosed calls (host and CUDA activities) and write a
+    Chrome trace to ``path`` (the counterpart of the JAX ``trace``, which
+    writes an XProf trace); the card is synchronised before the profile
+    stops."""
+    require_cuda()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))

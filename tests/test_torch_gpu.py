@@ -8,13 +8,16 @@ skips tests/conftest.py, which needs JAX for the reference's tests):
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from radx_tpu_torch import SortConfig, sort, sort_any
+from radx_tpu_torch import SortConfig, bench_suite, config, sort, sort_any, tuned
 from radx_tpu_torch.bench import torch_sort_u32
 from radx_tpu_torch.kernels import bitonic as tb
+from radx_tpu_torch.utils import timing
 
 pytestmark = pytest.mark.gpu
 
@@ -582,3 +585,26 @@ def test_in_process_mesh_matches_torch(cuda, exchange, overlap):
         o.indices].cpu().numpy().view(np.uint32))
     assert np.array_equal(tds.collect(idx, avalid),
                           o.indices.to(torch.int32).cpu().numpy())
+
+
+# the benchmark suite's configs at small n (radx_tpu_torch/bench_suite.py):
+# every gate on the card's own output, arbn at a size that takes the
+# arbitrary-N path
+SUITE_N = {"arbn_600m": (1 << 22) + (1 << 20)}
+
+
+@pytest.mark.parametrize("name", list(bench_suite.CONFIGS))
+def test_suite_config_gated(cuda, name):
+    bench_suite.make_and_gate(name, SUITE_N.get(name, 1 << 16), cuda)
+
+
+def test_suite_run_tuned_and_trace(cuda, tmp_path):
+    m, row = bench_suite.run("sort_8m", 1 << 20, iters=2, repeats=2)
+    assert m.seconds > 0 and row["peak_mem_gb"] > 0 and m.items == 1 << 20
+    if config.device_kind().startswith("NVIDIA H100"):
+        assert tuned() == SortConfig(**config.TUNING["NVIDIA H100"])
+    path = tmp_path / "trace.json"
+    with timing.trace(path):
+        sort(torch.arange(1 << 16, dtype=torch.int32, device=cuda).view(
+            torch.uint32))
+    assert json.load(open(path))["traceEvents"]

@@ -34,6 +34,10 @@ MODULES = (
     "radx_tpu_torch.examples.query_pipeline",
     "radx_tpu_torch.utils.timing",
     "radx_tpu_torch.bench",
+    "radx_tpu_torch.bench_suite",
+    "radx_tpu_torch.tools.autotune",
+    "radx_tpu_torch.tools.bench_strategies",
+    "radx_tpu_torch.tools.dryrun_scale",
 )
 
 
