@@ -21,9 +21,10 @@ Phases, one line each (any failure raises and exits nonzero):
      mode (radix chunks of one and of several tiles, slots below, at and
      above the tile, planes not 16-byte aligned), the single-pass
      ``compact`` and ``segscan`` (``single_pass_checks``: bool and int32
-     masks, 1-4 planes, densities 0, 0.5 and 1, offset planes, every op x
-     value dtype and fill with 1-4 planes on 5000 / 7 / 1 groups and
-     all-equal keys, the many-tile cases three times with the same bits,
+     masks, 0-4 planes (0: the count), densities 0, 0.5 and 1, offset
+     planes, every op x value dtype and fill with 1-4 planes on 5000 / 7 /
+     1 groups and all-equal keys, the many-tile cases three times with the
+     same bits,
      the float32 sum bit-equal to the CPU model), the dense aggregates
      (sums for 128 / 256 / 8192 / 65536 bins, extrema for 128 / 256 / 8192)
      at 2^26 rows with a ragged n_valid on uniform, one-key, Zipf and
@@ -79,13 +80,28 @@ Phases, one line each (any failure raises and exits nonzero):
           radix / bitonic A/B of radx_tpu_torch/tools/bench_strategies.py
           at 2^23 and 2^26, ``tuned()`` (the H100 row of ``TUNING``) and
           ``utils.timing.trace`` (a Chrome trace that ``json.load`` reads);
+       g. slice 11 (``last_modules_path``): the count-only filter,
+          ``filter_columns(mask, [])`` at 2^26 and 2^30 (bool and int32
+          masks; ``compact`` with no planes against its plain version, the
+          one-plane count and ``torch.count_nonzero``) and
+          ``filter_chunked(mask, [])`` over three slabs; the scaling model
+          (radx_tpu_torch/tools/scaling_model.py): its rates measured on the
+          card, the exchange audit on 8 shards (flat and 4 x 2 hier: the
+          counted waves, bytes a wave and receive bytes equal to the
+          model's), the calibration line, the model's table and its trace
+          of the 8-shard sort; BASELINE config 1 against the host C++
+          oracle (``radx_tpu_torch.oracle`` / ``.runtime``: 2^26 keys of
+          the three host generators, bit-equal, ``validate_sort`` 0; stable
+          pairs at 2^22); ``utils.debug.interpret_parity`` of ``sort`` at
+          2^20 (card against CPU) and ``checked(sort)`` at 2^26;
   5. timings (CUDA events): every kernel beside its plain version, its bound
      (bytes over 3.35 TB/s or operations over 67 T/s, the larger) and, where
      one PyTorch call computes the same function, that call (the tile
      engine's kernels with their shared-memory round trips per tile;
      ``cross_stage<1>`` at the last merge level and ``finish`` on bitonic
-     tiles, each first held equal to ``torch.sort`` of its view); then
-     the metrics of radx_tpu_torch/bench.py, the radix ones with the
+     tiles, each first held equal to ``torch.sort`` of its view;
+     ``cross_stage<2..4>`` likewise on columns bitonic along the 2^F
+     axis); then the metrics of radx_tpu_torch/bench.py, the radix ones with the
      bitonic rate beside them, both countings of radix_hist on uniform,
      all-equal and two-valued keys (``bench.sweep_hist``), the breakdowns
      by kernel of the keys-only sort (2^23, 2^26), group-by, join, the dense
@@ -682,11 +698,12 @@ def single_pass_checks(dev, cfg, rng):
     ``compact`` (K7) and ``segscan`` (K6), on ragged sizes:
 
     * compact bit-equal to ``compact_ref`` at 2^26 + 4097 rows (16,386
-      tiles) for bool and int32 masks, P = 1..4 planes, densities 0 / 0.01
+      tiles) for bool and int32 masks, P = 0..4 planes (0: the count
+      alone), densities 0 / 0.01
       / 0.5 / 1 (a warp's few kept rows written directly, many staged),
       planes (and mask) aligned and offset by one row (the scalar loads),
       each case three times with the same bits, and a device row limit
-      n_valid;
+      n_valid (P = 0 and 2);
     * segscan bit-equal to ``segscan_ref`` (float32 sums within 1e-5 x the
       run's sum of |v|) for sum / min / max over uint32 / int32 / float32
       and fill with M = 1..4, on 5000 / 7 / 1 groups and all-equal keys
@@ -707,12 +724,12 @@ def single_pass_checks(dev, cfg, rng):
     for density in (0.0, 0.01, 0.5, 1.0):
         keep = torch.from_numpy(rng.random(n + 1) < density).to(dev)
         for kind, mask in (("bool", keep), ("int32", keep.to(torch.int32))):
-            for p in (1, 2, 3, 4):
+            for p in (0, 1, 2, 3, 4):
                 for off in (0, 1):
                     m = mask[off: off + n]
                     ps = [x[off: off + n] for x in planes[:p]]
                     limit = (torch.tensor(n // 3, dtype=torch.int32, device=dev)
-                             if density == 0.5 and p == 2 else None)
+                             if density == 0.5 and p in (0, 2) else None)
                     want, wcount = CP.compact_ref(m, ps, limit)
                     c = int(wcount)
                     runs = [CP.compact(m, ps, cfg.compact_elems,
@@ -720,13 +737,15 @@ def single_pass_checks(dev, cfg, rng):
                     torch.cuda.synchronize()
                     e = max(abs(int(count) - c) + max(
                         [int((o[:c].long() - w[:c].long()).abs().max())
-                         if c else 0 for o, w in zip(outs, want)])
+                         if c else 0 for o, w in zip(outs, want)], default=0)
                         for outs, count in runs)
                     same = all(_bits_equal([r[0][i][:c] for r in runs])
                                for i in range(p))
                     record(list(CP.KERNELS), e, e == 0 and same, n=n,
                            mask=kind, planes=p, density=density, kept=c,
-                           offset_rows=off, tiles=-(-n // CP.TILE),
+                           offset_rows=off, tiles=-(-n // (
+                               CP.TILE if p else CP.COUNT_TILE_BYTES
+                               // m.element_size())),
                            n_valid=None if limit is None else n // 3,
                            runs=len(runs))
     del planes, keep, mask, m, ps, want
@@ -1387,6 +1406,152 @@ def suite_path(dev, card):
     torch.cuda.empty_cache()
 
 
+def last_modules_path(dev, card):
+    """Slice 11, the last modules: the count-only filter (ROADMAP P1), the
+    scaling model of config 5 (``tools/scaling_model``), the host oracle
+    and runtime (BASELINE config 1 against C++ that does not use torch) and
+    ``utils.debug``."""
+    import concurrent.futures
+    import pathlib
+    import tempfile
+
+    from radx_tpu_torch import bench, filter_columns, sort, sort_pairs
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import compact as CP
+    from radx_tpu_torch.ops import chunked
+    from radx_tpu_torch.oracle import native as oracle
+    from radx_tpu_torch import runtime
+    from radx_tpu_torch.tools import scaling_model as SM
+    from radx_tpu_torch.utils import debug, timing
+
+    t0 = time.perf_counter()
+    # -- the count-only filter: compact with no planes ----------------------
+    gen = torch.Generator(device=dev).manual_seed(111)
+    for log_n in (26, 30):
+        n = 1 << log_n
+        m32 = bench._randint(0, 2, n, gen)
+        for kind, mask in (("bool", m32.bool()), ("int32", m32)):
+            want = torch.count_nonzero(mask)
+            with window(f"filter_count_only_{kind}_2e{log_n}", CP.KERNELS):
+                outs, count = filter_columns(mask, [])
+            if outs != [] or count.dtype != torch.int32 or count.dim():
+                _fail("filter_columns(mask, []) must return ([], 0-d int32)")
+            _, ref_count = CP.compact_ref(mask, [])
+            _, one = CP.compact(mask, [m32], CP.TILE)
+            e = abs(int(count) - int(ref_count)) + abs(int(count) - int(one))
+            record(list(CP.KERNELS), e, e == 0 and int(count) == int(want),
+                   n=n, mask=kind, planes=0, kept=int(want),
+                   against="compact_ref and the one-plane count")
+            del outs, count, want, ref_count, one
+        del m32, mask
+        torch.cuda.empty_cache()
+    nc = 3 * (1 << 26) - 7
+    host_mask = np.random.default_rng(112).integers(0, 2, nc, dtype=np.int32)
+    with window("filter_chunked_count_only_3_slabs", CP.KERNELS):
+        outs, total = chunked.filter_chunked(host_mask, [], slab=1 << 26)
+    want = int(np.count_nonzero(host_mask))
+    _line("slice", input=f"filter_chunked_count_only_n{nc}", slabs=3,
+          count=total, equal_reference=outs == [] and total == want)
+    if outs != [] or total != want:
+        _fail("filter_chunked(mask, []) differs from numpy's count")
+    del host_mask
+    t_p1 = time.perf_counter() - t0
+
+    # -- the scaling model: rates, audit, calibration, table, trace -------------
+    t1 = time.perf_counter()
+    with window("scaling_model_rates", B.KEY_KERNELS):
+        rates = SM.measure_rates(dev)
+    _line("scaling_rates", sort_gkeys_per_s={str(k): v for k, v in
+                                             rates["sort"].items()},
+          merge_level_gkeys_per_s=rates["merge_per_level"], **card)
+    for exchange in ("flat", "hier"):
+        with window(f"scaling_model_audit_{exchange}_8x2e23", B.KEY_KERNELS):
+            a = SM.audit(8, SM.DEFAULT_L, exchange, device=dev)
+        _line("scaling_audit", **a, **card)
+        if not (a["equal"] and a["shards_alike"]):
+            _fail(f"the counted exchange ({exchange}) is not the model's")
+    with window("scaling_model_calibration_8x2e23", B.KEY_KERNELS):
+        cal = SM.calibrate(rates, SM.DEFAULT_L, device=dev)
+    _line("scaling_calibration", **cal, **card)
+    for name, (bw, t_wave) in SM.LINKS.items():
+        _line("scaling_link", link=name, gbytes_per_s=bw,
+              per_wave_s=t_wave, source=SM.LINK_SOURCES[name])
+    for row in SM.table(SM.model(rates), SM.DEFAULT_L):
+        _line("scaling_model", row=row, **card)
+    with tempfile.TemporaryDirectory() as tmp:
+        with window("scaling_model_trace_8x2e15",
+                    ("chunk_sort", "cross_stage<1>", "finish")):
+            path = SM.trace(pathlib.Path(tmp) / "dist_sort_8shard.json",
+                            device=dev)
+        events = json.load(open(path)).get("traceEvents", [])
+    network = [e for e in events if e.get("cat") == "kernel"
+               and ("cross_stage" in e.get("name", "")
+                    or "finish" in e.get("name", ""))]
+    _line("scaling_trace", trace_events=len(events),
+          cross_stage_or_finish_events=len(network))
+    if not network:
+        _fail("the 8-shard trace holds no cross_stage or finish launch")
+    t_model = time.perf_counter() - t1
+
+    # -- BASELINE config 1 against the host C++ oracle ------------------------
+    t2 = time.perf_counter()
+    n26 = 1 << 26
+    gens = {"permutation": lambda: runtime.gen_permutation(n26, seed=1),
+            "uniform": lambda: runtime.gen_uniform(n26, seed=2),
+            "skewed": lambda: runtime.gen_skewed(n26, seed=3)}
+    # the host sorts run in threads (ctypes drops the GIL) beside the card's
+    with concurrent.futures.ThreadPoolExecutor(len(gens)) as pool:
+        keys = dict(zip(gens, pool.map(lambda g: g(), gens.values())))
+        want = {k: pool.submit(oracle.sort_u32, v) for k, v in keys.items()}
+        with window("oracle_config1_2e26", B.KEY_KERNELS):
+            got = {k: sort(torch.from_numpy(v).to(dev)).cpu().numpy()
+                   for k, v in keys.items()}
+        for name in gens:
+            equal = np.array_equal(got[name], want[name].result())
+            valid = runtime.validate_sort(keys[name], got[name])
+            _line("oracle", input=f"{name}_2e26", n=n26,
+                  equal_cpp_oracle=equal, validate_sort=valid)
+            if not equal or valid != 0:
+                _fail(f"sort of {name} keys differs from the C++ oracle")
+    del keys, want, got
+    n22 = 1 << 22
+    pk = runtime.gen_uniform(n22, seed=2)
+    pv = np.arange(n22, dtype=np.uint32)
+    with window("oracle_pairs_2e22", _lex(3)):
+        gk, gv = sort_pairs(torch.from_numpy(pk).to(dev),
+                            torch.from_numpy(pv).to(dev))
+        gk, gv = gk.cpu().numpy(), gv.cpu().numpy()
+    wk, wv = oracle.sort_pairs(pk, pv)
+    ok = np.array_equal(gk, wk) and np.array_equal(gv, wv)
+    _line("oracle", input="pairs_uniform_2e22", n=n22, equal_cpp_oracle=ok,
+          validate_sort=runtime.validate_sort(pk, gk))
+    if not ok:
+        _fail("stable sort_pairs differs from the C++ oracle")
+    t_oracle = time.perf_counter() - t2
+
+    # -- utils.debug -----------------------------------------------------------
+    t3 = time.perf_counter()
+    k20 = np.random.default_rng(113).integers(0, 2**32, 1 << 20,
+                                              dtype=np.uint32)
+    ok, diff = debug.interpret_parity(lambda interpret: sort, k20, device=dev)
+    _line("debug", what="interpret_parity(sort), card against CPU", n=k20.size,
+          ok=ok, max_abs_diff=diff)
+    if not ok or diff != 0:
+        _fail("interpret_parity(sort) found a difference")
+    k26 = bench._randint(-(2**31), 2**31, n26, gen).view(torch.uint32)
+    with window("checked_sort_2e26", B.KEY_KERNELS):
+        got = debug.checked(sort)(k26)
+    same = torch.equal(_i32(got), _i32(sort(k26)))
+    _line("debug", what="checked(sort) against sort", n=n26, equal=same)
+    if not same:
+        _fail("checked(sort) differs from sort")
+    del k26, got
+    torch.cuda.empty_cache()
+    _line("last_modules_phase", p1_seconds=t_p1, model_seconds=t_model,
+          oracle_seconds=t_oracle, debug_seconds=time.perf_counter() - t3,
+          seconds=time.perf_counter() - t0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1825,6 +1990,10 @@ def main():
     suite_path(dev, card)
     _line("elapsed", seconds=time.perf_counter() - t_start)
 
+    # -- 4g. slice 11: count-only filter, scaling model, oracle, debug -----------
+    last_modules_path(dev, card)
+    _line("elapsed", seconds=time.perf_counter() - t_start)
+
     # -- 5. timings ------------------------------------------------------------
     rows = {}
 
@@ -1872,21 +2041,29 @@ def main():
                   lambda: B.chunk_sort_ref(x, C), 8 * nx,
                   _cx_ops(nx, log_c * (log_c + 1) // 2, 1), tile_sort(x, C),
                   round_trips=B.round_trips(log_c, 1, log_c, 1))
-        # cross_stage<1> at distance T of the last merge level, where every
-        # block ascends: torch.sort(dim=1) of the (n / 2T, 2, T) view
-        # computes the same function
-        lib_cross = lambda: torch.sort(x.view(-1, 2, T), dim=1)  # noqa: E731
-        y = x.clone()
-        B.cross_stage(y, log_t, 1, log_n)
-        if not torch.equal(y, lib_cross().values.view(-1)):
-            _fail("cross_stage<1> at the last level differs from torch.sort "
-                  "of the (n / 2T, 2, T) view")
+        # cross_stage<F> at the distances 2^(F-1) T .. T of the last merge
+        # level, where every block ascends, on columns that are bitonic
+        # along the 2^F axis (an ascending half, a descending half): it
+        # sorts each column, as torch.sort(dim=1) of the (n / 2^F T, 2^F,
+        # T) view does
         for f in B.CROSS_FUSION:
+            halves = x.view(-1, 2, 1 << (f - 1), T).clone()
+            halves[:, 0] = torch.sort(halves[:, 0], dim=1).values
+            halves[:, 1] = torch.sort(halves[:, 1], dim=1,
+                                      descending=True).values
+            y = halves.view(-1)
+            want = torch.sort(y.view(-1, 1 << f, T), dim=1).values.view(-1)
+            B.cross_stage(y, log_t, f, log_n)
+            if not torch.equal(y, want):
+                _fail(f"cross_stage<{f}> at the last level differs from "
+                      f"torch.sort of the (n / 2^{f} T, 2^{f}, T) view")
+            del halves, y, want
             kk = log_n if f == 1 else log_t + f
             time_pair(f"cross_stage<{f}>", log_n,
                       lambda f=f, kk=kk: B.cross_stage(x, log_t, f, kk),
                       lambda f=f, kk=kk: B.cross_stage_ref(x, log_t, f, kk),
-                      8 * nx, _cx_ops(nx, f, 1), lib_cross if f == 1 else None)
+                      8 * nx, _cx_ops(nx, f, 1),
+                      lambda f=f: torch.sort(x.view(-1, 1 << f, T), dim=1))
         # finish on tiles that are bitonic (an ascending half, a descending
         # half), at the last level: it sorts each tile, as torch.sort(dim=1)
         # of the (n / T, T) view does
@@ -1968,6 +2145,14 @@ def main():
               lambda: CP.compact_ref(bmask, [col]),
               bench.compact_bytes(bmask, [col]), n26,
               lambda: torch.masked_select(col, bmask))
+    # with no planes (the count-only filter); its library call counts too
+    for name, m in (("compact/count_only", mask),
+                    ("compact/count_only_bool_mask", bmask)):
+        time_pair(name, log_n,
+                  lambda m=m: CP.compact(m, [], cfg.compact_elems),
+                  lambda m=m: CP.compact_ref(m, []),
+                  m.numel() * m.element_size(), n26,
+                  lambda m=m: torch.count_nonzero(m))
     skeys = torch.from_numpy(np.sort(rng.integers(0, 10007, n26).astype(
         np.uint32)).view(np.int32)).to(dev)
     last = torch.ones(n26, dtype=torch.bool, device=dev)

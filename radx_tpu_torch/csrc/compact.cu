@@ -3,7 +3,8 @@
 // stitch after it (compact_flat, :229-243), in one pass.
 //
 // Input: a mask of n rows, one byte (bool / uint8) or four (int32) a row,
-// nonzero = keep, and P int32 planes of n rows (P <= kMaxPlanes); with
+// nonzero = keep, and P int32 planes of n rows (0 <= P <= kMaxPlanes: with
+// none, only the count, for a COUNT(*) ... WHERE; see count_kernel); with
 // n_valid (a 0-d int32 on the card: LazyTable's row count) only the rows
 // below it may be kept, read on the device, so no host sync.  Output:
 // P planes of n rows whose first `count` rows are the kept rows in their
@@ -41,6 +42,11 @@
 // plane's vector only where one of its four rows is kept, and each kept row
 // is written once; the status words are one 8-byte word a tile.  Offsets
 // are 64-bit.
+//
+// With no planes the same pass runs on tiles of 64 KiB of mask (16,384
+// int32 rows, 65,536 one-byte rows) instead of 4096 rows: no row is ranked
+// or written, so a thread counts sixteen 16-byte vectors, and a tile's
+// fixed chain (claim, look-back) is paid on 4x / 16x fewer tiles.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -57,6 +63,8 @@ constexpr unsigned long long kFlagP = 2ull << 62;
 constexpr unsigned long long kCount = kFlagA - 1;
 // kept rows of a warp from which it writes through shared memory
 constexpr int kStageMin = 32;
+// 16-byte mask vectors a thread in the count-only pass: 64 KiB a tile
+constexpr int kCountVecs = 16;
 
 struct Planes {
   const int* in[kMaxPlanes];
@@ -93,6 +101,46 @@ __device__ __forceinline__ unsigned keep4(const void* mask, int64_t r,
     }
   }
   return bits;
+}
+
+// Nonzero bytes of a 32-bit word: bit 7 of a byte is set by the carry of
+// its low seven bits plus 0x7F, or by its own top bit.
+__device__ __forceinline__ int nonzero_bytes(unsigned w) {
+  return __popc((((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u);
+}
+
+// Kept rows among the 16 / MB rows of one 16-byte vector of the mask at row
+// r (a multiple of 16 / MB), those at or past lim not counted.  vec: all
+// of them are below lim and the mask's base is 16-byte aligned.
+template <int MB>
+__device__ __forceinline__ int count16(const void* mask, int64_t r,
+                                       int64_t lim, bool vec) {
+  if (vec) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const uint8_t*>(mask) + r * MB));
+    if constexpr (MB == 4) {
+      return (v.x != 0) + (v.y != 0) + (v.z != 0) + (v.w != 0);
+    } else {
+      return nonzero_bytes(v.x) + nonzero_bytes(v.y) + nonzero_bytes(v.z) +
+             nonzero_bytes(v.w);
+    }
+  }
+  int c = 0;
+#pragma unroll
+  for (int q = 0; q < 16 / MB; ++q) {
+    if (r + q < lim) {
+      c += MB == 4 ? static_cast<const int*>(mask)[r + q] != 0
+                   : static_cast<const uint8_t*>(mask)[r + q] != 0;
+    }
+  }
+  return c;
+}
+
+// Rows at or past the limit are not kept: n, or n_valid clamped to [0, n].
+__device__ __forceinline__ int64_t row_limit(int64_t n, const int* n_valid) {
+  if (n_valid == nullptr) return n;
+  const int64_t v = *n_valid;
+  return v < 0 ? 0 : (v < n ? v : n);
 }
 
 __device__ __forceinline__ int64_t warp_sum(int64_t x) {
@@ -151,12 +199,7 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
   __syncthreads();
   const int64_t t = s_tile;
   const int64_t tiles = (n + kTile - 1) / kTile;
-  // rows at or past lim are not kept
-  int64_t lim = n;
-  if (n_valid != nullptr) {
-    const int64_t v = *n_valid;
-    lim = v < 0 ? 0 : (v < n ? v : n);
-  }
+  const int64_t lim = row_limit(n, n_valid);
   const bool full = (t + 1) * kTile <= lim;
   const int64_t wbase = t * kTile + static_cast<int64_t>(warp) * kWarpRows;
 
@@ -275,6 +318,58 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
   }
 }
 
+// The count alone (no planes): the same tile claim, status words and
+// look-back on tiles of kThreads x kCountVecs 16-byte vectors of the mask
+// (consecutive threads read consecutive vectors); warp 0 publishes the
+// tile's count, walks back, publishes its prefix, and the last tile writes
+// the total.  scratch: the tile counter, then one status word a tile.
+template <int MB>
+__global__ void __launch_bounds__(kThreads) count_kernel(
+    const void* __restrict__ mask, bool vec_mask, int64_t n,
+    const int* __restrict__ n_valid, unsigned long long* __restrict__ scratch,
+    int* __restrict__ count) {
+  constexpr int kRows = 16 / MB;  // rows a vector
+  constexpr int64_t kTile = int64_t{kThreads} * kCountVecs * kRows;
+  __shared__ int64_t s_tile;
+  __shared__ int s_warp_count[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned long long* status = scratch + 1;
+  if (threadIdx.x == 0) s_tile = static_cast<int64_t>(atomicAdd(scratch, 1ull));
+  __syncthreads();
+  const int64_t t = s_tile;
+  const int64_t lim = row_limit(n, n_valid);
+  const bool vec = vec_mask && (t + 1) * kTile <= lim;
+  int c = 0;
+#pragma unroll
+  for (int v = 0; v < kCountVecs; ++v) {
+    c += count16<MB>(mask, t * kTile + (int64_t{v} * kThreads + threadIdx.x) *
+                               kRows, lim, vec);
+  }
+  c = static_cast<int>(warp_sum(c));
+  if (lane == 0) s_warp_count[warp] = c;
+  __syncthreads();
+  if (warp != 0) return;
+  int tile_count = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) tile_count += s_warp_count[w];
+  int64_t prefix = 0;
+  if (t > 0) {
+    if (lane == 0) {
+      StatusRef(status[t]).store(kFlagA | tile_count,
+                                 cuda::memory_order_relaxed);
+    }
+    prefix = look_back(status, t);
+  }
+  if (lane == 0) {
+    StatusRef(status[t]).store(kFlagP | (prefix + tile_count),
+                               cuda::memory_order_relaxed);
+    if (t == (n + kTile - 1) / kTile - 1) {
+      *count = static_cast<int>(prefix + tile_count);
+    }
+  }
+}
+
 struct Args {
   const void* mask;
   bool vec_mask;
@@ -286,13 +381,24 @@ struct Args {
   int* count;
 };
 
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
 template <int P, int MB>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int64_t kTile = kThreads * kItems;
-  const unsigned tiles = static_cast<unsigned>((a.n + kTile - 1) / kTile);
-  compact_kernel<P, MB><<<tiles, kThreads, 0, stream>>>(
-      a.mask, a.vec_mask, a.n, a.n_valid, a.planes, a.vec_planes, a.scratch,
-      a.count);
+  if constexpr (P == 0) {
+    constexpr int64_t kTile = int64_t{kThreads} * kCountVecs * 16 / MB;
+    const unsigned tiles = static_cast<unsigned>((a.n + kTile - 1) / kTile);
+    count_kernel<MB><<<tiles, kThreads, 0, stream>>>(
+        a.mask, aligned(a.mask, 16), a.n, a.n_valid, a.scratch, a.count);
+  } else {
+    constexpr int64_t kTile = kThreads * kItems;
+    const unsigned tiles = static_cast<unsigned>((a.n + kTile - 1) / kTile);
+    compact_kernel<P, MB><<<tiles, kThreads, 0, stream>>>(
+        a.mask, a.vec_mask, a.n, a.n_valid, a.planes, a.vec_planes,
+        a.scratch, a.count);
+  }
   return cudaGetLastError();
 }
 
@@ -305,21 +411,18 @@ cudaError_t by_mask(int mask_bytes, const Args& a, cudaStream_t s) {
   }
 }
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
-
 }  // namespace
 
 extern "C" {
 
 // mask: n rows of mask_bytes (1 or 4) each; n_valid: a device int32 or
-// null; ins / outs: host arrays of num_planes device pointers;
-// scratch: (ceil(n / 4096) + 1) zeroed 64-bit words; count: one int32.
+// null; ins / outs: host arrays of num_planes (0..4) device pointers;
+// scratch: (ceil(n / tile) + 1) zeroed 64-bit words, tile 4096 rows with
+// planes and 65,536 / mask_bytes with none; count: one int32.
 int radx_compact(void* mask, int64_t mask_bytes, int64_t n, void* n_valid,
                  void** ins, void** outs, int64_t num_planes, void* scratch,
                  void* count, void* stream) {
-  if (num_planes < 1 || num_planes > kMaxPlanes || n < 1) {
+  if (num_planes < 0 || num_planes > kMaxPlanes || n < 1) {
     return cudaErrorInvalidValue;
   }
   Args a = {};
@@ -337,6 +440,7 @@ int radx_compact(void* mask, int64_t mask_bytes, int64_t n, void* n_valid,
   const int mb = static_cast<int>(mask_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (num_planes) {
+    case 0: return by_mask<0>(mb, a, s);  // count_kernel: no row written
     case 1: return by_mask<1>(mb, a, s);
     case 2: return by_mask<2>(mb, a, s);
     case 3: return by_mask<3>(mb, a, s);

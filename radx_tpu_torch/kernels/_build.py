@@ -9,6 +9,8 @@ use into ``radx_tpu_torch/_build/`` (git-ignored), named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 loaded as is.  A missing ``nvcc`` or a failed build raises with the
 compiler's output; nothing falls back to another implementation.
+``build_host`` / ``load_host`` do the same with g++ for the host C++ of
+``csrc/host/`` (the oracle and the runtime's generators).
 """
 
 from __future__ import annotations
@@ -99,13 +101,19 @@ def sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(nvcc: str) -> str:
+def _hash(parts) -> str:
+    """16 hex digits of a hash of byte strings (tools, flags, sources)."""
     h = hashlib.sha256()
-    for flag in (nvcc, *NVCC_FLAGS):
-        h.update(flag.encode() + b"\0")
-    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    for part in parts:
+        h.update(part + b"\0")
     return h.hexdigest()[:16]
+
+
+def _digest(nvcc: str) -> str:
+    # the compiler, its flags, the sources and their headers
+    return _hash([*(f.encode() for f in (nvcc, *NVCC_FLAGS)),
+                  *(src.name.encode() + b"\0" + src.read_bytes()
+                    for src in sorted(CSRC.glob("*.cu*")))])
 
 
 def library_path() -> tuple[pathlib.Path, pathlib.Path]:
@@ -141,14 +149,65 @@ def build() -> pathlib.Path:
         obj.unlink(missing_ok=True)
     log.write_text("\n".join(" ".join(cmd) + "\n" + proc.stdout + proc.stderr
                              for cmd, proc in done))
+    return _publish(done, tmp, so, "nvcc")
+
+
+def _publish(done, tmp: pathlib.Path, so: pathlib.Path, tool: str
+             ) -> pathlib.Path:
+    """Raise with the compiler's output if a step of ``done`` ((command,
+    process) pairs) failed, else move the library built at ``tmp`` (a name
+    of this process) to ``so`` in one rename, so that a concurrent build
+    never loads half a file."""
     for _, proc in done:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise BuildError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+                f"{tool} failed ({proc.returncode}):\n{proc.stdout}"
+                f"{proc.stderr}")
     os.replace(tmp, so)
     return so
+
+
+# host C++ (csrc/host/): no -march=native, so that a library built on one
+# host runs on another that loads the same checkout
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
+
+def build_host(source: pathlib.Path) -> pathlib.Path:
+    """Compile one host C++ source (``csrc/host/``) with g++ into a shared
+    library in ``BUILD_DIR`` named by a hash of the source, compiler and
+    flags, unless it exists.  A missing g++ or a failed build raises."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise BuildError(f"g++ not found: {source.name} cannot be built")
+    digest = _hash([*(f.encode() for f in (gxx, *HOST_FLAGS)),
+                    source.read_bytes()])
+    so = BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [gxx, *HOST_FLAGS, str(source), "-o", str(tmp)]
+    return _publish([(cmd, _run(cmd))], tmp, so, "g++")
+
+
+_host_libs: dict[pathlib.Path, ctypes.CDLL] = {}
+
+
+def load_host(source: pathlib.Path, signatures: dict) -> ctypes.CDLL:
+    """The library of one host source, built on first use and bound once
+    per process; ``signatures`` maps each C function to its (argtypes,
+    restype)."""
+    with _lock:
+        lib = _host_libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_host(source)))
+            for name, (argtypes, restype) in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _host_libs[source] = lib
+        return lib
 
 
 def load() -> ctypes.CDLL:

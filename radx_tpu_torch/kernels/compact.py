@@ -1,21 +1,23 @@
 """Stable mask compaction on Hopper — port of radx_tpu/kernels/compact.py.
 
 ``compact(mask, planes, tile_elems)`` moves the rows of P int32 planes (P =
-1..4) whose mask is nonzero (a bool / uint8 or int32 mask, read in its own
+0..4) whose mask is nonzero (a bool / uint8 or int32 mask, read in its own
 dtype) to the front, in their original order, and returns ``(outs,
 count)``: new planes of the input's length whose first ``count`` rows are
 the kept rows (the rest is not part of the result), and ``count`` as a 0-d
-int32 tensor on the planes' device.  Nothing reads the count back to the
-host.
+int32 tensor on the mask's device.  With no planes the pass only counts
+(a ``COUNT(*) ... WHERE``).  Nothing reads the count back to the host.
 
 On a CUDA tensor one kernel of ``radx_tpu_torch/csrc/compact.cu`` runs,
 ``compact``: a single pass over tiles of ``TILE`` rows in which each
 block ranks its kept rows, finds its tile's output offset by a decoupled
 look-back over its predecessors' status words, and writes the kept rows
 there (a warp with many of them through shared memory, one contiguous run
-a plane); the last tile writes the count.  Its scratch (the tile counter and
-one status word a tile) is zeroed by one ``torch.zeros``.  This replaces
-the Pallas per-chunk kernel and its serial ``dynamic_update_slice`` stitch.
+a plane); the last tile writes the count.  With no planes the pass runs on
+tiles of ``COUNT_TILE_BYTES`` of mask and writes no row.  Its scratch (the
+tile counter and one status word a tile) is zeroed by one ``torch.zeros``.
+This replaces the Pallas per-chunk kernel and its serial
+``dynamic_update_slice`` stitch.
 
 On a CPU tensor the plain PyTorch version (boolean indexing) runs.
 ``compact_lookback`` is a pure-torch model of the kernel's pass (tile
@@ -43,6 +45,8 @@ MASK_BYTES = {torch.bool: 1, torch.uint8: 1, torch.int32: 4}
 # the kernel's tile: 256 threads x 16 rows, the least worst of 2^10..2^13
 # over the paths' shapes (PERF.md)
 TILE = 1 << 12
+# with no planes (the count alone) a tile is 64 KiB of mask
+COUNT_TILE_BYTES = 1 << 16
 
 
 def reset_counts() -> None:
@@ -78,8 +82,8 @@ def _validate(mask, planes, tile_elems, n_valid):
     if not ok(mask) or mask.dtype not in MASK_BYTES or mask.numel() == 0:
         raise ValueError("the mask must be a non-empty contiguous 1-D bool, "
                          "uint8 or int32 tensor")
-    if not 1 <= len(planes) <= MAX_PLANES:
-        raise ValueError(f"compact takes 1..{MAX_PLANES} planes")
+    if not 0 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"compact takes 0..{MAX_PLANES} planes")
     for p in planes:
         if (not ok(p) or p.dtype != torch.int32 or p.shape != mask.shape
                 or p.device != mask.device):
@@ -102,8 +106,8 @@ def _ptrs(tensors):
 
 
 def compact(mask, planes, tile_elems, *, n_valid=None):
-    """Stable compaction of int32 ``planes`` by ``mask`` (bool, uint8 or
-    int32; nonzero = keep).  ``n_valid``: a 0-d int32 tensor on the
+    """Stable compaction of int32 ``planes`` (none: the count alone) by
+    ``mask`` (bool, uint8 or int32; nonzero = keep).  ``n_valid``: a 0-d int32 tensor on the
     device; only the rows below it may be kept (LazyTable's count, read by
     the kernel on the card).  ``tile_elems`` is the JAX chunk's counterpart
     and no result depends on it: the kernel's tiles are ``TILE`` rows."""
@@ -112,7 +116,8 @@ def compact(mask, planes, tile_elems, *, n_valid=None):
     if mask.device.type == "cpu":
         return compact_ref(mask, planes, n_valid)
     n = mask.numel()
-    scratch = torch.zeros(-(-n // TILE) + 1, dtype=torch.int64,
+    tile = TILE if planes else COUNT_TILE_BYTES // MASK_BYTES[mask.dtype]
+    scratch = torch.zeros(-(-n // tile) + 1, dtype=torch.int64,
                           device=mask.device)
     count = torch.empty((), dtype=torch.int32, device=mask.device)
     outs = [torch.empty_like(p) for p in planes]

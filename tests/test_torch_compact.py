@@ -70,8 +70,9 @@ def test_compact_counts_plain_calls_and_validates():
     assert outs[0][:2].tolist() == [7, 9] and int(count) == 2
     assert tc.PLAIN_CALLS["compact_ref"] == 1 and not any(tc.LAUNCHES.values())
     x = torch.zeros(3, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        tc.compact(m, [], 1024)
+    # no planes: the count alone (K7's zero-plane case)
+    none, count0 = tc.compact(m, [], 1024)
+    assert none == [] and int(count0) == 2
     with pytest.raises(ValueError):
         tc.compact(m, [x] * 5, 1024)
     with pytest.raises(ValueError):
@@ -111,8 +112,13 @@ def test_filter_columns_edges_and_validation():
     outs, count = filter_columns(torch.zeros(0, dtype=torch.int32),
                                  [torch.zeros(0, dtype=torch.uint32)])
     assert int(count) == 0 and outs[0].numel() == 0
-    with pytest.raises(ValueError, match="at least one column"):
-        filter_columns(torch.tensor([1, 0, 1, 1]), [])
+    # no columns: the count alone (a COUNT(*) ... WHERE), equal to the count
+    # of a one-column call on the same mask
+    mask4 = torch.tensor([1, 0, 1, 1])
+    none, count0 = filter_columns(mask4, [])
+    _, count1 = filter_columns(mask4, [torch.zeros(4, dtype=torch.int32)])
+    assert none == [] and count0.dtype == torch.int32 and count0.dim() == 0
+    assert int(count0) == int(count1) == 3
     with pytest.raises(ValueError, match="match mask"):
         filter_columns(torch.ones(4), [torch.zeros(3, dtype=torch.int32)])
     with pytest.raises(TypeError, match="32-bit"):

@@ -608,3 +608,38 @@ def test_suite_run_tuned_and_trace(cuda, tmp_path):
         sort(torch.arange(1 << 16, dtype=torch.int32, device=cuda).view(
             torch.uint32))
     assert json.load(open(path))["traceEvents"]
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+def test_compact_with_no_planes_counts(cuda, mask_dtype):
+    """K7's zero-plane case (the count-only filter): the count of a launch
+    with no planes equals the plain count and the one-plane launch's."""
+    rng = np.random.default_rng(33)
+    n = (1 << 20) + 4097
+    mask = torch.from_numpy(rng.random(n) < 0.3).to(mask_dtype).to(cuda)
+    plane = torch.arange(n, dtype=torch.int32, device=cuda)
+    _reset_all()
+    outs, count = tc.compact(mask, [], tc.TILE)
+    _, one = tc.compact(mask, [plane], tc.TILE)
+    torch.cuda.synchronize()
+    assert outs == [] and count.dtype == torch.int32 and count.is_cuda
+    assert int(count) == int(one) == int(torch.count_nonzero(mask))
+    assert tc.LAUNCHES["compact"] == 2 and _no_plain_calls()
+    got, c = filter_columns(mask, [])
+    assert got == [] and int(c) == int(count)
+
+
+def test_scaling_model_rates_and_audit(cuda):
+    """The model's rates measured on the card, then the exchange audit on
+    8 shards of the card, flat and hier, and the calibration reading."""
+    from radx_tpu_torch.tools import scaling_model as sm
+
+    rates = sm.measure_rates(cuda)
+    assert set(rates["sort"]) == set(sm.SORT_SIZES)
+    assert all(r > 0 for r in rates["sort"].values())
+    assert rates["merge_per_level"] > 0 and rates["card"]
+    for exchange in ("flat", "hier"):
+        a = sm.audit(8, 1 << 16, exchange, device=cuda)
+        assert a["equal"] and a["shards_alike"], a
+    cal = sm.calibrate(rates, 1 << 16, device=cuda)
+    assert cal["measured_s"] > 0 and cal["modelled_s"] > 0

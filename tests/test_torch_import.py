@@ -1,6 +1,7 @@
-"""The port imports neither JAX, Triton nor the JAX package (radx_tpu) and
-touches no CUDA state when imported (it must load on machines without a
-card, and a test worker that imports it must not initialise CUDA)."""
+"""The port imports neither JAX, Triton, the JAX package (radx_tpu) nor its
+tools (tools/), and touches no CUDA state when imported (it must load on
+machines without a card, and a test worker that imports it must not
+initialise CUDA)."""
 
 import subprocess
 import sys
@@ -38,6 +39,14 @@ MODULES = (
     "radx_tpu_torch.tools.autotune",
     "radx_tpu_torch.tools.bench_strategies",
     "radx_tpu_torch.tools.dryrun_scale",
+    "radx_tpu_torch.tools.scaling_model",
+    "radx_tpu_torch.utils",
+    "radx_tpu_torch.utils.debug",
+    "radx_tpu_torch.oracle",
+    "radx_tpu_torch.oracle.cpu",
+    "radx_tpu_torch.oracle.native",
+    "radx_tpu_torch.runtime",
+    "radx_tpu_torch.runtime.native",
 )
 
 
@@ -49,6 +58,7 @@ def test_import_is_backend_free(module):
         "import torch\n"
         "bad = [m for m in ('jax', 'jaxlib', 'triton', 'radx_tpu') if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m.startswith('radx_tpu.')]\n"
+        "bad += [m for m in sys.modules if m == 'tools' or m.startswith('tools.')]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised at import'\n"
     )
