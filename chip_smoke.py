@@ -34,7 +34,8 @@ Phases, one line each (any failure raises and exits nonzero):
      keys), and K4, K11 (splitters, ranks, run bounds, overflow flag and
      segment tables in one launch), K12, K5, K13 at the radix geometries of
      2^26 keys (keys, rider, lex2, lex3) and 2^28 keys (keys, lex3), K11
-     also on the rider path's n_valid = 3 * 2^24 and on overflowing keys;
+     also on a rider sort's tail of pads (n_valid = 3 * 2^24) and on
+     overflowing keys;
   4. the paths through the public entry points, each in a window of its
      own (``window``): the launch counts are set to 0 just before the path
      and read just after it, and every kernel the path runs must show >= 1
@@ -445,9 +446,9 @@ def radix_checks(dev):
     segment tables), K12, K5 and K13 at the two radix geometries of the main
     path: 2^26 keys (C = 2^19, 128 chunks, slots of 4096, nb_pad 168) in the
     keys, rider, lex2 and lex3 modes, and 2^28 keys (C = 2^19, 512 chunks,
-    slots of 1024) in the keys and lex3 modes; and K11 alone on the rider
-    path's n_valid = 3 * 2^24 (a tail: the last quarter pads, sentinel keys
-    among the valid ones) and on inputs that overflow (all-equal keys, 97
+    slots of 1024) in the keys and lex3 modes; and K11 alone on a rider
+    sort's tail of pads (n_valid = 3 * 2^24: the last quarter pads, sentinel
+    keys among the valid ones) and on inputs that overflow (all-equal keys, 97
     distinct keys) at both geometries."""
     from radx_tpu_torch.kernels import radix as RX
 
@@ -490,8 +491,9 @@ def radix_checks(dev):
 
 
 def _rank_check(dev, n, dist, gen):
-    """K11 alone on one input at the radix geometry of n keys: the rider
-    path's tail (n_valid = 3 n / 4, 1% sentinel keys among the valid ones),
+    """K11 alone on one input at the radix geometry of n keys: a rider
+    sort's tail of pads (n_valid = 3 n / 4, 1% sentinel keys among the valid
+    ones),
     all-equal keys or 97 distinct keys (both overflow); every output
     bit-equal to ``rank_runs_ref``."""
     from radx_tpu_torch import SortConfig
@@ -586,6 +588,7 @@ def radix_path(dev):
     from radx_tpu_torch import bench
     from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.kernels import radix as RX
+    from radx_tpu_torch.ops import sort as S
 
     cfg = SortConfig(strategy="radix")
     gen = torch.Generator(device=dev).manual_seed(51)
@@ -653,14 +656,29 @@ def radix_path(dev):
     if not ok:
         _fail("radix argsort differs from torch.sort(stable=True)")
     del k26, got
-    # 3/4 of 2^26 rows: the rider sort's last quarter is pads (key
-    # 0xFFFFFFFF, n_valid = total), which skip the buckets
-    n_g = n26 - n26 // 4
+    # 15/16 of 2^26 rows, the most pads that the power-of-two rider sort
+    # keeps (below 10%): its last 2^22 rows are pads (key 0xFFFFFFFF,
+    # n_valid = total), which skip the buckets
+    n_g = n26 - n26 // 16
+    if S._use_decomposition(n_g, cfg) or S._pad_len(n_g) != n26:
+        _fail(f"n = {n_g} does not keep the power-of-two rider sort")
     keys, vals = bench.groupby_data(n_g)
-    with window("radix_groupby_sum_3x2e24", radix_required(1, 2)):
+    with window("radix_groupby_sum_15x2e22", radix_required(1, 2)):
         res = groupby(keys, vals, "sum", cfg)
     g = bench._check_groups(*res, keys, vals)
     flag_line(f"radix_groupby_sum_n{n_g}", "rider", groups=g,
+              equal_reference=True)
+    del keys, vals, res
+    # 3/4 of 2^26 rows: the arbitrary-N rider sort (pieces of 2^25 and
+    # 2^24 rows, no pads), its last piece through the distribution sort
+    n_g = n26 - n26 // 4
+    if S._decompose_blocks(n_g, cfg.rider_chunk_elems)[1] != [4096, 2048]:
+        _fail(f"n = {n_g} does not take the arbitrary-N rider sort")
+    keys, vals = bench.groupby_data(n_g)
+    with window("radix_groupby_sum_arbn_3x2e24", radix_required(1, 2)):
+        res = groupby(keys, vals, "sum", cfg)
+    g = bench._check_groups(*res, keys, vals)
+    flag_line(f"radix_groupby_sum_arbn_n{n_g}", "rider", groups=g,
               equal_reference=True)
     del keys, vals, res
 
@@ -1121,6 +1139,50 @@ def sort_path(dev):
     _line("slice", input="top_k_float32_nan", n=n26, k=[1, 100, 10_000],
           equal_reference=True)
     del k26, fkeys, fb, enc, got
+    torch.cuda.empty_cache()
+
+
+def rider_arbn_path(dev):
+    """The group-by of db-benchmark q3's size, 1e8 rows over about 1e6 ids:
+    the rider sort takes the arbitrary-N path (pieces of 2^26 and 2^25 rows,
+    one valley merge: 100,663,296 rows instead of 2^27), then the segmented
+    scan and the run-end compaction.  Sum and count exact against
+    ``torch.unique`` + ``index_add_`` / ``bincount``."""
+    from radx_tpu_torch import SortConfig, groupby
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import compact as CP
+    from radx_tpu_torch.kernels import segscan as SG
+    from radx_tpu_torch.ops import sort as S
+
+    n, cfg = 10**8, SortConfig()
+    blocks, sizes = S._decompose_blocks(n, cfg.rider_chunk_elems)
+    if not S._use_decomposition(n, cfg) or sizes != [8192, 4096]:
+        _fail(f"n = {n} does not take the arbitrary-N rider sort")
+    gen = torch.Generator(device=dev).manual_seed(53)
+    ids = torch.randint(1, 1_000_001, (n,), dtype=torch.int32, generator=gen,
+                        device=dev)
+    v1 = torch.randint(1, 101, (n,), dtype=torch.int32, generator=gen,
+                       device=dev)
+    with window("groupby_rider_arbn_1e8",
+                (*B.RIDER_KERNELS, *SG.KERNELS, *CP.KERNELS)):
+        res = {agg: groupby(ids.view(torch.uint32), v1.view(torch.uint32),
+                            agg, cfg) for agg in ("sum", "count")}
+    want_ids, inv = torch.unique(ids, sorted=True, return_inverse=True)
+    g = want_ids.numel()
+    want = {"sum": torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
+                0, inv, v1.long()),
+            "count": torch.bincount(inv, minlength=g)}
+    for agg, (uk, out, ng) in res.items():
+        ok = (uk.numel() == blocks * cfg.rider_chunk_elems and int(ng) == g
+              and torch.equal(_i32(uk[:g]), want_ids)
+              and torch.equal(_i32(out[:g]).long(), want[agg]))
+        _line("slice", input=f"groupby_{agg}_arbn_1e8", n=n, groups=g,
+              padded_rows=uk.numel(), pow2_rows=S._pad_len(n),
+              equal_reference=bool(ok))
+        if not ok:
+            _fail(f"the arbitrary-N group-by ({agg}) at n = {n} differs "
+                  "from torch.unique + index_add_")
+    del ids, v1, res, want, inv
     torch.cuda.empty_cache()
 
 
@@ -1967,6 +2029,7 @@ def main():
     del key, value, pred, mask, qk, qv, q_res, digits, bvals, bucket, ff, ff_res
     del ik, iv, fk, fv, typed, ukeys, uq
     torch.cuda.empty_cache()
+    rider_arbn_path(dev)
     _line("elapsed", seconds=time.perf_counter() - t_start)
 
     # -- 4c. slice 3: the Table query path, one window per path ---------------

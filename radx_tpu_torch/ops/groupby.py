@@ -14,8 +14,10 @@ compaction of the bins that hold rows.
 Aggregates: sum, count, min, max over uint32 / int32 / float32 values;
 keys are uint32 / int32 / float32 through the order-preserving encodings of
 ``sort_any`` (bin ids, uint32 / int32, for the dense path).  Outputs are
-padded (``_pad_len(n)`` rows, or ``bins``) with ``num_groups`` (a 0-d int32
-tensor on the device) valid rows.
+padded with ``num_groups`` (a 0-d int32 tensor on the device) valid rows:
+``bins`` rows on the dense path; on the sort path the rider sort's length,
+at least n (``_pad_len(n)``, or ``blocks * chunk`` where the arbitrary-N
+rider sort runs).
 """
 
 from __future__ import annotations
@@ -53,8 +55,10 @@ def _groupby(enc: torch.Tensor, values: torch.Tensor, cfg: SortConfig,
     rows below the lazy count ``n_valid``) invalid rows sort as key
     0xFFFFFFFF with the aggregate's neutral rider, like the pads.  The
     all-pad / all-invalid group is dropped unless a valid key is
-    0xFFFFFFFF.  Returns (uint32 keys, aggregates, num_groups), padded to
-    ``_pad_len(n)`` rows."""
+    0xFFFFFFFF: a padded length above the valid rows (``n_valid``, else n)
+    means such rows exist, whatever that length is.  Returns (uint32 keys,
+    aggregates, num_groups), padded to the rider sort's length (at least n
+    rows: ``_pad_len(n)``, or ``blocks * chunk`` on the arbitrary-N path)."""
     n = enc.numel()
     neutral = _NEUTRAL[(agg, values.dtype)]
     if agg == "count":
@@ -86,8 +90,8 @@ def groupby(keys, values, agg: str = "sum", cfg: SortConfig | None = None,
     """Aggregate ``values`` per unique key (uint32 / int32 / float32 keys).
 
     Returns ``(unique_keys, aggregates, num_groups)``: tensors of at least
-    ``len(keys)`` rows (the engine's power-of-two padding) of which the
-    first ``num_groups`` are valid.  Unique keys ascend in the key dtype's
+    ``len(keys)`` rows (the rider sort's padding) of which the first
+    ``num_groups`` are valid.  Unique keys ascend in the key dtype's
     order (float32 keys use the total order -inf < ... < +inf < nan, with
     -0.0 and +0.0 distinct groups).  uint32 / int32 sums wrap mod 2^32;
     float32 sums are added in an order that depends on the input; counts

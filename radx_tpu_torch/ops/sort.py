@@ -1,7 +1,8 @@
 """Single-device sort API over uint32 keys — port of radx_tpu/ops/sort.py.
 
 It owns buffer preparation — the sign bias that maps unsigned order onto
-signed int32 order, the sentinel pads up to a power of two, the index plane
+signed int32 order, the sentinel pads up to a power of two (or, for large
+ragged sizes, to the whole pieces of the arbitrary-N paths), the index plane
 that makes a sort stable — and dispatches to a strategy:
 
   * ``"bitonic"`` (default) — the hand-written CUDA bitonic network
@@ -135,6 +136,15 @@ def _sort_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor:
     return _unbias(plane, n)
 
 
+def _rider_planes(keys: torch.Tensor, payload: torch.Tensor, total: int,
+                  neutral: int):
+    """(sign-biased key plane, rider plane) of ``total`` rows: rows past the
+    keys hold key 0xFFFFFFFF and the rider ``neutral``."""
+    pp = torch.full((total,), neutral, dtype=torch.int32, device=keys.device)
+    pp[: payload.numel()] = payload
+    return _key_plane(keys, total), pp
+
+
 def _sort_rider(keys: torch.Tensor, payload: torch.Tensor, cfg: SortConfig,
                 n: int, neutral: int):
     """Unstable (key, rider) sort over the whole padded array — the port of
@@ -146,13 +156,16 @@ def _sort_rider(keys: torch.Tensor, payload: torch.Tensor, cfg: SortConfig,
     Pads carry key 0xFFFFFFFF and the rider ``neutral`` (an int32 bit
     pattern): they sort into the real 0xFFFFFFFF group, if there is one, so
     the consumer's neutral element keeps that group's aggregate exact.  All
-    ``_pad_len(n)`` rows are real rows here (n_valid = total), so no pad
-    rider is overwritten with a fill.  Returns the full padded (uint32 keys,
-    int32 riders); tied keys' riders come in no set order."""
+    padded rows are real rows here (n_valid = total), so no pad rider is
+    overwritten with a fill.  The padded length is ``_pad_len(n)``, or
+    ``blocks * chunk`` where ``_use_decomposition`` routes to
+    ``_sort_rider_arbn`` (the JAX package always pads to a power of two).
+    Returns the full padded (uint32 keys, int32 riders); tied keys' riders
+    come in no set order."""
+    if _use_decomposition(n, cfg):
+        return _sort_rider_arbn(keys, payload, cfg, n, neutral)
     total = _pad_len(n)
-    kp = _key_plane(keys, total)
-    pp = torch.full((total,), neutral, dtype=torch.int32, device=keys.device)
-    pp[:n] = payload
+    kp, pp = _rider_planes(keys, payload, total, neutral)
     if cfg.strategy == "lax":
         kp, order = torch.sort(kp)
         pp = pp[order]
@@ -176,34 +189,60 @@ def _decompose_blocks(n: int, block_elems: int):
     return blocks, sizes[::-1]
 
 
-def _sort_arbn_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor:
-    """Arbitrary-N sort without pow2 padding blowup.  Pieces of pow2 size
-    (binary decomposition of ceil(n/C), <= 5 pieces) are sorted in place —
-    all but the last descending (every direction bit flipped) — then folded
-    smallest-first through valley merges on virtual-tail bitonic networks
-    (kernels/bitonic.merge_valley_ascending).  Total pad <= n/32 + C.
+def _sort_pieces(planes, sizes, chunk: int, fin: int, cfg: SortConfig,
+                 num_cmp: int):
+    """The arbitrary-N scheme, in place on ``planes`` (any mode): pieces of
+    ``sizes`` blocks of ``chunk`` rows each (largest first) lie back to back;
+    all but the last sort descending (every direction bit flipped) on the
+    network, the last through ``_engine`` (the distribution sort under
+    ``"radix"`` where it plans); then they fold smallest-first through
+    valley merges on virtual-tail bitonic networks
+    (kernels/bitonic.merge_valley_ascending).  Each fold's valley
+    (descending piece ++ ascending merged suffix) is a suffix of the
+    buffer, so every step works in place.  Sentinel pads that spill into
+    the descending pieces are just large keys: the merges push them to the
+    tail."""
+    offsets, off = [], 0
+    for sz in sizes:
+        offsets.append(off)
+        off += sz * chunk
+    *heads, last = [[p[o: o + sz * chunk] for p in planes]
+                    for o, sz in zip(offsets, sizes)]
+    for piece in heads:
+        k, rider, lex = bitonic._keywords(piece, num_cmp)
+        bitonic.sort_planes(k, chunk, fin, True, rider=rider, lex=lex)
+    _engine(last, cfg, num_cmp, last[0].numel())
+    for o in reversed(offsets[:-1]):
+        k, rider, lex = bitonic._keywords([p[o:] for p in planes], num_cmp)
+        bitonic.merge_valley_ascending(k, chunk, fin, rider=rider, lex=lex)
+    return planes
 
-    The pieces lie back to back in one buffer, so each fold's valley
-    (descending piece ++ ascending merged suffix) is a suffix of it: every
-    step works in place."""
+
+def _sort_arbn_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor:
+    """Arbitrary-N sort without pow2 padding blowup: pieces of pow2 size
+    (binary decomposition of ceil(n/C), <= 5 pieces) through
+    ``_sort_pieces``.  Total pad <= n/32 + C."""
     c = cfg.chunk_elems
     blocks, sizes = _decompose_blocks(n, c)
     plane = _key_plane(keys, blocks * c)
-    offsets = []
-    off = 0
-    for idx, sz in enumerate(sizes):
-        piece = plane[off: off + sz * c]
-        if idx == len(sizes) - 1:
-            _engine([piece], cfg, 1, piece.numel())
-        else:
-            # sentinel pads that spill into these pieces are just large
-            # keys: the valley merges push them to the global tail
-            bitonic.sort_planes(piece, c, cfg.finish_elems, descending=True)
-        offsets.append(off)
-        off += sz * c
-    for off in reversed(offsets[:-1]):
-        bitonic.merge_valley_ascending(plane[off:], c, cfg.finish_elems)
+    _sort_pieces([plane], sizes, c, cfg.finish_elems, cfg, 1)
     return _unbias(plane, n)
+
+
+def _sort_rider_arbn(keys: torch.Tensor, payload: torch.Tensor,
+                     cfg: SortConfig, n: int, neutral: int):
+    """Arbitrary-N (key, rider) sort: ``_sort_pieces`` on the two planes of
+    ``_sort_rider``, on the rider tiles.  The pads past n (at most n/32 + C
+    of them) are real rows, as there.  Every exchange, the valley merge's
+    overhang included, swaps the two planes only where the keys are
+    strictly out of order, so no rider leaves its key.  Returns the full
+    (uint32 keys, int32 riders) of ``blocks * chunk`` rows."""
+    chunk, fin = cfg.mode_tiles(2, 1)
+    blocks, sizes = _decompose_blocks(n, chunk)
+    total = blocks * chunk
+    kp, pp = _rider_planes(keys, payload, total, neutral)
+    _sort_pieces([kp, pp], sizes, chunk, fin, cfg, 1)
+    return _unbias(kp, total), pp
 
 
 def _use_decomposition(n: int, cfg: SortConfig) -> bool:
@@ -335,12 +374,11 @@ def _stable_planes(keys: torch.Tensor, payloads, cfg: SortConfig, total: int):
 
 
 def _sort_arbn_stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):
-    """Arbitrary-N stable sort (port of ``_sort_arbn_stable_jit``): the piece
-    + valley-merge scheme of ``_sort_arbn_keys`` on (key, index, payloads)
-    planes.  Pieces other than the last sort descending (every direction
-    flipped); the folds merge ascending.  (key, original index) is a total
-    order, so the result is the unique stable permutation however the input
-    was cut.  Returns the sorted planes (``blocks * chunk`` rows)."""
+    """Arbitrary-N stable sort (port of ``_sort_arbn_stable_jit``):
+    ``_sort_pieces`` on (key, index, payloads) planes.  (key, original
+    index) is a total order, so the result is the unique stable permutation
+    however the input was cut.  Returns the sorted planes (``blocks *
+    chunk`` rows)."""
     chunk, fin = cfg.lex_tiles(2 + len(payloads))
     blocks, sizes = _decompose_blocks(n, chunk)
     total = blocks * chunk
@@ -349,20 +387,7 @@ def _sort_arbn_stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):
     if len(planes) > bitonic.MAX_PLANES:
         raise ValueError(f"the arbitrary-N path takes at most "
                          f"{bitonic.MAX_PLANES - 2} payloads")
-    offsets = []
-    off = 0
-    for idx, sz in enumerate(sizes):
-        piece = [p[off: off + sz * chunk] for p in planes]
-        if idx == len(sizes) - 1:
-            _engine(piece, cfg, 2, piece[0].numel())
-        else:
-            bitonic.sort_planes(piece[0], chunk, fin, True, lex=piece[1:])
-        offsets.append(off)
-        off += sz * chunk
-    for off in reversed(offsets[:-1]):
-        bitonic.merge_valley_ascending(planes[0][off:], chunk, fin,
-                                       lex=[p[off:] for p in planes[1:]])
-    return planes
+    return _sort_pieces(planes, sizes, chunk, fin, cfg, 2)
 
 
 def _stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):

@@ -289,6 +289,38 @@ def test_filter_groupby_unique_match_torch(cuda):
     assert torch.equal(cnts[:g].to(torch.int64), cnt_want)
 
 
+def test_groupby_arbitrary_n_rider_sort_matches_torch(cuda):
+    """3 * 2^24 + 5 rows: the rider sort takes the arbitrary-N path (pieces
+    of 2^25, 2^24 and 2^21 rows, then two valley merges) instead of 2^26
+    rows; a few keys are 0xFFFFFFFF, the pads' key."""
+    from radx_tpu_torch.ops import sort as ts
+
+    n = 3 * (1 << 24) + 5
+    cfg = SortConfig()
+    assert ts._use_decomposition(n, cfg)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    keys = torch.randint(0, 1_000_003, (n,), dtype=torch.int32, generator=gen,
+                         device=cuda)
+    keys[::4099] = -1  # 0xFFFFFFFF
+    vals = torch.randint(0, 1 << 20, (n,), dtype=torch.int32, generator=gen,
+                         device=cuda)
+    ids, inv = torch.unique(keys ^ (-(1 << 31)), sorted=True,
+                            return_inverse=True)
+    want_sum = torch.zeros(ids.numel(), dtype=torch.int64, device=cuda)
+    want_sum.index_add_(0, inv, vals.long())
+    want_count = torch.bincount(inv, minlength=ids.numel())
+    g = ids.numel()
+    for agg, want in (("sum", want_sum), ("count", want_count)):
+        uk, out, ng = groupby(keys.view(torch.uint32), vals.view(torch.uint32),
+                              agg, cfg)
+        blocks, _ = ts._decompose_blocks(n, cfg.rider_chunk_elems)
+        assert uk.numel() == blocks * cfg.rider_chunk_elems < ts._pad_len(n)
+        assert int(ng) == g
+        assert torch.equal(uk[:g].view(torch.int32) ^ (-(1 << 31)), ids)
+        assert torch.equal(out[:g].view(torch.int32).long() & 0xFFFFFFFF,
+                           want & 0xFFFFFFFF)
+
+
 # --- slice 3: the lexicographic mode of K1-K3, the dense aggregates (K8, K9),
 # the Table query path ---------------------------------------------------------
 
