@@ -35,7 +35,10 @@ Phases, one line each (any failure raises and exits nonzero):
      segment tables in one launch), K12, K5, K13 at the radix geometries of
      2^26 keys (keys, rider, lex2, lex3) and 2^28 keys (keys, lex3), K11
      also on a rider sort's tail of pads (n_valid = 3 * 2^24) and on
-     overflowing keys;
+     overflowing keys; ``gather_planes`` (``gather_checks``: index mode
+     with one source at 2^28 and 1..4 sources at 2^26 + 4099 on an
+     unaligned index plane with out-of-range indices, tagged mode on the
+     join's union of 2 x 10^8 rows and on ties with pads);
   4. the paths through the public entry points, each in a window of its
      own (``window``): the launch counts are set to 0 just before the path
      and read just after it, and every kernel the path runs must show >= 1
@@ -52,13 +55,17 @@ Phases, one line each (any failure raises and exits nonzero):
           config 2, stable ``sort_pairs`` of 2^28 pairs and
           ``assume_unique`` on a permutation; ``argsort`` (also at a
           non-power-of-two n on the arbitrary-N path), ``sort_multi``,
-          ``sort_u64``, 64-bit ``sort_any``, ``top_k``; the query_pipeline
+          ``sort_u64``, 64-bit ``sort_any``, ``top_k``, ``LazyTable.sort_by``
+          on 2..6 columns (lex4..lex8; the joins, ``sort_pairs`` and
+          ``sort_multi`` sort two planes and gather the rest); the
+          query_pipeline
           example at 2^26 rows, eager and lazy — all exactly equal to plain
           torch (or numpy) references;
        d. slice 4 (``radix_path``), under ``SortConfig(strategy="radix")``:
           ``sort`` at 2^26 and 2^28, ``sort`` at 2^26 on presorted, reverse,
           clustered and low-cardinality keys, stable ``sort_pairs`` at 2^28
-          (lex3), ``argsort`` at 2^26 (lex2), ``groupby`` sum at 3 * 2^24
+          (lex2 and the gather), ``argsort`` at 2^26 (lex2), ``groupby`` sum
+          at 3 * 2^24
           (the rider mode, n_valid = total: a quarter of the rows are pads),
           all-equal keys at 2^23 (the overflow
           fallback to the network) and ``tile_histograms`` (K14) at 2^26,
@@ -99,6 +106,8 @@ Phases, one line each (any failure raises and exits nonzero):
      (bytes over 3.35 TB/s or operations over 67 T/s, the larger) and, where
      one PyTorch call computes the same function, that call (the tile
      engine's kernels with their shared-memory round trips per tile;
+     ``gather_planes`` at config 2's and the join's shapes beside
+     ``index_select``;
      ``cross_stage<1>`` at the last merge level and ``finish`` on bitonic
      tiles, each first held equal to ``torch.sort`` of its view;
      ``cross_stage<2..4>`` likewise on columns bitonic along the 2^F
@@ -160,6 +169,8 @@ def _ptxas_name(kernel, args):
         return f"{kernel}<{op}{a[2] if op == 'fill' else ','+dt}>"
     if kernel == "compact":
         return f"compact<P{a[0]},mask{a[1]}B>"
+    if kernel == "gather_planes":
+        return "gather_planes/tagged" if a[1] else f"gather_planes<{a[0]}>"
     return kernel + (f"<{a[0]}>" if a else "")
 
 
@@ -172,7 +183,7 @@ def ptxas_report(log):
             r"Compiling entry function .*?(chunk_sort_cyclic|slot_merge|"
             r"chunk_sort|finish|cross_stage|radix_hist|radix_rank|radix_pack|"
             r"radix_concat|compact|segscan|dense_sums_smem|dense_sums_global|"
-            r"dense_extrema)_kernel(I(?:L[ib]\d+E)+E)?", ln)
+            r"dense_extrema|gather_planes)_kernel(I(?:L[ib]\d+E)+E)?", ln)
         if found:
             kernel = _ptxas_name(found.group(1), found.group(2))
         elif kernel and ("Used" in ln or "spill" in ln):
@@ -232,10 +243,10 @@ def record(names, e, ok, **case):
 
 
 def _kernel_modules():
-    from radx_tpu_torch.kernels import (aggregate, bitonic, compact, msd, radix,
-                                        segscan)
+    from radx_tpu_torch.kernels import (aggregate, bitonic, compact, gather,
+                                        msd, radix, segscan)
 
-    return bitonic, compact, segscan, aggregate, radix, msd
+    return bitonic, compact, segscan, aggregate, radix, msd, gather
 
 
 def bound(bytes_, ops=0):
@@ -638,11 +649,14 @@ def radix_path(dev):
     torch.cuda.empty_cache()
 
     keys, payload = bench.pairs_data(n28)
-    with window("radix_sort_pairs_stable_2e28", radix_required(2, 3)):
+    # (key, index) through the lex2 distribution sort, then the payload's
+    # gather
+    with window("radix_sort_pairs_stable_2e28",
+                (*radix_required(2, 2), "gather_planes")):
         got = sort_pairs(keys, payload, cfg)
     want = bench.torch_sort_pairs(keys, payload)
     ok = all(torch.equal(_i32(a), _i32(b)) for a, b in zip(got, want))
-    flag_line(f"radix_sort_pairs_n{n28}", "lex3", equal_reference=ok)
+    flag_line(f"radix_sort_pairs_n{n28}", "lex2", equal_reference=ok)
     if not ok:
         _fail("radix sort_pairs differs from torch.sort(stable=True)")
     del keys, payload, got, want
@@ -837,6 +851,60 @@ def single_pass_checks(dev, cfg, rng):
     torch.cuda.empty_cache()
 
 
+def gather_checks(dev):
+    """``gather_planes`` (csrc/gather.cu) against its plain version, every
+    output bit-equal: index mode with one source on a permutation of 2^28
+    rows (config 2's payload), with 1..4 sources on a permutation of 2^26 +
+    4099 rows whose index plane sits one row off 16-byte alignment (the
+    scalar path) and holds out-of-range indices (0 out); tagged mode on the
+    join's union of 2 x 10^8 rows (build and probe ties, shuffled) and on
+    2^20 + 4099 ties with pads."""
+    from radx_tpu_torch.kernels import gather as GT
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+
+    def rand32(n):
+        return torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                             generator=gen, device=dev)
+
+    def perm(n, offset=0):
+        buf = torch.empty(n + offset, dtype=torch.int32, device=dev)
+        buf[offset:] = torch.randperm(n, generator=gen, device=dev)
+        return buf[offset:]
+
+    def check(idx, srcs, mode, **case):
+        got = GT.gather_planes(idx, srcs, mode)
+        want = GT.gather_planes_ref(idx, srcs, mode)
+        torch.cuda.synchronize()
+        e = _max_err(got, want)
+        record([GT._KERNEL[mode]], e, e == 0, n=idx.numel(),
+               sources=len(srcs), **case)
+
+    n28 = 1 << 28
+    check(perm(n28), [rand32(n28)], "index", what="config 2 payload")
+    torch.cuda.empty_cache()
+    n = (1 << 26) + 4099
+    idx = perm(n, offset=1)
+    idx[:3] = torch.tensor([-1, n, 2**31 - 1], dtype=torch.int32, device=dev)
+    srcs = [rand32(n) for _ in range(4)]
+    for g in range(1, 5):
+        check(idx, srcs[:g], "index", offset=1, out_of_range=3)
+    del idx, srcs
+    for nb, np_, pads, offset in ((10**8, 10**8, 0, 0),
+                                  (1 << 19, (1 << 19) + 99, 4000, 1)):
+        ties = torch.cat((torch.arange(nb, device=dev),
+                          torch.arange(np_, device=dev) + GT.PROBE_TIE,
+                          torch.full((pads,), GT.PAD_TIE, device=dev)))
+        n = ties.numel()
+        idx = torch.empty(n + offset, dtype=torch.int32, device=dev)[offset:]
+        idx.copy_(ties[torch.randperm(n, generator=gen, device=dev)])
+        del ties
+        check(idx, [rand32(nb), rand32(np_)], "tagged", build=nb, probe=np_,
+              pads=pads, offset=offset)
+        del idx
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def window(name, required):
     """Drive one path inside the block: every launch count is set to 0 just
@@ -957,7 +1025,9 @@ def join_path(dev):
     from radx_tpu_torch.kernels import segscan as SG
     from radx_tpu_torch.ops import join as J
 
-    join_kernels = (*_lex(4), *SG.KERNELS, *CP.KERNELS)
+    # the union's (key, tie) sort, its value planes' gather, scan, compact
+    join_kernels = (*_lex(2), "gather_planes/tagged", *SG.KERNELS,
+                    *CP.KERNELS)
     gen = torch.Generator(device=dev).manual_seed(31)
 
     def rand32(n):
@@ -1028,12 +1098,13 @@ def join_path(dev):
 
 
 def sort_path(dev):
-    """Config 2 (stable ``sort_pairs`` of 2^28 pairs), ``assume_unique`` on
-    a permutation, ``argsort`` (also on the arbitrary-N path),
-    ``sort_multi``, ``sort_u64``, 64-bit ``sort_any`` and ``top_k``, each
-    exactly against torch (or numpy)."""
-    from radx_tpu_torch import (SortConfig, argsort, sort_any, sort_pairs,
-                                sort_u64, top_k)
+    """Config 2 (stable ``sort_pairs`` of 2^28 pairs: the (key, index)
+    sort and the payload's gather), ``assume_unique`` on a permutation,
+    ``argsort`` (also on the arbitrary-N path), ``sort_multi``,
+    ``sort_u64``, 64-bit ``sort_any``, ``top_k`` and ``LazyTable.sort_by``
+    on 2..6 columns, each exactly against torch (or numpy)."""
+    from radx_tpu_torch import (SortConfig, Table, argsort, sort_any,
+                                sort_pairs, sort_u64, top_k)
     from radx_tpu_torch import bench
     from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.ops import sort as S
@@ -1047,7 +1118,8 @@ def sort_path(dev):
 
     n28 = 1 << 28
     keys, payload = bench.pairs_data(n28)
-    with window("config2_sort_pairs_stable_2e28", _lex(3)):
+    with window("config2_sort_pairs_stable_2e28",
+                (*_lex(2), "gather_planes")):
         got = sort_pairs(keys, payload)
     want = bench.torch_sort_pairs(keys, payload)
     if not all(torch.equal(_i32(a), _i32(b)) for a, b in zip(got, want)):
@@ -1084,7 +1156,7 @@ def sort_path(dev):
     del got, got_odd
     pays = [rand32(n26) for _ in range(6)]
     for m, size in ((5, n26), (3, small), (4, small), (6, small)):
-        with window(f"sort_multi_{m}_payloads", _lex(2 + m)):
+        with window(f"sort_multi_{m}_payloads", (*_lex(2), "gather_planes")):
             sk, sp = S.sort_multi(k26[:size].view(torch.uint32),
                                   [p[:size].view(torch.float32)
                                    for p in pays[:m]])
@@ -1092,8 +1164,8 @@ def sort_path(dev):
         if not (torch.equal(_i32(sk), k26[o]) and all(
                 torch.equal(_i32(a), p[:size][o]) for a, p in zip(sp, pays))):
             _fail(f"sort_multi with {m} payloads differs at n={size}")
-        _line("slice", input=f"sort_multi_{m}_payloads", n=size, planes=2 + m,
-              equal_reference=True)
+        _line("slice", input=f"sort_multi_{m}_payloads", n=size,
+              gathers=-(-m // 4), equal_reference=True)
     del sk, sp, o
     hi, lo_ = pays[0], pays[1]
     with window("sort_u64_2e26", _lex(2)):
@@ -1139,6 +1211,23 @@ def sort_path(dev):
     _line("slice", input="top_k_float32_nan", n=n26, k=[1, 100, 10_000],
           equal_reference=True)
     del k26, fkeys, fb, enc, got
+
+    # LazyTable.sort_by sends the (key', tie) planes and every column
+    # through the network: 2..6 columns are the lex4..lex8 modes
+    n20 = 1 << 20
+    cols = {f"c{j}": rand32(n20) for j in range(6)}
+    cols["c0"] = rand32(n20, 0, 1 << 12)  # ties
+    o = torch.sort(cols["c0"], stable=True).indices
+    for m in range(2, 7):
+        names = list(cols)[:m]
+        with window(f"lazy_sort_by_{m}_columns", _lex(2 + m)):
+            got = Table({k: cols[k] for k in names}).lazy().sort_by(
+                "c0").collect()
+        if not all(torch.equal(got.column(k), cols[k][o]) for k in names):
+            _fail(f"LazyTable.sort_by with {m} columns differs")
+        _line("slice", input=f"lazy_sort_by_{m}_columns", n=n20,
+              planes=2 + m, equal_reference=True)
+    del cols, o, got
     torch.cuda.empty_cache()
 
 
@@ -1194,11 +1283,16 @@ def example_path(dev):
     from radx_tpu_torch.kernels import compact as CP
     from radx_tpu_torch.kernels import segscan as SG
 
-    # filter, sort-based group-by (rider sort, segscan), joins and distinct
-    # (four planes), sort_by of three columns (five planes), top_k's chunk
-    # pass (its final sort of 24 candidates fits one chunk)
-    required = (*CP.KERNELS, *SG.KERNELS, *B.RIDER_KERNELS, *_lex(4, 5),
-                "chunk_sort/lex2")
+    # filter, sort-based group-by (rider sort, segscan), joins (their
+    # (key, tie) sorts and the value planes' gather), the eager distinct and
+    # sort_by ((key, index) and the columns' gather), the lazy sort_by
+    # (every column through the network: five planes over the joined
+    # 2^17 rows, four over the 16,384-row query, which reaches F <= 2),
+    # top_k's chunk pass (its final sort of 24 candidates fits one chunk)
+    required = (*CP.KERNELS, *SG.KERNELS, *B.RIDER_KERNELS, *_lex(2, 5),
+                "chunk_sort/lex4", "cross_stage<1>/lex4",
+                "cross_stage<2>/lex4", "finish/lex4", "gather_planes",
+                "gather_planes/tagged")
     with window("query_pipeline_example", required):
         ex = query_pipeline.run(1 << 26, 1 << 16, dev)
     _line("slice", input="query_pipeline_example", **ex, eager=True,
@@ -1579,7 +1673,7 @@ def last_modules_path(dev, card):
     n22 = 1 << 22
     pk = runtime.gen_uniform(n22, seed=2)
     pv = np.arange(n22, dtype=np.uint32)
-    with window("oracle_pairs_2e22", _lex(3)):
+    with window("oracle_pairs_2e22", (*_lex(2), "gather_planes")):
         gk, gv = sort_pairs(torch.from_numpy(pk).to(dev),
                             torch.from_numpy(pv).to(dev))
         gk, gv = gk.cpu().numpy(), gv.cpu().numpy()
@@ -1626,6 +1720,7 @@ def main():
     from radx_tpu_torch.kernels import aggregate as AG
     from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.kernels import compact as CP
+    from radx_tpu_torch.kernels import gather as GT
     from radx_tpu_torch.kernels import msd as M
     from radx_tpu_torch.kernels import radix as RX
     from radx_tpu_torch.kernels import radix_sort as RS
@@ -1647,7 +1742,7 @@ def main():
     # keys, rider, lex2 and lex3 modes)
     all_kernels = (*B.KEY_KERNELS, *B.RIDER_KERNELS, *B.LEX_KERNELS,
                    *CP.KERNELS, *SG.KERNELS, *AG.KERNELS, *RX.KERNELS,
-                   "radix_rank",
+                   *GT.KERNELS, "radix_rank",
                    *(k for m in MODES.values() for k in
                      (*B.radix_kernels(*m), *M.mode_kernels(*m))))
     i32 = torch.int32
@@ -1790,6 +1885,7 @@ def main():
 
     del base, ties, iota
     single_pass_checks(dev, cfg, rng)
+    gather_checks(dev)
 
     # the dense aggregates at 2^26 rows, a ragged n_valid
     n26 = 1 << 26
@@ -2061,11 +2157,12 @@ def main():
     rows = {}
 
     def time_pair(name, log_n, kern, ref, bytes_, ops=0, lib=None, iters=10,
-                  **extra):
+                  n=None, **extra):
         """Kernel and plain version, the bound of the kernel's work and,
-        where one PyTorch call computes the same function, that call;
-        ``extra``: fields printed beside the time (a tile pass's
-        shared-memory round trips)."""
+        where one PyTorch call computes the same function, that call, on
+        2^log_n rows (``n`` where they are no power of two); ``extra``:
+        fields printed beside the time (a tile pass's shared-memory round
+        trips)."""
         tk = timing.time_cuda(kern, iters=iters, repeats=5)
         tp = timing.time_cuda(ref, iters=1, repeats=2, warmup=0)
         tl = None if lib is None else timing.time_cuda(lib, iters=iters,
@@ -2074,8 +2171,9 @@ def main():
         row = {"ms": tk.seconds * 1e3, "plain_ms": tp.seconds * 1e3,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None if tl is None else tl.seconds * 1e3}
-        rows.setdefault(name, {})[log_n] = row
-        _line("kernel_time", name=name, n=1 << log_n, **row, **extra,
+        size = 1 << log_n if n is None else n
+        rows.setdefault(name, {})[log_n] = {**row, "n": size}
+        _line("kernel_time", name=name, n=size, **row, **extra,
               spread_pct=tk.spread_pct, plain_spread_pct=tp.spread_pct,
               **card)
 
@@ -2247,6 +2345,38 @@ def main():
                                      [hflag32]), 20 * n26, n26)
     del skeys, col, hflag, hflag32
 
+    # gather_planes at the main path's shapes: config 2's payload (one
+    # source, 2^28 rows) and the join's union (tagged, 2 x 10^8 rows from
+    # two sources of 10^8); beside them four sources at 2^26 (sort_multi).
+    # Bound: the index read, each source row read once, the outputs
+    # written (12 + 8 (G - 1) bytes a row; 16 tagged); library call:
+    # index_select of the same planes (none computes the tagged mode)
+    def gather_time(name, log_n, n, srcs, mode, lib):
+        gidx = (torch.randperm(n, device=dev) if mode == "index" else torch.cat(
+            (torch.arange(n // 2, device=dev),
+             torch.arange(n - n // 2, device=dev) + GT.PROBE_TIE))[
+                 torch.randperm(n, device=dev)]).to(i32)
+        outs = len(srcs)
+        time_pair(name, log_n, lambda: GT.gather_planes(gidx, srcs, mode),
+                  lambda: GT.gather_planes_ref(gidx, srcs, mode),
+                  4 * n + 4 * sum(s.numel() for s in srcs) + 4 * outs * n,
+                  lib=(lambda: [torch.index_select(s, 0, gidx) for s in srcs])
+                  if lib else None, n=n, sources=len(srcs))
+
+    def rand_planes(count, n):
+        return [torch.randint(-(2**31), 2**31, (n,), dtype=i32, device=dev)
+                for _ in range(count)]
+
+    gather_time("gather_planes", 28, 1 << 28, rand_planes(1, 1 << 28),
+                "index", True)
+    torch.cuda.empty_cache()
+    gather_time("gather_planes/4_sources", 26, n26, rand_planes(4, n26),
+                "index", True)
+    torch.cuda.empty_cache()
+    gather_time("gather_planes/tagged", 28, 2 * 10**8,
+                rand_planes(2, 10**8), "tagged", False)
+    torch.cuda.empty_cache()
+
     # the dense aggregates at 2^26 rows, 256 bins (the config-3 shape)
     dk = torch.randint(0, 256, (n26,), dtype=i32, generator=gen,
                        device=dev).view(torch.uint32)
@@ -2377,7 +2507,8 @@ def main():
               "compact": "radx_tpu_torch/csrc/compact.cu",
               "segscan": "radx_tpu_torch/csrc/segscan.cu",
               "dense": "radx_tpu_torch/csrc/aggregate.cu",
-              "radix": "radx_tpu_torch/csrc/radix.cu"}
+              "radix": "radx_tpu_torch/csrc/radix.cu",
+              "gather": "radx_tpu_torch/csrc/gather.cu"}
     replaces = {
         "chunk_sort": "radx_tpu/kernels/bitonic.py:198",
         "cross_stage<1>": "radx_tpu/kernels/bitonic.py:465",
@@ -2396,6 +2527,10 @@ def main():
         "radix_rank": "radx_tpu/kernels/msd.py:117",
         "radix_pack": "radx_tpu/kernels/msd.py:194",
         "radix_concat": "radx_tpu/kernels/msd.py:243",
+        # no Pallas kernel: the value planes that the JAX package sorts as
+        # riders (the stable sorts' payloads, the join union's values)
+        "gather_planes": "radx_tpu/ops/sort.py:136",
+        "gather_planes/tagged": "radx_tpu/ops/join.py:70",
     }
 
     def entry(name):
@@ -2406,6 +2541,8 @@ def main():
             src, rep = source["dense"], replaces[name]
         elif family.startswith("radix"):
             src, rep = source["radix"], replaces.get(name, replaces[family])
+        elif name in GT.KERNELS:
+            src, rep = source["gather"], replaces[name]
         else:
             kind = name.split("_")[0]
             src, rep = source[kind], replaces[kind]
@@ -2413,8 +2550,7 @@ def main():
         log_n = min(times)
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": TOTAL_LAUNCHES.get(name, 0),
-             "max_abs_err": ERR.get(name, 0.0), **times[log_n],
-             "n": 1 << log_n}
+             "max_abs_err": ERR.get(name, 0.0), **times[log_n]}
         if log_n != 26 and 26 in times:
             e.update({f"{k}_n2e26": v for k, v in times[26].items()})
         return e

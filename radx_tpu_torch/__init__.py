@@ -12,7 +12,8 @@ builds its CUDA kernels (``csrc/``) with nvcc at their first launch.
     ``kernels/segscan.py``, compaction);
   * ``unique`` — sorted distinct keys, with counts on request;
   * ``argsort`` / ``sort_pairs`` / ``sort_pairs_any`` / ``sort_u64`` — the
-    stable and lexicographic sorts (the network's lexicographic mode);
+    stable and lexicographic sorts (the network's lexicographic mode over
+    two planes; payloads gathered after it, ``kernels/gather.py``);
   * ``top_k`` — the k largest or smallest keys with their indices;
   * ``groupby_dense`` — GROUP BY over a bounded key space on the dense
     aggregate kernels (``kernels/aggregate.py``);

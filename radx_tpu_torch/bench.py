@@ -500,10 +500,10 @@ def sweep_tiles(n: int = 1 << 26, groups=SWEEP_GROUPS):
         2^15 exceed a block's shared memory);
       * ``lex``: the lexicographic tiles (``stable_*``, stated at two and
         three planes, up to 2^14): ``argsort`` (lex2), ``sort_pairs``
-        (lex3) and the join's tagged-union sort (lex4, n/2 rows a side);
+        (lex2 and the payload's gather) and the join's tagged union (lex2
+        and the value planes' gather, n/2 rows a side);
       * ``lex_wide``: the same tiles under ``sort_multi`` with 3..6
-        payloads (lex5..lex8, whose tiles ``lex_tiles`` halves and
-        quarters);
+        payloads (lex2 and the payloads' gathers);
       * ``topk``: ``top_k`` (k = 1024, largest) over topk_chunk_elems
         2^11..2^14 on uniform keys.
 
@@ -597,7 +597,7 @@ def sweep_tiles(n: int = 1 << 26, groups=SWEEP_GROUPS):
             for m in range(3, 7) if "lex_wide" in groups else ():
                 run(f"sort_multi_{m}_payloads_rows_per_s",
                     lambda m=m: sort_multi(keys, pays[:m], cfg),
-                    lambda m=m: check_multi(m), planes=2 + m, **tiles)
+                    lambda m=m: check_multi(m), payloads=m, **tiles)
         del keys, payload, order, want, bk, bv, pk, pv, pays
     if "topk" in groups:
         keys = _randint(-(2**31), 2**31, n, _generator(31)).view(torch.uint32)
@@ -779,12 +779,14 @@ def radix_idle_split(ops, calls, layer_of, wall_ms) -> dict:
 
 
 def profile_join(n: int = 10**8, calls: int = 2) -> dict:
-    """``Table.join`` (inner) of two n-row tables by layer: the four-plane
-    lexicographic sort, segscan, compact, elementwise (union assembly,
-    masks, copies)."""
+    """``Table.join`` (inner) of two n-row tables by layer: the (key, tie)
+    lexicographic sort, the value planes' gather, segscan, compact,
+    elementwise (union assembly, masks, copies)."""
     build, probe = _join_tables(n)
 
     def layer_of(name):
+        if "gather_planes" in name:
+            return "gather"
         return "lex_sort" if _layer(name) == "rider_sort" else _layer(name)
 
     return _profile(lambda: probe.join(build, "k", "v", "w"), calls, layer_of,

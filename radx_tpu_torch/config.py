@@ -18,10 +18,11 @@ take any size.  The relational paths have tiles of their own:
   * ``rider_chunk_elems`` / ``rider_finish_elems`` — the same two tiles for
     the (key, rider) sort of group-by (two planes in shared memory);
   * ``stable_chunk_elems`` / ``stable_finish_elems`` — the tiles of the
-    lexicographic sorts of 2..8 planes (argsort, stable pairs, sort_u64,
-    sort_multi, join, Table), stated at two and three planes and halved as
-    the planes grow so the footprint in shared memory stays within that of
-    three (``lex_tiles``);
+    lexicographic sorts of 2..8 planes (two: argsort, stable pairs,
+    sort_u64, sort_multi, the joins, Table; more: LazyTable's sort and
+    the distributed stable sorts), stated at two and three planes and
+    halved as the planes grow so the footprint in shared memory stays
+    within that of three (``lex_tiles``);
   * ``topk_chunk_elems`` — top_k's per-chunk (key, index) sort;
   * ``compact_elems`` — rows per chunk of the mask compaction, the JAX
     ``compact_chunk_rows`` counterpart; the card's kernel runs its own

@@ -10,6 +10,9 @@
   * segscan.py — segmented inclusive scan over sorted keys in one pass,
                  run summaries chained by a decoupled look-back
                  (../csrc/segscan.cu);
+  * gather.py  — int32 value planes gathered by a sorted index or tie
+                 plane (../csrc/gather.cu), after a sort of the two compare
+                 planes alone;
   * lookback.py — the CPU model of the look-back walk both share;
   * _build.py  — builds ../csrc/*.cu with nvcc and binds them with ctypes.
 """

@@ -71,6 +71,8 @@ _SIGNATURES = {
     # keys, n, log_tile, vals, flags, outs, out_flags, scratch, op, dtype, m,
     # stream
     "radx_segscan": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # index, n, sources, source rows, outs, num_src, tagged, stream
+    "radx_gather_planes": (_P, _I, _P, _P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

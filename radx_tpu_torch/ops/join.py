@@ -1,11 +1,13 @@
 """Joins on uint32 / int32 / float32 keys — port of radx_tpu/ops/join.py
 (the BASELINE's "hash join", config 4).
 
-``join_merge`` and ``join_merge_multi`` are gather-free: one tagged union of
-both sides sorted by the four-plane lexicographic mode of the bitonic
-network — (key, tie, build value, probe value), where the tie is the build
-row's index or 2^30 plus the probe row's index, so build rows come first
-within a key — then segmented scans over the sorted keys (kernels/segscan:
+``join_merge`` and ``join_merge_multi`` sort one tagged union of both sides
+by the two-plane lexicographic mode of the bitonic network — (key, tie),
+where the tie is the build row's index or 2^30 plus the probe row's index,
+so build rows come first within a key — then gather its build-value and
+probe-value planes by the sorted tie (kernels/gather, tagged mode; the JAX
+package sorts those two planes through the network as well, four planes
+in all), then run segmented scans over the sorted keys (kernels/segscan:
 ``fill`` carries a build value forward through its key's run, ``sum`` ranks
 build rows), then stable compaction (kernels/compact).  ``join_inner``
 sorts the build side stably and probes it with ``torch.searchsorted`` (the
@@ -22,11 +24,11 @@ from __future__ import annotations
 import torch
 
 from radx_tpu_torch.config import DEFAULT, SortConfig
-from radx_tpu_torch.kernels import segscan
+from radx_tpu_torch.kernels import gather, segscan
 from radx_tpu_torch.ops import sort as sort_ops
 from radx_tpu_torch.ops.filter import _compact
 
-PROBE_TIE = 1 << 30  # probe row i carries tie 2^30 + i
+PROBE_TIE = gather.PROBE_TIE  # probe row i carries tie 2^30 + i
 MAX_SIDE_ROWS = PROBE_TIE - 1
 _I32_MAX = 0x7FFFFFFF
 
@@ -60,8 +62,11 @@ def _check_cap(nb, np_):
 
 def tagged_union(enc_b, build_vals, enc_p, probe_vals, cfg: SortConfig):
     """The sorted tagged union of both sides: (key, tie, build value, probe
-    value) int32 planes of the union's rows (nb + np), sorted by (key, tie).
-    Pads (key and tie 0x7FFFFFFF, zero values) sort after every row."""
+    value) int32 planes of the union's rows (nb + np), sorted by (key, tie);
+    a build row's probe value and a probe row's build value are 0.  Only
+    (key, tie) go through the network, padded to a power of two (pads: key
+    and tie 0x7FFFFFFF, after every row); the value planes are gathered by
+    the sorted tie of the nb + np rows (``gather.gather_planes``, tagged)."""
     nb, np_ = enc_b.numel(), enc_p.numel()
     n = nb + np_
     total = sort_ops._pad_len(n)
@@ -72,13 +77,11 @@ def tagged_union(enc_b, build_vals, enc_p, probe_vals, cfg: SortConfig):
     tie = torch.full((total,), _I32_MAX, dtype=torch.int32, device=dev)
     tie[:nb] = torch.arange(nb, dtype=torch.int32, device=dev)
     tie[nb:n] = torch.arange(np_, dtype=torch.int32, device=dev) + PROBE_TIE
-    bval = torch.zeros(total, dtype=torch.int32, device=dev)
-    bval[:nb] = build_vals.contiguous().view(torch.int32)
-    pval = torch.zeros(total, dtype=torch.int32, device=dev)
-    pval[nb:n] = probe_vals.contiguous().view(torch.int32)
-    planes = [key, tie, bval, pval]
-    sort_ops._lex_sort(planes, cfg)
-    return [p[:n] for p in planes]
+    sort_ops._lex_sort([key, tie], cfg)
+    bval, pval = gather.gather_planes(
+        tie[:n], [build_vals.contiguous().view(torch.int32),
+                  probe_vals.contiguous().view(torch.int32)], "tagged")
+    return [key[:n], tie[:n], bval, pval]
 
 
 def _fill(skey, vals, flags, cfg: SortConfig):

@@ -7,7 +7,8 @@ that makes a sort stable — and dispatches to a strategy:
 
   * ``"bitonic"`` (default) — the hand-written CUDA bitonic network
     (kernels/bitonic.py): keys only, (key, rider), or lexicographic over
-    (key, index) with payload planes riding along;
+    (key, index), the payloads then gathered by the sorted index
+    (kernels/gather.py);
   * ``"radix"`` — the radix distribution sort (kernels/radix_sort.py)
     where its plan applies, the network where it does not or where a bucket
     overflows its slots;
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from radx_tpu_torch.config import DEFAULT, SortConfig
-from radx_tpu_torch.kernels import bitonic, radix_sort
+from radx_tpu_torch.kernels import bitonic, gather, radix_sort
 
 _SIGN = -(1 << 31)  # int32 bit pattern 0x80000000
 _PAD_KEY = 0x7FFFFFFF  # sign-biased 0xFFFFFFFF: sorts to the end
@@ -109,10 +110,6 @@ def _engine(planes, cfg: SortConfig, num_cmp: int, n_valid: int):
     ``n_valid`` are sentinel pads.  The network runs on the mode's tiles.
     (The JAX ``unique`` flag has no counterpart: every exchange here is
     tie-safe.)"""
-    if num_cmp == 2 and len(planes) > bitonic.MAX_PLANES:
-        for group in _lex_groups(planes):
-            _engine(group, cfg, 2, n_valid)
-        return planes
     chunk, fin = cfg.mode_tiles(len(planes), num_cmp)
     if cfg.strategy == "radix":
         total = planes[0].numel()
@@ -361,40 +358,52 @@ def _lex_sort(planes, cfg: SortConfig, descending: bool = False) -> None:
         bitonic.sort_planes(group[0], chunk, fin, descending, lex=group[1:])
 
 
+def _gather_payloads(index: torch.Tensor, payloads):
+    """The 32-bit payloads as int32 bit planes in the order of ``index``
+    (the sorted index plane's first n rows: original positions), up to
+    ``gather.MAX_PLANES`` of them a launch."""
+    srcs = [p.contiguous().view(torch.int32) for p in payloads]
+    step = gather.MAX_PLANES
+    return [out for i in range(0, len(srcs), step)
+            for out in gather.gather_planes(index, srcs[i: i + step])]
+
+
 def _stable_planes(keys: torch.Tensor, payloads, cfg: SortConfig, total: int):
-    """(key, index, payloads...) planes of ``total`` rows, sorted stably by
-    key: ``torch.sort(stable=True)`` under ``"lax"``, else the engine."""
-    planes = [_key_plane(keys, total), _iota(total, keys.device),
-              *(_payload_plane(p, total) for p in payloads)]
+    """(key, index, payloads...) planes sorted stably by key: the key and
+    index planes of ``total`` rows, the payloads of ``keys.numel()`` rows
+    (all ``total`` under ``"lax"``).  ``torch.sort(stable=True)`` under
+    ``"lax"``; else (key, index) through the engine, then the payloads
+    gathered by the sorted index (the JAX package sorts them as riders)."""
+    n = keys.numel()
+    planes = [_key_plane(keys, total), _iota(total, keys.device)]
     if cfg.strategy == "lax":
+        planes += [_payload_plane(p, total) for p in payloads]
         order = torch.sort(planes[0], stable=True).indices
         return [p[order] for p in planes]
-    _engine(planes, cfg, 2, keys.numel())
-    return planes
+    _engine(planes, cfg, 2, n)
+    return [*planes, *_gather_payloads(planes[1][:n], payloads)]
 
 
 def _sort_arbn_stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):
     """Arbitrary-N stable sort (port of ``_sort_arbn_stable_jit``):
-    ``_sort_pieces`` on (key, index, payloads) planes.  (key, original
-    index) is a total order, so the result is the unique stable permutation
-    however the input was cut.  Returns the sorted planes (``blocks *
-    chunk`` rows)."""
-    chunk, fin = cfg.lex_tiles(2 + len(payloads))
+    ``_sort_pieces`` on the (key, index) planes, then the payloads gathered
+    by the sorted index.  (key, original index) is a total order, so the
+    result is the unique stable permutation however the input was cut.
+    Returns the sorted planes: key and index of ``blocks * chunk`` rows,
+    the payloads of n rows."""
+    chunk, fin = cfg.lex_tiles(2)
     blocks, sizes = _decompose_blocks(n, chunk)
     total = blocks * chunk
-    planes = [_key_plane(keys, total), _iota(total, keys.device),
-              *(_payload_plane(p, total) for p in payloads)]
-    if len(planes) > bitonic.MAX_PLANES:
-        raise ValueError(f"the arbitrary-N path takes at most "
-                         f"{bitonic.MAX_PLANES - 2} payloads")
-    return _sort_pieces(planes, sizes, chunk, fin, cfg, 2)
+    planes = [_key_plane(keys, total), _iota(total, keys.device)]
+    _sort_pieces(planes, sizes, chunk, fin, cfg, 2)
+    return [*planes, *_gather_payloads(planes[1][:n], payloads)]
 
 
 def _stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):
     """Stably sorted (key, index, payloads...) planes of the n keys, by the
-    arbitrary-N path where ``_use_decomposition`` routes there (at most one
-    payload, as in the JAX package), else padded to a power of two."""
-    if len(payloads) <= 1 and _use_decomposition(n, cfg):
+    arbitrary-N path where ``_use_decomposition`` routes there, else padded
+    to a power of two."""
+    if _use_decomposition(n, cfg):
         return _sort_arbn_stable(keys, payloads, cfg, n)
     return _stable_planes(keys, payloads, cfg, _pad_len(n))
 
@@ -449,8 +458,9 @@ def sort_pairs(keys, payload, cfg: SortConfig | None = None,
 
 def sort_multi(keys, payloads, cfg: SortConfig | None = None, *, device=None):
     """Stable sort of uint32 keys carrying any number of 32-bit payload
-    columns through the network (no gather).  Returns (sorted keys, list of
-    payloads in their dtypes)."""
+    columns: one (key, index) sort, then the payloads gathered by the
+    sorted index, four a launch.  Returns (sorted keys, list of payloads in
+    their dtypes)."""
     cfg = cfg or DEFAULT
     keys = _as_u32(keys, device)
     payloads = [_as_tensor(p, device if device is not None else keys.device)

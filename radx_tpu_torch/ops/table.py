@@ -100,7 +100,7 @@ class Table:
         if descending:
             enc = sort_ops._flip(enc)
         names = list(self.columns)
-        # every column rides the network as a payload plane: no gather
+        # one (key, index) sort, the columns gathered by the sorted index
         _, outs = sort_ops.sort_multi(enc, [self.columns[n] for n in names],
                                       cfg or DEFAULT)
         return Table(dict(zip(names, outs)))

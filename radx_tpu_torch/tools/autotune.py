@@ -10,9 +10,9 @@ two.  The fastest tiles replace the ``SortConfig`` default only where they
 beat the default's time by more than the larger of the two spreads of the
 repeats; otherwise the default stays.  The optima of the metrics in
 ``REPORTED`` are printed beside the picks and decide nothing: the radix
-sort shares the keys-only tiles, and the join's four planes and
-``sort_multi``'s five to eight derive their tiles from the stable ones
-(``SortConfig.lex_tiles``), which the two- and three-plane sorts pick.
+sort shares the keys-only tiles, and the join's union and ``sort_multi``
+sort their two compare planes on the stable tiles (then gather their
+value planes), which the stable sorts pick.
 
 Prints one line per swept row, then one JSON object: ``device_kind``,
 ``tuning_entry`` (the row for ``radx_tpu_torch.config.TUNING``), and per
@@ -41,8 +41,9 @@ PICKED = {
 }
 REPORTED = {
     "radix": (("sort_radix_u32_keys_per_s",), _KEYS),
-    "lex4_join": (("join_union_sort_rows_per_s",), _STABLE),
-    **{f"lex{2 + m}": ((f"sort_multi_{m}_payloads_rows_per_s",), _STABLE)
+    "lex2_join": (("join_union_sort_rows_per_s",), _STABLE),
+    **{f"sort_multi_{m}": ((f"sort_multi_{m}_payloads_rows_per_s",),
+                            _STABLE)
        for m in range(3, 7)},
 }
 GROUPS = ("keys", "radix", "rider", "lex", "lex_wide", "topk")

@@ -420,6 +420,85 @@ def test_sort_pairs_and_lazy_dense_query(cuda):
     assert torch.equal(got.column("count").long(), want[want > 0])
 
 
+# --- the value-plane gather (csrc/gather.cu) ------------------------------------
+
+from radx_tpu_torch.kernels import gather as tgt  # noqa: E402
+from radx_tpu_torch.ops import join as tj  # noqa: E402
+from radx_tpu_torch.ops.sort import sort_multi  # noqa: E402
+
+
+def _tagged_ties(cuda, n, gen):
+    """A shuffled tie plane of n rows: build ties, probe ties and pads."""
+    nb, np_ = n // 2 - 5, n - n // 2 - 1000
+    tie = torch.cat((torch.arange(nb, device=cuda),
+                     torch.arange(np_, device=cuda) + tgt.PROBE_TIE,
+                     torch.full((n - nb - np_,), tgt.PAD_TIE, device=cuda)))
+    tie = tie[torch.randperm(n, generator=gen, device=cuda)]
+    return tie.to(torch.int32), nb, np_
+
+
+@pytest.mark.parametrize("n", [1 << 26, (1 << 20) + 4099])
+@pytest.mark.parametrize("mode", ["index", "tagged"])
+def test_gather_planes_matches_plain(cuda, n, mode):
+    """Index mode with 1..4 sources on a permutation with out-of-range
+    indices, tagged mode on build / probe / pad ties; each also on an index
+    plane one row off 16-byte alignment (the scalar path).  Bit-equal to
+    ``gather_planes_ref``, one launch a call, no plain call."""
+    gen = torch.Generator(device=cuda).manual_seed(n % 1000)
+    if mode == "index":
+        idx = torch.randperm(n, generator=gen, device=cuda).to(torch.int32)
+        idx[:3] = torch.tensor([-1, n, 2**31 - 1], device=cuda)
+        srcs = [_keys(cuda, n, seed=j) for j in range(4)]
+        cases = [srcs[:g] for g in range(1, 5)]
+    else:
+        idx, nb, np_ = _tagged_ties(cuda, n, gen)
+        cases = [[_keys(cuda, nb, seed=1), _keys(cuda, np_, seed=2)]]
+    shifted = torch.empty(n + 1, dtype=torch.int32, device=cuda)
+    shifted[1:] = idx
+    for index in (idx, shifted[1:]):
+        for srcs in cases:
+            tgt.reset_counts()
+            got = tgt.gather_planes(index, srcs, mode)
+            torch.cuda.synchronize()
+            launches = dict(tgt.LAUNCHES)
+            want = tgt.gather_planes_ref(index, srcs, mode)
+            assert len(got) == len(want)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert sum(launches.values()) == 1
+
+
+def test_two_plane_sorts_gather_on_the_card(cuda):
+    """sort_pairs, sort_multi (seven payloads: two launches) and the join's
+    union: the lex2 network and the gather kernel, no plain call; every
+    value plane exact against torch."""
+    rng = np.random.default_rng(14)
+    n = 3_000_017
+    k = torch.from_numpy(rng.integers(0, 1 << 12, n, dtype=np.uint32)).to(cuda)
+    pays = [_keys(cuda, n, seed=j) for j in range(7)]
+    o = torch.sort(k.view(torch.int32), stable=True).indices
+    _reset_all()
+    _, gp = sort_pairs(k, pays[0])
+    _, gps = sort_multi(k, pays)
+    torch.cuda.synchronize()
+    assert tgt.LAUNCHES["gather_planes"] == 3 and _no_plain_calls()
+    assert tb.LAUNCHES["chunk_sort/lex2"] and not tb.LAUNCHES["chunk_sort/lex3"]
+    assert torch.equal(gp.view(torch.int32), pays[0][o])
+    assert all(torch.equal(g, p[o]) for g, p in zip(gps, pays))
+    bk = k[: n // 2]
+    pk = k[n // 2:]
+    _reset_all()
+    key, tie, bval, pval = tj.tagged_union(bk, pays[1][: n // 2], pk,
+                                           pays[2][n // 2:], CFG)
+    torch.cuda.synchronize()
+    assert tgt.LAUNCHES["gather_planes/tagged"] == 1 and _no_plain_calls()
+    assert tb.LAUNCHES["chunk_sort/lex2"] and not tb.LAUNCHES["chunk_sort/lex4"]
+    build = tie < tgt.PROBE_TIE
+    assert torch.equal(bval, torch.where(build, pays[1][tie.clamp(
+        max=n // 2 - 1).long()], 0))
+    assert torch.equal(pval, torch.where(build, 0, pays[2][n // 2:][
+        (tie - tgt.PROBE_TIE).clamp(min=0).long()]))
+
+
 # --- slice 4: strategy="radix" (K4, K5, K10-K14, the span passes) -------------
 
 from radx_tpu_torch.kernels import msd as tm  # noqa: E402
@@ -548,12 +627,13 @@ N9 = 5 * SLAB9 + 7
 
 
 def _reset_all():
-    for m in (tb, tcp, tsg):
+    for m in (tb, tcp, tsg, tgt):
         m.reset_counts()
 
 
 def _no_plain_calls():
-    return not any(v for m in (tb, tcp, tsg) for v in m.PLAIN_CALLS.values())
+    return not any(v for m in (tb, tcp, tsg, tgt)
+                   for v in m.PLAIN_CALLS.values())
 
 
 def test_chunked_ops_match_torch(cuda):

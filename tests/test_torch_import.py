@@ -15,6 +15,7 @@ MODULES = (
     "radx_tpu_torch.kernels.compact",
     "radx_tpu_torch.kernels.segscan",
     "radx_tpu_torch.kernels.aggregate",
+    "radx_tpu_torch.kernels.gather",
     "radx_tpu_torch.kernels._build",
     "radx_tpu_torch.ops.sort",
     "radx_tpu_torch.ops.filter",

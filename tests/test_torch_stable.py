@@ -129,7 +129,8 @@ def test_sort_pairs_assume_unique_matches_jax():
 
 
 def test_sort_multi_matches_jax_more_than_six_payloads():
-    """Seven payloads: 9 planes, two lexicographic sorts on the port."""
+    """Seven payloads: the JAX package sorts 9 planes in two lexicographic
+    sorts; the port sorts (key, index) once and gathers the payloads."""
     rng = np.random.default_rng(6)
     n = 1000
     k = _keys(rng, n)
