@@ -35,10 +35,12 @@ Phases, one line each (any failure raises and exits nonzero):
      segment tables in one launch), K12, K5, K13 at the radix geometries of
      2^26 keys (keys, rider, lex2, lex3) and 2^28 keys (keys, lex3), K11
      also on a rider sort's tail of pads (n_valid = 3 * 2^24) and on
-     overflowing keys; ``gather_planes`` (``gather_checks``: index mode
-     with one source at 2^28 and 1..4 sources at 2^26 + 4099 on an
-     unaligned index plane with out-of-range indices, tagged mode on the
-     join's union of 2 x 10^8 rows and on ties with pads);
+     overflowing keys; ``gather_planes`` (``gather_checks``: both routes,
+     the partitioned one step by step too: index mode with one source at
+     2^28 and 1..4 sources at 2^26 + 4099 on an unaligned index plane with
+     out-of-range indices, tagged mode on the join's union of 2 x 10^8 rows
+     and on ties with pads, the skew cases at 2^26, the direct route up to
+     one window);
   4. the paths through the public entry points, each in a window of its
      own (``window``): the launch counts are set to 0 just before the path
      and read just after it, and every kernel the path runs must show >= 1
@@ -106,8 +108,10 @@ Phases, one line each (any failure raises and exits nonzero):
      (bytes over 3.35 TB/s or operations over 67 T/s, the larger) and, where
      one PyTorch call computes the same function, that call (the tile
      engine's kernels with their shared-memory round trips per tile;
-     ``gather_planes`` at config 2's and the join's shapes beside
-     ``index_select``;
+     ``gather_planes`` at config 2's, ``sort_multi``'s and the join's
+     shapes through both routes (the direct kernel and the partitioned
+     route, whole and step by step) beside ``index_select`` and the
+     partitioned route's floor;
      ``cross_stage<1>`` at the last merge level and ``finish`` on bitonic
      tiles, each first held equal to ``torch.sort`` of its view;
      ``cross_stage<2..4>`` likewise on columns bitonic along the 2^F
@@ -170,7 +174,11 @@ def _ptxas_name(kernel, args):
     if kernel == "compact":
         return f"compact<P{a[0]},mask{a[1]}B>"
     if kernel == "gather_planes":
-        return "gather_planes/tagged" if a[1] else f"gather_planes<{a[0]}>"
+        return ({1: "gather_planes/tagged", 2: "gather_planes/side"}.get(a[1])
+                or f"gather_planes<{a[0]}>")
+    if kernel.startswith("gather_"):
+        tag = "tagged/" if a and a[0] else ""
+        return f"gather_planes/{tag}{kernel[len('gather_'):]}"
     return kernel + (f"<{a[0]}>" if a else "")
 
 
@@ -183,7 +191,8 @@ def ptxas_report(log):
             r"Compiling entry function .*?(chunk_sort_cyclic|slot_merge|"
             r"chunk_sort|finish|cross_stage|radix_hist|radix_rank|radix_pack|"
             r"radix_concat|compact|segscan|dense_sums_smem|dense_sums_global|"
-            r"dense_extrema|gather_planes)_kernel(I(?:L[ib]\d+E)+E)?", ln)
+            r"dense_extrema|gather_planes|gather_count|gather_scan|"
+            r"gather_part|gather_place)_kernel(I(?:L[ib]\d+E)+E)?", ln)
         if found:
             kernel = _ptxas_name(found.group(1), found.group(2))
         elif kernel and ("Used" in ln or "spill" in ln):
@@ -652,7 +661,8 @@ def radix_path(dev):
     # (key, index) through the lex2 distribution sort, then the payload's
     # gather
     with window("radix_sort_pairs_stable_2e28",
-                (*radix_required(2, 2), "gather_planes")):
+                (*radix_required(2, 2),
+                 *gather_routes("index", "partitioned"))):
         got = sort_pairs(keys, payload, cfg)
     want = bench.torch_sort_pairs(keys, payload)
     ok = all(torch.equal(_i32(a), _i32(b)) for a, b in zip(got, want))
@@ -851,14 +861,75 @@ def single_pass_checks(dev, cfg, rng):
     torch.cuda.empty_cache()
 
 
+def gather_routes(mode, route):
+    """The launch names of one ``gather_planes`` route: the direct kernel,
+    or the partitioned route's five steps."""
+    from radx_tpu_torch.kernels import gather as GT
+
+    tag = "tagged/" if mode == "tagged" else ""
+    if route == "direct":
+        return (GT._KERNEL[mode],)
+    return tuple(f"gather_planes/{tag}{s}" for s in GT.STEPS)
+
+
+def gather_steps(idx, srcs, mode, window_rows=None, tile=None, **case):
+    """Each kernel of the partitioned route against its plain version on
+    the same inputs (the counts, their prefixes and totals, P, V, the
+    outputs), every one bit-equal; then the whole route against
+    ``gather_planes_ref``."""
+    from radx_tpu_torch.kernels import gather as GT
+
+    kw = {k: v for k, v in (("window_rows", window_rows), ("tile", tile))
+          if v is not None}
+    geo = GT.geometry(idx, srcs, mode, **kw)
+    steps = {}
+    counts = GT.count(idx, geo)
+    steps["count"] = [(counts, GT.count_ref(idx, geo))]
+    offsets, totals = GT.scan(counts, geo)
+    want_o, want_t = GT.scan_ref(counts, geo)
+    steps["scan"] = [(offsets, want_o), (totals, want_t)]
+    del counts, want_o, want_t
+    p = GT.part(idx, geo, offsets, totals)
+    steps["part"] = [(p, GT.part_ref(idx, geo, offsets, totals))]
+    side = srcs if geo.tagged else srcs[:1]
+    v = GT.window(p, side, geo, torch.empty_like(p))
+    steps["window"] = [(v, GT.window_ref(p, side, geo, torch.empty_like(p)))]
+    outs = [torch.empty_like(idx) for _ in range(1 + geo.tagged)]
+    steps["place"] = list(zip(
+        GT.place(idx, geo, offsets, totals, v, outs),
+        GT.place_ref(idx, geo, offsets, totals, v,
+                     [torch.empty_like(o) for o in outs])))
+    torch.cuda.synchronize()
+    for step, pairs in steps.items():
+        e = max(int((a - b).abs().max()) if a.numel() else 0
+                for a, b in pairs)
+        record([geo.name(step)], e, e == 0, n=idx.numel(), windows=geo.nb,
+               tiles=geo.tiles, **case)
+    del steps, p, v, offsets, totals
+    got = GT.partitioned(idx, srcs, mode, **kw)
+    want = GT.gather_planes_ref(idx, srcs, mode)
+    e = _max_err(got, want)
+    record(list(gather_routes(mode, "partitioned")), e, e == 0,
+           n=idx.numel(), sources=len(srcs), route="partitioned", **kw,
+           **case)
+
+
 def gather_checks(dev):
     """``gather_planes`` (csrc/gather.cu) against its plain version, every
-    output bit-equal: index mode with one source on a permutation of 2^28
-    rows (config 2's payload), with 1..4 sources on a permutation of 2^26 +
-    4099 rows whose index plane sits one row off 16-byte alignment (the
-    scalar path) and holds out-of-range indices (0 out); tagged mode on the
-    join's union of 2 x 10^8 rows (build and probe ties, shuffled) and on
-    2^20 + 4099 ties with pads."""
+    output bit-equal, through the route that ``gather_planes`` picks by
+    size (its launches counted: one direct launch, or count / scan / part
+    once and window / place once a value plane): index mode with one source
+    on a permutation of 2^28 rows (config 2's payload), with 1..4 sources
+    on a permutation of 2^26 + 4099 rows (no multiple of a tile) whose
+    index plane sits one row off 16-byte alignment and holds out-of-range
+    indices (0 out); tagged mode on the join's union of 2 x 10^8 rows
+    (build and probe ties, shuffled) and on 2^20 + 4099 ties with pads
+    (direct; partitioned at 2^16-row windows and 2^12-row tiles); the skew
+    cases at 2^26 (the identity: one bucket a tile; the reversal; one index
+    for every row: one bucket holds all; a quarter out of range); index
+    mode through the direct route at 2^20 and at one window (2^22 rows).
+    The partitioned cases also hold each step's kernel against its plain
+    version (``gather_steps``)."""
     from radx_tpu_torch.kernels import gather as GT
 
     gen = torch.Generator(device=dev).manual_seed(61)
@@ -873,15 +944,27 @@ def gather_checks(dev):
         return buf[offset:]
 
     def check(idx, srcs, mode, **case):
+        route = "partitioned" if GT.takes_partitioned(srcs) else "direct"
+        GT.reset_counts()
         got = GT.gather_planes(idx, srcs, mode)
-        want = GT.gather_planes_ref(idx, srcs, mode)
         torch.cuda.synchronize()
+        launched = {k: v for k, v in GT.LAUNCHES.items() if v}
+        planes = 1 if mode == "tagged" else len(srcs)
+        expect = ({GT._KERNEL[mode]: 1} if route == "direct" else
+                  {k: planes if k.endswith(("/window", "/place")) else 1
+                   for k in gather_routes(mode, route)})
+        if launched != expect:
+            _fail(f"gather_planes launched {launched}, not {expect} ({case})")
+        want = GT.gather_planes_ref(idx, srcs, mode)
         e = _max_err(got, want)
-        record([GT._KERNEL[mode]], e, e == 0, n=idx.numel(),
-               sources=len(srcs), **case)
+        record(list(expect), e, e == 0, n=idx.numel(), sources=len(srcs),
+               route=route, **case)
 
     n28 = 1 << 28
-    check(perm(n28), [rand32(n28)], "index", what="config 2 payload")
+    idx, srcs = perm(n28), [rand32(n28)]
+    check(idx, srcs, "index", what="config 2 payload")
+    gather_steps(idx, srcs, "index", what="config 2 payload")
+    del idx, srcs
     torch.cuda.empty_cache()
     n = (1 << 26) + 4099
     idx = perm(n, offset=1)
@@ -889,6 +972,7 @@ def gather_checks(dev):
     srcs = [rand32(n) for _ in range(4)]
     for g in range(1, 5):
         check(idx, srcs[:g], "index", offset=1, out_of_range=3)
+    gather_steps(idx, srcs, "index", offset=1, out_of_range=3)
     del idx, srcs
     for nb, np_, pads, offset in ((10**8, 10**8, 0, 0),
                                   (1 << 19, (1 << 19) + 99, 4000, 1)):
@@ -899,8 +983,30 @@ def gather_checks(dev):
         idx = torch.empty(n + offset, dtype=torch.int32, device=dev)[offset:]
         idx.copy_(ties[torch.randperm(n, generator=gen, device=dev)])
         del ties
-        check(idx, [rand32(nb), rand32(np_)], "tagged", build=nb, probe=np_,
-              pads=pads, offset=offset)
+        srcs = [rand32(nb), rand32(np_)]
+        case = dict(build=nb, probe=np_, pads=pads, offset=offset)
+        check(idx, srcs, "tagged", **case)
+        if GT.takes_partitioned(srcs):
+            gather_steps(idx, srcs, "tagged", **case)
+        else:
+            gather_steps(idx, srcs, "tagged", 1 << 16, 1 << 12, **case)
+        del idx, srcs
+        torch.cuda.empty_cache()
+    n26 = 1 << 26
+    src = [rand32(n26)]
+    ar = torch.arange(n26, dtype=torch.int32, device=dev)
+    quarter = perm(n26)
+    quarter[: n26 // 4] += n26
+    for skew, idx in (("identity", ar), ("reversal", ar.flip(0)),
+                      ("one_index", torch.full_like(ar, 12345)),
+                      ("quarter_out_of_range", quarter)):
+        check(idx, src, "index", skew=skew)
+        gather_steps(idx, src, "index", skew=skew)
+    del ar, quarter, src
+    for n in (1 << 20, GT.WINDOW_BYTES // 4):
+        idx = perm(n)
+        idx[:2] = torch.tensor([-7, n], dtype=torch.int32, device=dev)
+        check(idx, [rand32(n)], "index", out_of_range=2)
         del idx
     torch.cuda.empty_cache()
 
@@ -928,6 +1034,23 @@ def window(name, required):
     if missing or any(plain.values()):
         _fail(f"kernels not launched by the {name} path: {missing}; "
               f"plain calls {plain}")
+
+
+@contextlib.contextmanager
+def peak_memory(name, recorded_gib, *inputs):
+    """Print the block's peak device memory as the benchmark counts it
+    (``max_memory_allocated`` around one call, its inputs included: the
+    peak over what was allocated before the block, plus the inputs'
+    bytes), beside the figure PERF.md records for the cell."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    yield
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    held = sum(x.numel() * x.element_size() for x in inputs)
+    _line("peak", path=name, peak_device_gib=(extra + held) / 2**30,
+          perf_md_gib=recorded_gib)
 
 
 def _lex(*planes):
@@ -1025,9 +1148,10 @@ def join_path(dev):
     from radx_tpu_torch.kernels import segscan as SG
     from radx_tpu_torch.ops import join as J
 
-    # the union's (key, tie) sort, its value planes' gather, scan, compact
-    join_kernels = (*_lex(2), "gather_planes/tagged", *SG.KERNELS,
-                    *CP.KERNELS)
+    # the union's (key, tie) sort, its value planes' gather (sides of 10^8
+    # and 2^24 rows: the partitioned route), scan, compact
+    join_kernels = (*_lex(2), *gather_routes("tagged", "partitioned"),
+                    *SG.KERNELS, *CP.KERNELS)
     gen = torch.Generator(device=dev).manual_seed(31)
 
     def rand32(n):
@@ -1038,7 +1162,10 @@ def join_path(dev):
     build, probe = bench._join_tables(n8)
     want = bench.torch_join_ref(build.column("k"), build.column("w"),
                                 probe.column("k"), probe.column("v"))
-    with window("config4_join_inner_1e8", join_kernels):
+    with window("config4_join_inner_1e8", join_kernels), peak_memory(
+            "config4_join_inner_1e8", 9.45094,
+            *(t.column(c) for t, c in ((build, "k"), (build, "w"),
+                                       (probe, "k"), (probe, "v")))):
         inner = probe.join(build, "k", "v", "w")
     bench.check_join(inner, "k", "v", "w", want)
     _line("slice", input=f"config4_join_inner_n{n8}x{n8}", rows=inner.num_rows,
@@ -1118,8 +1245,9 @@ def sort_path(dev):
 
     n28 = 1 << 28
     keys, payload = bench.pairs_data(n28)
-    with window("config2_sort_pairs_stable_2e28",
-                (*_lex(2), "gather_planes")):
+    required = (*_lex(2), *gather_routes("index", "partitioned"))
+    with window("config2_sort_pairs_stable_2e28", required), peak_memory(
+            "config2_sort_pairs_stable_2e28", 6.0, keys, payload):
         got = sort_pairs(keys, payload)
     want = bench.torch_sort_pairs(keys, payload)
     if not all(torch.equal(_i32(a), _i32(b)) for a, b in zip(got, want)):
@@ -1156,7 +1284,8 @@ def sort_path(dev):
     del got, got_odd
     pays = [rand32(n26) for _ in range(6)]
     for m, size in ((5, n26), (3, small), (4, small), (6, small)):
-        with window(f"sort_multi_{m}_payloads", (*_lex(2), "gather_planes")):
+        with window(f"sort_multi_{m}_payloads",
+                    (*_lex(2), *gather_routes("index", "partitioned"))):
             sk, sp = S.sort_multi(k26[:size].view(torch.uint32),
                                   [p[:size].view(torch.float32)
                                    for p in pays[:m]])
@@ -2345,37 +2474,72 @@ def main():
                                      [hflag32]), 20 * n26, n26)
     del skeys, col, hflag, hflag32
 
-    # gather_planes at the main path's shapes: config 2's payload (one
-    # source, 2^28 rows) and the join's union (tagged, 2 x 10^8 rows from
-    # two sources of 10^8); beside them four sources at 2^26 (sort_multi).
-    # Bound: the index read, each source row read once, the outputs
-    # written (12 + 8 (G - 1) bytes a row; 16 tagged); library call:
-    # index_select of the same planes (none computes the tagged mode)
-    def gather_time(name, log_n, n, srcs, mode, lib):
-        gidx = (torch.randperm(n, device=dev) if mode == "index" else torch.cat(
-            (torch.arange(n // 2, device=dev),
-             torch.arange(n - n // 2, device=dev) + GT.PROBE_TIE))[
-                 torch.randperm(n, device=dev)]).to(i32)
-        outs = len(srcs)
-        time_pair(name, log_n, lambda: GT.gather_planes(gidx, srcs, mode),
-                  lambda: GT.gather_planes_ref(gidx, srcs, mode),
-                  4 * n + 4 * sum(s.numel() for s in srcs) + 4 * outs * n,
-                  lib=(lambda: [torch.index_select(s, 0, gidx) for s in srcs])
-                  if lib else None, n=n, sources=len(srcs))
+    # gather_planes at the main path's shapes (bench.gather_inputs):
+    # config 2's payload (one source, 2^28 rows), four sources at 2^26
+    # (sort_multi), the join's union (tagged, 2 x 10^8 rows from two
+    # sources of 10^8).  Each through both routes: the direct kernel (the
+    # first design; the route of sources within one window) and the
+    # partitioned route that gather_planes takes at these sizes, whole and
+    # step by step.  Bound (bench.gather_bytes): the index read, each
+    # source row read once, the outputs written; beside it the partitioned
+    # route's own floor in sequential passes.  Library call: index_select
+    # of the same planes (none computes the tagged mode)
+    def gather_time(case, suffix):
+        gidx, srcs, mode = bench.gather_inputs(case)
+        n = gidx.numel()
+        log_n = n.bit_length() - 1
+        by = bench.gather_bytes(n, srcs, mode)
+        lib = None if mode == "tagged" else (
+            lambda: [torch.index_select(s, 0, gidx) for s in srcs])
+        floor = {"floor_ms": by["floor"] / HBM_BYTES_PER_S * 1e3}
+        direct = GT._KERNEL[mode]
+        time_pair(direct + suffix, log_n,
+                  lambda: GT.direct(gidx, srcs, mode),
+                  lambda: GT.gather_planes_ref(gidx, srcs, mode), by["bound"],
+                  lib=lib, n=n, sources=len(srcs), route="direct", **floor)
+        time_pair(f"{direct}/partitioned{suffix}", log_n,
+                  lambda: GT.partitioned(gidx, srcs, mode),
+                  lambda: GT.gather_planes_ref(gidx, srcs, mode), by["bound"],
+                  lib=lib, n=n, sources=len(srcs), route="partitioned",
+                  **floor)
+        if suffix:
+            return
+        # the steps, on the inputs the route gives them (the window out of
+        # place, so that every timed call reads the same P)
+        geo = GT.geometry(gidx, srcs, mode)
+        side = srcs if geo.tagged else srcs[:1]
+        counts = GT.count(gidx, geo)
+        offsets, totals = GT.scan(counts, geo)
+        p = GT.part(gidx, geo, offsets, totals)
+        v = torch.empty_like(p)
+        outs = [torch.empty_like(gidx) for _ in range(1 + geo.tagged)]
+        table = 8 * counts.numel()
+        outs_b = 4 * n * len(outs)
+        steps = {
+            "count": (lambda: GT.count(gidx, geo),
+                      lambda: GT.count_ref(gidx, geo), 4 * n + table, None),
+            "scan": (lambda: GT.scan(counts, geo),
+                     lambda: GT.scan_ref(counts, geo), 2 * table, None),
+            "part": (lambda: GT.part(gidx, geo, offsets, totals),
+                     lambda: GT.part_ref(gidx, geo, offsets, totals),
+                     8 * n + table, None),
+            "window": (lambda: GT.window(p, side, geo, v),
+                       lambda: GT.window_ref(p, side, geo, v),
+                       8 * n + 4 * sum(q.numel() for q in side),
+                       None if geo.tagged else
+                       (lambda: torch.index_select(side[0], 0, p))),
+            "place": (lambda: GT.place(gidx, geo, offsets, totals, v, outs),
+                      lambda: GT.place_ref(gidx, geo, offsets, totals, v,
+                                           outs), 8 * n + outs_b + table,
+                      None)}
+        for step, (kern, ref, bytes_, lib_step) in steps.items():
+            time_pair(geo.name(step), log_n, kern, ref, bytes_, lib=lib_step,
+                      n=n, windows=geo.nb, tile=1 << geo.log_tile)
 
-    def rand_planes(count, n):
-        return [torch.randint(-(2**31), 2**31, (n,), dtype=i32, device=dev)
-                for _ in range(count)]
-
-    gather_time("gather_planes", 28, 1 << 28, rand_planes(1, 1 << 28),
-                "index", True)
-    torch.cuda.empty_cache()
-    gather_time("gather_planes/4_sources", 26, n26, rand_planes(4, n26),
-                "index", True)
-    torch.cuda.empty_cache()
-    gather_time("gather_planes/tagged", 28, 2 * 10**8,
-                rand_planes(2, 10**8), "tagged", False)
-    torch.cuda.empty_cache()
+    for case, suffix in (("pairs", ""), ("multi", "/4_sources"),
+                         ("tagged", "")):
+        gather_time(case, suffix)
+        torch.cuda.empty_cache()
 
     # the dense aggregates at 2^26 rows, 256 bins (the config-3 shape)
     dk = torch.randint(0, 256, (n26,), dtype=i32, generator=gen,
@@ -2528,9 +2692,10 @@ def main():
         "radix_pack": "radx_tpu/kernels/msd.py:194",
         "radix_concat": "radx_tpu/kernels/msd.py:243",
         # no Pallas kernel: the value planes that the JAX package sorts as
-        # riders (the stable sorts' payloads, the join union's values)
-        "gather_planes": "radx_tpu/ops/sort.py:136",
-        "gather_planes/tagged": "radx_tpu/ops/join.py:70",
+        # riders (the stable sorts' payloads, the join union's values); both
+        # routes, every step of the partitioned one
+        **{k: "radx_tpu/ops/join.py:70" if "tagged" in k
+           else "radx_tpu/ops/sort.py:136" for k in GT.KERNELS},
     }
 
     def entry(name):

@@ -45,7 +45,8 @@ plain torch reference on the card):
 
 ``sweep`` runs the tile sweep of the keys-only, rider and lexicographic
 sorts, ``sweep_scan`` times the single-pass compaction on three shapes and
-sweeps the segmented scan's tile,
+sweeps the segmented scan's tile, ``sweep_gather`` the value gather's
+window and tile (partitioned route) beside its direct route,
 ``profile`` the keys-only sort, group-by, join and dense-query breakdowns by
 layer (torch.profiler), ``launch`` the cost of one small kernel's launch
 path.
@@ -60,6 +61,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import sys
 import time
 
@@ -785,7 +787,7 @@ def profile_join(n: int = 10**8, calls: int = 2) -> dict:
     build, probe = _join_tables(n)
 
     def layer_of(name):
-        if "gather_planes" in name:
+        if re.search(r"gather_(planes|count|scan|part|place)_kernel", name):
             return "gather"
         return "lex_sort" if _layer(name) == "rider_sort" else _layer(name)
 
@@ -974,6 +976,83 @@ def sweep_hist(n: int = 1 << 26) -> list[dict]:
     return rows
 
 
+def gather_inputs(case: str, seed: int = 29):
+    """(index, sources, mode) of ``gather_planes`` at the main path's
+    shapes: ``"pairs"`` config 2's payload (a permutation of 2^28 rows, one
+    source), ``"multi"`` four sources of 2^26 rows (``sort_multi``),
+    ``"tagged"`` the join's union (2 x 10^8 shuffled build and probe ties,
+    sources of 10^8).  Made on the card."""
+    from radx_tpu_torch.kernels import gather
+
+    g = _generator(seed)
+    dev = g.device
+    if case == "tagged":
+        n = 10**8
+        ties = torch.cat((torch.arange(n, device=dev),
+                          torch.arange(n, device=dev) + gather.PROBE_TIE))
+        idx = ties[torch.randperm(2 * n, generator=g, device=dev)]
+        srcs = [_randint(-(2**31), 2**31, n, g) for _ in range(2)]
+        return idx.to(torch.int32), srcs, "tagged"
+    n, count = {"pairs": (1 << 28, 1), "multi": (1 << 26, 4)}[case]
+    idx = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    return idx, [_randint(-(2**31), 2**31, n, g) for _ in range(count)], "index"
+
+
+def gather_bytes(n: int, sources, mode: str) -> dict:
+    """The gather's bound (the index read, each source row read once, the
+    outputs written) and the partitioned route's own floor in sequential
+    passes (one source of n rows: count 4 bytes a row, part 8, window 12,
+    place 12; 24 more a row for each further source: place's index read,
+    window's P read, source read and V write, place's V read and output
+    write; tagged: one window, two outputs), bytes."""
+    outs = 2 if mode == "tagged" else len(sources)
+    src = sum(s.numel() for s in sources)
+    planes = 1 if mode == "tagged" else len(sources)
+    return {"bound": 4 * n + 4 * src + 4 * outs * n,
+            "floor": 12 * n + 16 * planes * n + 4 * src + 4 * outs * n}
+
+
+def sweep_gather(windows=(4, 8, 16, 32), tiles=(1 << 11, 1 << 12, 1 << 13),
+                 cases=("pairs", "multi", "tagged")) -> list[dict]:
+    """``gather_planes``'s partitioned route at windows of ``windows`` MiB
+    of source and tiles of ``tiles`` index rows, on each ``gather_inputs``
+    case, beside the direct route and ``index_select`` (index mode) at the
+    same shapes; every result first held against ``gather_planes_ref``.
+    ``bound_ms`` / ``floor_ms``: ``gather_bytes`` over 3.35 TB/s."""
+    from radx_tpu_torch.kernels import gather
+
+    rows = []
+    for case in cases:
+        idx, srcs, mode = gather_inputs(case)
+        n = idx.numel()
+        want = gather.gather_planes_ref(idx, srcs, mode)
+        by = gather_bytes(n, srcs, mode)
+        calls = {"direct": lambda: gather.direct(idx, srcs, mode)}
+        if mode == "index":
+            calls["index_select"] = lambda: [torch.index_select(s, 0, idx)
+                                             for s in srcs]
+        for w in windows:
+            for t in tiles:
+                calls[f"partitioned W={w}MiB T={t}"] = (
+                    lambda w=w, t=t: gather.partitioned(
+                        idx, srcs, mode, (w << 20) // 4, t))
+        for route, call in calls.items():
+            got = call()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"gather {route} differs on {case}")
+            del got
+            tm = timing.time_cuda(call, iters=5, repeats=3)
+            rows.append({"kernel": "gather_planes", "case": case, "n": n,
+                         "sources": len(srcs), "route": route,
+                         "ms": tm.seconds * 1e3, "spread_pct": tm.spread_pct,
+                         "bound_ms": by["bound"] / 3.35e9,
+                         "floor_ms": by["floor"] / 3.35e9,
+                         "device": timing.device_info()})
+        del idx, srcs, want, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
 RADIX = SortConfig(strategy="radix")
 
 
@@ -1074,6 +1153,7 @@ MEASURES = {
                         profile_join(), profile_query_dense()],
     "launch": lambda: [measure_launch(1 << 26), measure_launch(1 << 28)],
     "sweep_hist": lambda: sweep_hist(),
+    "sweep_gather": lambda: sweep_gather(),
     "profile_radix": lambda: [profile_radix()],
     "radix": lambda: [measure_radix(1 << 26), measure_radix(1 << 28),
                       profile_radix()],

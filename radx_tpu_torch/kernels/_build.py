@@ -71,8 +71,19 @@ _SIGNATURES = {
     # keys, n, log_tile, vals, flags, outs, out_flags, scratch, op, dtype, m,
     # stream
     "radx_segscan": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # index, n, sources, source rows, outs, num_src, tagged, stream
+    # index, n, sources, source rows, outs, num_src, mode, stream
     "radx_gather_planes": (_P, _I, _P, _P, _P, _I, _I, _P),
+    # index, n, rows0, rows1, tagged, log_w, log_tile, counts, stream
+    "radx_gather_count": (_P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # counts, buckets, tiles, offsets, totals, stream
+    "radx_gather_scan": (_P, _I, _I, _P, _P, _P),
+    # index, n, rows0, rows1, tagged, log_w, log_tile, offsets, totals, P,
+    # stream
+    "radx_gather_part": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # index, n, rows0, rows1, tagged, log_w, log_tile, offsets, totals, V,
+    # out0, out1, stream
+    "radx_gather_place": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P),
 }
 
 _lock = threading.Lock()

@@ -437,13 +437,56 @@ def _tagged_ties(cuda, n, gen):
     return tie.to(torch.int32), nb, np_
 
 
-@pytest.mark.parametrize("n", [1 << 26, (1 << 20) + 4099])
+def _route_launches(srcs, mode):
+    """The launches one ``gather_planes`` call makes: one direct launch, or
+    the partitioned route's count / scan / part once and window / place
+    once a value plane (one in tagged mode)."""
+    if not tgt.takes_partitioned(srcs):
+        return {tgt._KERNEL[mode]: 1}
+    tag = "tagged/" if mode == "tagged" else ""
+    planes = 1 if mode == "tagged" else len(srcs)
+    return {f"gather_planes/{tag}{s}": planes if s in ("window", "place")
+            else 1 for s in tgt.STEPS}
+
+
+def _scratch_bound(idx, srcs, mode):
+    """The outputs, one plane of the index's length (P) and the route's
+    two tables (counts and their prefixes, with the totals), bytes."""
+    n = idx.numel()
+    outs = 4 * n * len(srcs)
+    if not tgt.takes_partitioned(srcs):
+        return outs
+    geo = tgt.geometry(idx, srcs, mode)
+    return outs + 4 * n + 16 * (geo.nb + 1) * (geo.tiles + 1)
+
+
+def _gather_on_card(index, srcs, mode):
+    """One routed call: (outputs, launches, extra device bytes at the
+    peak)."""
+    tgt.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = tgt.gather_planes(index, srcs, mode)
+    torch.cuda.synchronize()
+    return (got, {k: v for k, v in tgt.LAUNCHES.items() if v},
+            torch.cuda.max_memory_allocated() - base)
+
+
+W4 = tgt.WINDOW_BYTES // 4  # rows of one source that one window holds
+
+
+@pytest.mark.parametrize("n", [1 << 26, (1 << 20) + 4099, W4, W4 + 1])
 @pytest.mark.parametrize("mode", ["index", "tagged"])
 def test_gather_planes_matches_plain(cuda, n, mode):
     """Index mode with 1..4 sources on a permutation with out-of-range
     indices, tagged mode on build / probe / pad ties; each also on an index
-    plane one row off 16-byte alignment (the scalar path).  Bit-equal to
-    ``gather_planes_ref``, one launch a call, no plain call."""
+    plane one row off 16-byte alignment (the scalar paths).  Sizes on both
+    sides of the route threshold (one window of sources: direct; above:
+    partitioned).  Bit-equal to ``gather_planes_ref``, the route's launches
+    a call (one direct launch; count / scan / part once, window / place
+    once a value plane), no plain call, and no device memory beyond the
+    outputs, one plane and the route's tables."""
     gen = torch.Generator(device=cuda).manual_seed(n % 1000)
     if mode == "index":
         idx = torch.randperm(n, generator=gen, device=cuda).to(torch.int32)
@@ -457,45 +500,94 @@ def test_gather_planes_matches_plain(cuda, n, mode):
     shifted[1:] = idx
     for index in (idx, shifted[1:]):
         for srcs in cases:
-            tgt.reset_counts()
-            got = tgt.gather_planes(index, srcs, mode)
-            torch.cuda.synchronize()
-            launches = dict(tgt.LAUNCHES)
+            got, launches, extra = _gather_on_card(index, srcs, mode)
             want = tgt.gather_planes_ref(index, srcs, mode)
             assert len(got) == len(want)
             assert all(torch.equal(g, w) for g, w in zip(got, want))
-            assert sum(launches.values()) == 1
+            assert launches == _route_launches(srcs, mode)
+            assert extra <= _scratch_bound(index, srcs, mode) + (1 << 20)
 
 
-def test_two_plane_sorts_gather_on_the_card(cuda):
-    """sort_pairs, sort_multi (seven payloads: two launches) and the join's
-    union: the lex2 network and the gather kernel, no plain call; every
-    value plane exact against torch."""
+SKEWS = ["identity", "reversal", "one_index", "quarter_out_of_range"]
+
+
+@pytest.mark.parametrize("skew", SKEWS)
+def test_gather_partitioned_skew_cases(cuda, skew):
+    """The partitioned route at 2^26 rows on skewed index planes (one
+    bucket a tile; tiles in reverse; one bucket holds every row; a quarter
+    in the null bucket), step by step: each kernel (counts, prefixes and
+    totals, P, V, the outputs) bit-equal to its plain version on the same
+    inputs, then the routed call to ``gather_planes_ref``."""
+    n = 1 << 26
+    gen = torch.Generator(device=cuda).manual_seed(SKEWS.index(skew))
+    ar = torch.arange(n, dtype=torch.int32, device=cuda)
+    if skew == "quarter_out_of_range":
+        idx = torch.randperm(n, generator=gen, device=cuda).to(torch.int32)
+        idx[: n // 4] += n
+    else:
+        idx = {"identity": ar, "reversal": ar.flip(0),
+               "one_index": torch.full_like(ar, 12345)}[skew]
+    srcs = [_keys(cuda, n, seed=7)]
+    geo = tgt.geometry(idx, srcs, "index")
+    counts = tgt.count(idx, geo)
+    assert torch.equal(counts, tgt.count_ref(idx, geo))
+    off, tot = tgt.scan(counts, geo)
+    want_off, want_tot = tgt.scan_ref(counts, geo)
+    assert torch.equal(off, want_off) and torch.equal(tot, want_tot)
+    p = tgt.part(idx, geo, off, tot)
+    assert torch.equal(p, tgt.part_ref(idx, geo, off, tot))
+    v = tgt.window(p, srcs, geo, torch.empty_like(p))
+    assert torch.equal(v, tgt.window_ref(p, srcs, geo, torch.empty_like(p)))
+    (out,) = tgt.place(idx, geo, off, tot, v, [torch.empty_like(idx)])
+    (want,) = tgt.place_ref(idx, geo, off, tot, v, [torch.empty_like(idx)])
+    assert torch.equal(out, want)
+    got, launches, extra = _gather_on_card(idx, srcs, "index")
+    assert torch.equal(got[0], tgt.gather_planes_ref(idx, srcs, "index")[0])
+    assert launches == _route_launches(srcs, "index")
+    assert extra <= _scratch_bound(idx, srcs, "index") + (1 << 20)
+
+
+@pytest.mark.parametrize("n", [3_000_017, (1 << 23) + 5])
+def test_two_plane_sorts_gather_on_the_card(cuda, n):
+    """sort_pairs, sort_multi (seven payloads: two gathers of four and
+    three) and the join's union: the lex2 network and the gather kernels,
+    no plain call; every value plane exact against torch.  3,000,017 rows:
+    one payload or the union's two sides within one window (direct), the
+    payload groups above it; 2^23 + 5 rows: every gather partitioned."""
     rng = np.random.default_rng(14)
-    n = 3_000_017
     k = torch.from_numpy(rng.integers(0, 1 << 12, n, dtype=np.uint32)).to(cuda)
     pays = [_keys(cuda, n, seed=j) for j in range(7)]
     o = torch.sort(k.view(torch.int32), stable=True).indices
     _reset_all()
     _, gp = sort_pairs(k, pays[0])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in tgt.LAUNCHES.items() if v} == _route_launches(
+        pays[:1], "index") and _no_plain_calls()
+    _reset_all()
     _, gps = sort_multi(k, pays)
     torch.cuda.synchronize()
-    assert tgt.LAUNCHES["gather_planes"] == 3 and _no_plain_calls()
+    want = {}
+    for group in (pays[:4], pays[4:]):
+        for name, count in _route_launches(group, "index").items():
+            want[name] = want.get(name, 0) + count
+    assert {k: v for k, v in tgt.LAUNCHES.items() if v} == want
+    assert _no_plain_calls()
     assert tb.LAUNCHES["chunk_sort/lex2"] and not tb.LAUNCHES["chunk_sort/lex3"]
     assert torch.equal(gp.view(torch.int32), pays[0][o])
     assert all(torch.equal(g, p[o]) for g, p in zip(gps, pays))
     bk = k[: n // 2]
     pk = k[n // 2:]
+    bv, pv = pays[1][: n // 2], pays[2][n // 2:]
     _reset_all()
-    key, tie, bval, pval = tj.tagged_union(bk, pays[1][: n // 2], pk,
-                                           pays[2][n // 2:], CFG)
+    key, tie, bval, pval = tj.tagged_union(bk, bv, pk, pv, CFG)
     torch.cuda.synchronize()
-    assert tgt.LAUNCHES["gather_planes/tagged"] == 1 and _no_plain_calls()
+    assert {k: v for k, v in tgt.LAUNCHES.items() if v} == _route_launches(
+        [bv, pv], "tagged") and _no_plain_calls()
     assert tb.LAUNCHES["chunk_sort/lex2"] and not tb.LAUNCHES["chunk_sort/lex4"]
     build = tie < tgt.PROBE_TIE
-    assert torch.equal(bval, torch.where(build, pays[1][tie.clamp(
+    assert torch.equal(bval, torch.where(build, bv[tie.clamp(
         max=n // 2 - 1).long()], 0))
-    assert torch.equal(pval, torch.where(build, 0, pays[2][n // 2:][
+    assert torch.equal(pval, torch.where(build, 0, pv[
         (tie - tgt.PROBE_TIE).clamp(min=0).long()]))
 
 
