@@ -53,7 +53,11 @@ Phases, one line each (any failure raises and exits nonzero):
           until ``collect()`` (peak device memory printed), then K8 / K9
           against their plain versions on that path's own inputs; config 4,
           ``Table.join`` of two 10^8-row tables, inner and left (float32
-          build values); the multi-match join at 2^24 with ``truncated``;
+          build values), the union sorted at its own length (pieces of
+          2^27 and 2^26 rows, their lengths printed); ``LazyTable.join``
+          under ``"radix"`` and the sync guard with a union in pieces (no
+          radix kernel, no host read); the multi-match join at 2^24 with
+          ``truncated``;
           config 2, stable ``sort_pairs`` of 2^28 pairs and
           ``assume_unique`` on a permutation; ``argsort`` (also at a
           non-power-of-two n on the arbitrary-N path), ``sort_multi``,
@@ -1138,15 +1142,41 @@ def dense_path(dev, card):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def sorted_rows(seen):
+    """Append to ``seen`` the rows of every ``bitonic.sort_planes`` call
+    inside the block (the whole sorts and the arbitrary-N pieces)."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    real = B.sort_planes
+
+    def spy(x, *args, **kwargs):
+        seen.append(x.numel())
+        return real(x, *args, **kwargs)
+
+    B.sort_planes = spy
+    try:
+        yield
+    finally:
+        B.sort_planes = real
+
+
 def join_path(dev):
     """Config 4 (``Table.join`` of two 10^8-row tables, inner and left with
-    float32 build values) and the multi-match join at 2^24, each exactly
-    against a plain torch reference."""
-    from radx_tpu_torch import Table
+    float32 build values: the union sorted at its own length, pieces of
+    2^27 and 2^26 rows), ``LazyTable.join`` under ``"radix"`` and the sync
+    guard with a union in pieces, and the multi-match join at 2^24, each
+    exactly against a plain torch reference."""
+    from radx_tpu_torch import SortConfig, Table
     from radx_tpu_torch import bench
+    from radx_tpu_torch.examples.query_pipeline import no_sync
+    from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.kernels import compact as CP
+    from radx_tpu_torch.kernels import msd as M
+    from radx_tpu_torch.kernels import radix as RX
     from radx_tpu_torch.kernels import segscan as SG
     from radx_tpu_torch.ops import join as J
+    from radx_tpu_torch.ops import sort as S
 
     # the union's (key, tie) sort, its value planes' gather (sides of 10^8
     # and 2^24 rows: the partitioned route), scan, compact
@@ -1158,17 +1188,28 @@ def join_path(dev):
         return torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
                              generator=gen, device=dev)
 
+    def union_rows(n):
+        """The rows the union's network sorts: whole lex2 blocks."""
+        chunk = SortConfig().lex_tiles(2)[0]
+        return S._decompose_blocks(n, chunk)[0] * chunk
+
     n8 = 10**8
     build, probe = bench._join_tables(n8)
     want = bench.torch_join_ref(build.column("k"), build.column("w"),
                                 probe.column("k"), probe.column("v"))
+    pieces = []
     with window("config4_join_inner_1e8", join_kernels), peak_memory(
-            "config4_join_inner_1e8", 9.45094,
+            "config4_join_inner_1e8", 8.95094,
             *(t.column(c) for t, c in ((build, "k"), (build, "w"),
-                                       (probe, "k"), (probe, "v")))):
+                                       (probe, "k"), (probe, "v")))), \
+            sorted_rows(pieces):
         inner = probe.join(build, "k", "v", "w")
     bench.check_join(inner, "k", "v", "w", want)
+    if sum(pieces) != union_rows(2 * n8) or len(pieces) != 2:
+        _fail(f"the union of 2 x 10^8 rows sorted pieces of {pieces} rows")
     _line("slice", input=f"config4_join_inner_n{n8}x{n8}", rows=inner.num_rows,
+          union_rows=2 * n8, union_sorted_rows=sum(pieces),
+          union_pieces=pieces, pow2_rows=S._pad_len(2 * n8),
           equal_reference=True)
     del inner, want
     build_f = Table({"k": build.column("k"),
@@ -1184,6 +1225,31 @@ def join_path(dev):
     _line("slice", input=f"config4_join_left_float32_n{n8}x{n8}",
           rows=left.num_rows, equal_reference=True, build_bits_kept=True)
     del build, probe, build_f, left
+
+    # LazyTable.join under "radix" with a union of 2 x 5 * 2^20 rows (2^24
+    # as a power of two): its pieces stay on the network, so nothing reads
+    # the host and no radix kernel runs until collect()
+    n20 = 5 << 20
+    build, probe = bench._join_tables(n20)
+    radix = SortConfig(strategy="radix")
+    pieces = []
+    with window("lazy_join_radix_arbn", join_kernels), sorted_rows(pieces):
+        with no_sync(dev):
+            lazy = probe.lazy(radix).join(build.lazy(radix), "k", "v", "w")
+        got = lazy.collect()
+    ran = {k: v for m in (B, RX, M) for k, v in m.LAUNCHES.items()
+           if v and k in (*B.RADIX_KERNELS, *RX.KERNELS, *M.KERNELS)}
+    if ran or sum(pieces) != union_rows(2 * n20) or len(pieces) < 2:
+        _fail(f"the lazy join's union ran radix kernels {ran} or sorted "
+              f"pieces of {pieces} rows")
+    bench.check_join(got, "k", "v", "w", bench.torch_join_ref(
+        build.column("k"), build.column("w"), probe.column("k"),
+        probe.column("v")))
+    _line("slice", input=f"lazy_join_radix_n{n20}x{n20}", rows=got.num_rows,
+          union_sorted_rows=sum(pieces), union_pieces=pieces,
+          pow2_rows=S._pad_len(2 * n20), sync_guard="error until collect()",
+          radix_launches=0, equal_reference=True)
+    del build, probe, lazy, got
 
     # the multi-match join: every build key 4 times, one key 5 times
     n24 = 1 << 24

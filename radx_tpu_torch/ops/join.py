@@ -4,14 +4,16 @@
 ``join_merge`` and ``join_merge_multi`` sort one tagged union of both sides
 by the two-plane lexicographic mode of the bitonic network — (key, tie),
 where the tie is the build row's index or 2^30 plus the probe row's index,
-so build rows come first within a key — then gather its build-value and
-probe-value planes by the sorted tie (kernels/gather, tagged mode; the JAX
-package sorts those two planes through the network as well, four planes
-in all), then run segmented scans over the sorted keys (kernels/segscan:
-``fill`` carries a build value forward through its key's run, ``sum`` ranks
-build rows), then stable compaction (kernels/compact).  ``join_inner``
-sorts the build side stably and probes it with ``torch.searchsorted`` (the
-JAX package's ``jnp.searchsorted``).
+so build rows come first within a key; from 2^22 rows, where a power of two
+would pad by more than 10%, as the pieces and valley merges of the
+arbitrary-N sorts (the JAX package pads to a power of two) — then gather
+its build-value and probe-value planes by the sorted tie (kernels/gather,
+tagged mode; the JAX package sorts those two planes through the network as
+well, four planes in all), then run segmented scans over the sorted keys
+(kernels/segscan: ``fill`` carries a build value forward through its key's
+run, ``sum`` ranks build rows), then stable compaction (kernels/compact).
+``join_inner`` sorts the build side stably and probes it with
+``torch.searchsorted`` (the JAX package's ``jnp.searchsorted``).
 
 Row caps: each side of a join holds at most 2^30 - 1 rows, as in the JAX
 package, because the probe tiebreak starts at 2^30 (ROADMAP F3: the cap is
@@ -64,12 +66,23 @@ def tagged_union(enc_b, build_vals, enc_p, probe_vals, cfg: SortConfig):
     """The sorted tagged union of both sides: (key, tie, build value, probe
     value) int32 planes of the union's rows (nb + np), sorted by (key, tie);
     a build row's probe value and a probe row's build value are 0.  Only
-    (key, tie) go through the network, padded to a power of two (pads: key
-    and tie 0x7FFFFFFF, after every row); the value planes are gathered by
-    the sorted tie of the nb + np rows (``gather.gather_planes``, tagged)."""
+    (key, tie) go through the network, on the lex2 tiles and under every
+    strategy.  Where ``sort_ops._worth_decomposing`` holds they are padded
+    to ``blocks * chunk`` rows and sorted as the arbitrary-N pieces and
+    valley merges of ``sort_ops._sort_pieces`` (the JAX package pads to a
+    power of two); elsewhere to a power of two.  Pads (key and tie
+    0x7FFFFFFF) follow every row, since a real tie is below 2^31 - 1, so
+    the first nb + np rows are the same either way.  The value planes are
+    gathered by their sorted tie (``gather.gather_planes``, tagged)."""
     nb, np_ = enc_b.numel(), enc_p.numel()
     n = nb + np_
-    total = sort_ops._pad_len(n)
+    chunk, fin = cfg.lex_tiles(2)
+    sizes = None
+    if sort_ops._worth_decomposing(n):
+        blocks, sizes = sort_ops._decompose_blocks(n, chunk)
+        total = blocks * chunk
+    else:
+        total = sort_ops._pad_len(n)
     dev = enc_b.device
     key = torch.full((total,), sort_ops._PAD_KEY, dtype=torch.int32, device=dev)
     key[:nb] = enc_b.view(torch.int32) ^ sort_ops._SIGN
@@ -77,7 +90,11 @@ def tagged_union(enc_b, build_vals, enc_p, probe_vals, cfg: SortConfig):
     tie = torch.full((total,), _I32_MAX, dtype=torch.int32, device=dev)
     tie[:nb] = torch.arange(nb, dtype=torch.int32, device=dev)
     tie[nb:n] = torch.arange(np_, dtype=torch.int32, device=dev) + PROBE_TIE
-    sort_ops._lex_sort([key, tie], cfg)
+    if sizes is None:
+        sort_ops._lex_sort([key, tie], cfg)
+    else:
+        sort_ops._sort_pieces([key, tie], sizes, chunk, fin, cfg, 2,
+                              network=True)
     bval, pval = gather.gather_planes(
         tie[:n], [build_vals.contiguous().view(torch.int32),
                   probe_vals.contiguous().view(torch.int32)], "tagged")

@@ -22,7 +22,8 @@ The sorts that the JAX package sends through its ``_engine`` go through
 modules) ``unique``, ``groupby``'s rider sort and ``join_inner``.  The rest
 stay on the network under every strategy, as in the JAX package:
 ``LazyTable``, ``join_merge``, ``top_k`` and the descending arbitrary-N
-pieces (``_lex_sort`` and ``bitonic`` directly).
+pieces (``_lex_sort`` and ``bitonic`` directly), and every piece of the
+joins' tagged union (``_sort_pieces(..., network=True)``).
 
 Entry points: ``sort``, ``sort_any`` (uint32 / int32 / float32 tensors, and
 uint64 / int64 / float64 numpy arrays), ``argsort``, ``sort_pairs`` (stable,
@@ -187,15 +188,16 @@ def _decompose_blocks(n: int, block_elems: int):
 
 
 def _sort_pieces(planes, sizes, chunk: int, fin: int, cfg: SortConfig,
-                 num_cmp: int):
+                 num_cmp: int, *, network: bool = False):
     """The arbitrary-N scheme, in place on ``planes`` (any mode): pieces of
     ``sizes`` blocks of ``chunk`` rows each (largest first) lie back to back;
     all but the last sort descending (every direction bit flipped) on the
     network, the last through ``_engine`` (the distribution sort under
-    ``"radix"`` where it plans); then they fold smallest-first through
-    valley merges on virtual-tail bitonic networks
-    (kernels/bitonic.merge_valley_ascending).  Each fold's valley
-    (descending piece ++ ascending merged suffix) is a suffix of the
+    ``"radix"`` where it plans, which reads its overflow flag on the host),
+    or, with ``network``, ascending on the network under every strategy;
+    then they fold smallest-first through valley merges on virtual-tail
+    bitonic networks (kernels/bitonic.merge_valley_ascending).  Each fold's
+    valley (descending piece ++ ascending merged suffix) is a suffix of the
     buffer, so every step works in place.  Sentinel pads that spill into
     the descending pieces are just large keys: the merges push them to the
     tail."""
@@ -208,7 +210,11 @@ def _sort_pieces(planes, sizes, chunk: int, fin: int, cfg: SortConfig,
     for piece in heads:
         k, rider, lex = bitonic._keywords(piece, num_cmp)
         bitonic.sort_planes(k, chunk, fin, True, rider=rider, lex=lex)
-    _engine(last, cfg, num_cmp, last[0].numel())
+    if network:
+        k, rider, lex = bitonic._keywords(last, num_cmp)
+        bitonic.sort_planes(k, chunk, fin, rider=rider, lex=lex)
+    else:
+        _engine(last, cfg, num_cmp, last[0].numel())
     for o in reversed(offsets[:-1]):
         k, rider, lex = bitonic._keywords([p[o:] for p in planes], num_cmp)
         bitonic.merge_valley_ascending(k, chunk, fin, rider=rider, lex=lex)
@@ -242,12 +248,16 @@ def _sort_rider_arbn(keys: torch.Tensor, payload: torch.Tensor,
     return _unbias(kp, total), pp
 
 
+def _worth_decomposing(n: int) -> bool:
+    """The size test of the piece-merge path: pow2 padding would waste
+    >10% and the size is large enough for the extra passes to pay off."""
+    return n >= (1 << 22) and _pad_len(n) * 10 > n * 11
+
+
 def _use_decomposition(n: int, cfg: SortConfig) -> bool:
-    """Route to the piece-merge path when pow2 padding would waste >10%
-    and the size is large enough for the extra passes to pay off."""
-    if cfg.strategy == "lax" or n < (1 << 22):
-        return False
-    return _pad_len(n) * 10 > n * 11
+    """Route an engine sort to the piece-merge path (never under
+    ``"lax"``, whose ``torch.sort`` takes any length)."""
+    return cfg.strategy != "lax" and _worth_decomposing(n)
 
 
 def sort(keys, cfg: SortConfig | None = None, *, device=None) -> torch.Tensor:
