@@ -13,10 +13,14 @@ Phases, one line each (any failure raises and exits nonzero):
      kernels on 2^23 rows (keys only; a rider on keys in [0, 16); and the
      lexicographic mode for 2..8 planes on keys in [0, 16) with a unique
      tie plane, every plane bit-equal; the cross / finish passes with a
-     direction span), ``chunk_sort`` / ``finish`` on the register tile
-     engine in every mode at 2^20 rows (``tile_engine_checks``: the paths'
-     tiles and the tiny tiles 2..32, invert, ascending, finish below, at
-     and above the tile's level and as a span pass, tied lex planes), and
+     direction span; every cross pass up to the cap, ``cross_fusion(P)``:
+     the register pass up to ``max_fusion(P)`` distances, the strided tile
+     pass above, ascending and descending, under a span in the keys, rider
+     and lex2 modes, and at 2^28 keys), ``chunk_sort`` / ``finish`` on the
+     register tile engine in every mode at 2^20 rows
+     (``tile_engine_checks``: the paths' tiles and the tiny tiles 2..32,
+     invert, ascending, finish below, at and above the tile's level and as
+     a span pass, tied lex planes), and
      on the same engine ``chunk_sort_cyclic`` / ``slot_merge`` in every
      mode (radix chunks of one and of several tiles, slots below, at and
      above the tile, planes not 16-byte aligned), the single-pass
@@ -118,8 +122,10 @@ Phases, one line each (any failure raises and exits nonzero):
      partitioned route's floor;
      ``cross_stage<1>`` at the last merge level and ``finish`` on bitonic
      tiles, each first held equal to ``torch.sort`` of its view;
-     ``cross_stage<2..4>`` likewise on columns bitonic along the 2^F
-     axis); then the metrics of radx_tpu_torch/bench.py, the radix ones with the
+     ``cross_stage<2..10>`` likewise on columns bitonic along the 2^F
+     axis, at 2^23 and 2^26 keys, and at 2^28 beside its plain version;
+     the cross passes with their shared-memory round trips); then the
+     metrics of radx_tpu_torch/bench.py, the radix ones with the
      bitonic rate beside them, both countings of radix_hist on uniform,
      all-equal and two-valued keys (``bench.sweep_hist``), the breakdowns
      by kernel of the keys-only sort (2^23, 2^26), group-by, join, the dense
@@ -164,8 +170,9 @@ def _suffix(ncmp, planes):
 def _ptxas_name(kernel, args):
     """Readable name of a compiled kernel from its template arguments."""
     a = [int(x) for x in re.findall(r"L[ib](\d+)E", args or "")]
-    if kernel == "cross_stage":
-        return f"cross_stage<{a[0]}>" + _suffix(a[1], a[2])
+    if kernel == "cross_stage":  # F = 0: the strided tile pass
+        return (f"cross_stage<{a[0] or 'strided'}>"
+                + _suffix(a[1], a[2]))
     if kernel in ("chunk_sort", "finish", "chunk_sort_cyclic", "slot_merge",
                   "radix_pack", "radix_concat"):
         return kernel + _suffix(a[0], a[1])
@@ -288,10 +295,16 @@ def radix_required(ncmp, planes):
     overflows: the mode's cross / finish passes (spans), K4, K5, K10-K13,
     and the keys-only chunk sort of the >= 2^17 splitter samples (K4 takes
     the place of the mode's own chunk sort)."""
+    from radx_tpu_torch import SortConfig
     from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.kernels import msd as M
+    from radx_tpu_torch.kernels import radix_sort as RS
 
-    return (*B.mode_kernels(ncmp, planes)[1:], *B.radix_kernels(ncmp, planes),
+    # the levels above the tile run inside radix chunks of RS.MAX_CHUNK rows
+    fin = SortConfig().mode_tiles(planes, ncmp)[1]
+    distances = RS.MAX_CHUNK.bit_length() - fin.bit_length()
+    return (*B.mode_kernels(ncmp, planes, distances)[1:],
+            *B.radix_kernels(ncmp, planes),
             *M.mode_kernels(ncmp, planes), "radix_hist", "radix_rank",
             "chunk_sort")
 
@@ -712,9 +725,10 @@ def radix_path(dev):
 
     same = torch.full((RADIX_N_EQUAL,), 0x12345678, dtype=torch.int32,
                       device=dev).view(torch.uint32)
+    # the network's sort of 2^23 keys: levels of up to 9 cross distances
     with window("radix_sort_all_equal_2e23",
                 ("radix_hist", "radix_rank", "chunk_sort_cyclic",
-                 *B.KEY_KERNELS)):
+                 *B.mode_kernels(1, 1, 9))):
         got = sort(same, cfg)
     ok = torch.equal(_i32(got), _i32(same))
     if flag_line(f"radix_sort_all_equal_n{RADIX_N_EQUAL}", "keys",
@@ -1693,8 +1707,9 @@ def dist_path(dev, card):
     finally:
         dist.destroy_process_group()
     del host, expect
-    with window("dryrun_multichip_8", (*B.KEY_KERNELS, "chunk_sort/lex3",
-                                       "finish/lex3")):
+    # shards of 2^18 keys: levels of up to 4 cross distances
+    with window("dryrun_multichip_8", (*B.mode_kernels(1, 1, 4),
+                                       "chunk_sort/lex3", "finish/lex3")):
         _, secs = _timed(lambda: dryrun_multichip(8, dev))
     _line("dist", window="dryrun_multichip_8", seconds=secs, ok=True, **card)
     torch.cuda.empty_cache()
@@ -1815,13 +1830,15 @@ def last_modules_path(dev, card):
     _line("scaling_rates", sort_gkeys_per_s={str(k): v for k, v in
                                              rates["sort"].items()},
           merge_level_gkeys_per_s=rates["merge_per_level"], **card)
+    # shards of 2^23 keys: levels of up to 9 cross distances
     for exchange in ("flat", "hier"):
-        with window(f"scaling_model_audit_{exchange}_8x2e23", B.KEY_KERNELS):
+        with window(f"scaling_model_audit_{exchange}_8x2e23",
+                    B.mode_kernels(1, 1, 9)):
             a = SM.audit(8, SM.DEFAULT_L, exchange, device=dev)
         _line("scaling_audit", **a, **card)
         if not (a["equal"] and a["shards_alike"]):
             _fail(f"the counted exchange ({exchange}) is not the model's")
-    with window("scaling_model_calibration_8x2e23", B.KEY_KERNELS):
+    with window("scaling_model_calibration_8x2e23", B.mode_kernels(1, 1, 9)):
         cal = SM.calibrate(rates, SM.DEFAULT_L, device=dev)
     _line("scaling_calibration", **cal, **card)
     for name, (bw, t_wave) in SM.LINKS.items():
@@ -2004,17 +2021,22 @@ def main():
                 lambda x, r: B.chunk_sort(x, RC, ascending=True, rider=r),
                 lambda x, r: B.chunk_sort_ref(x, RC, ascending=True, rider=r),
                 ascending=True)
-    for f in B.CROSS_FUSION:
-        kk, inv = log_t + f, f % 2 == 0
+    # every cross pass of the cap, ascending and descending, the lowest
+    # distance at the finish tile (below it where f distances from the tile
+    # would pass 2^23 rows)
+    for f, inv in ((f, inv) for f in B.CROSS_FUSION for inv in (False, True)):
+        j = min(log_t, 23 - f)
         check(f"cross_stage<{f}>",
-              lambda x: B.cross_stage(x, log_t, f, kk, inv),
-              lambda x: B.cross_stage_ref(x, log_t, f, kk, inv),
-              j_low=log_t, kk=kk, invert=inv)
-        rkk = r_log_t + f
+              lambda x: B.cross_stage(x, j, f, j + f, inv),
+              lambda x: B.cross_stage_ref(x, j, f, j + f, inv),
+              j_low=j, kk=j + f, invert=inv)
+        if f > B.cross_fusion(2):
+            continue
+        rj = min(r_log_t, 23 - f)
         check_rider(f"cross_stage<{f}>",
-                    lambda x, r: B.cross_stage(x, r_log_t, f, rkk, inv, r),
-                    lambda x, r: B.cross_stage_ref(x, r_log_t, f, rkk, inv, r),
-                    j_low=r_log_t, kk=rkk, invert=inv)
+                    lambda x, r: B.cross_stage(x, rj, f, rj + f, inv, r),
+                    lambda x, r: B.cross_stage_ref(x, rj, f, rj + f, inv, r),
+                    j_low=rj, kk=rj + f, invert=inv)
     for kk, inv in ((log_t + 1, False), (23, True), (5, False)):
         check("finish", lambda x: B.finish(x, T, kk, inv),
               lambda x: B.finish_ref(x, T, kk, inv), tile=T, kk=kk,
@@ -2023,12 +2045,23 @@ def main():
                     lambda x, r: B.finish_ref(x, RT, kk, inv, r), tile=RT,
                     kk=kk, invert=inv)
     # the radix sort's span passes: directions from the index within 2^19
+    # (the lowest distance cut below the tile where f distances from the
+    # tile would pass the span's top level)
     span = 1 << 19
     for f in B.CROSS_FUSION:
+        j = min(log_t, 19 - f)
         check(f"cross_stage<{f}>",
-              lambda x: B.cross_stage(x, log_t, f, 19, span=span),
-              lambda x: B.cross_stage_ref(x, log_t, f, 19, span=span),
-              j_low=log_t, kk=19, span=span)
+              lambda x: B.cross_stage(x, j, f, 19, span=span),
+              lambda x: B.cross_stage_ref(x, j, f, 19, span=span),
+              j_low=j, kk=19, span=span)
+    for f in range(1, B.cross_fusion(2) + 1):
+        j = min(r_log_t, 19 - f)
+        check_rider(f"cross_stage<{f}>",
+                    lambda x, r: B.cross_stage(x, j, f, 19, True, r,
+                                               span=span),
+                    lambda x, r: B.cross_stage_ref(x, j, f, 19, True, r,
+                                                   span=span),
+                    j_low=j, kk=19, invert=True, span=span)
     check("finish", lambda x: B.finish(x, T, 19, span=span),
           lambda x: B.finish_ref(x, T, 19, span=span), tile=T, kk=19,
           span=span)
@@ -2063,13 +2096,27 @@ def main():
                   lambda x, lx: B.chunk_sort_ref(x, lc, ascending=True,
                                                  lex=lx),
                   tile=lc, ascending=True)
-        for f in range(1, B.max_fusion(p) + 1):
+        for f in range(1, B.cross_fusion(p) + 1):
             kk, inv = ll + f + 1, f % 2 == 0
             check_lex(p, f"cross_stage<{f}>",
                       lambda x, lx: B.cross_stage(x, ll, f, kk, inv, lex=lx),
                       lambda x, lx: B.cross_stage_ref(x, ll, f, kk, inv,
                                                       lex=lx),
                       j_low=ll, kk=kk, invert=inv)
+            if p == 2:  # descending too, and under a radix span
+                check_lex(p, f"cross_stage<{f}>",
+                          lambda x, lx: B.cross_stage(x, ll, f, kk, not inv,
+                                                      lex=lx),
+                          lambda x, lx: B.cross_stage_ref(x, ll, f, kk,
+                                                          not inv, lex=lx),
+                          j_low=ll, kk=kk, invert=not inv)
+                j = min(ll, 19 - f)
+                check_lex(p, f"cross_stage<{f}>",
+                          lambda x, lx: B.cross_stage(x, j, f, 19, lex=lx,
+                                                      span=span),
+                          lambda x, lx: B.cross_stage_ref(x, j, f, 19,
+                                                          lex=lx, span=span),
+                          j_low=j, kk=19, span=span)
         for kk, inv in ((ll + 1, True), (23, False)):
             check_lex(p, "finish",
                       lambda x, lx: B.finish(x, lf, kk, inv, lex=lx),
@@ -2402,7 +2449,7 @@ def main():
         # along the 2^F axis (an ascending half, a descending half): it
         # sorts each column, as torch.sort(dim=1) of the (n / 2^F T, 2^F,
         # T) view does
-        for f in B.CROSS_FUSION:
+        for f in (f for f in B.CROSS_FUSION if log_t + f <= log_n):
             halves = x.view(-1, 2, 1 << (f - 1), T).clone()
             halves[:, 0] = torch.sort(halves[:, 0], dim=1).values
             halves[:, 1] = torch.sort(halves[:, 1], dim=1,
@@ -2419,7 +2466,8 @@ def main():
                       lambda f=f, kk=kk: B.cross_stage(x, log_t, f, kk),
                       lambda f=f, kk=kk: B.cross_stage_ref(x, log_t, f, kk),
                       8 * nx, _cx_ops(nx, f, 1),
-                      lambda f=f: torch.sort(x.view(-1, 1 << f, T), dim=1))
+                      lambda f=f: torch.sort(x.view(-1, 1 << f, T), dim=1),
+                      round_trips=B.cross_round_trips(1, log_t, f, kk))
         # finish on tiles that are bitonic (an ascending half, a descending
         # half), at the last level: it sorts each tile, as torch.sort(dim=1)
         # of the (n / T, T) view does
@@ -2436,6 +2484,27 @@ def main():
                   _cx_ops(nx, log_t, 1), tile_sort(xb, T),
                   round_trips=B.round_trips(log_t, log_n, log_n, 1))
         del x, keys, y, xb, halves
+    # the cross passes at 2^28 keys (the sort_u32_uniform_n2e28 cell's
+    # size), each first held equal to the plain version
+    x = torch.randint(-(2**31), 2**31, (1 << 28,), dtype=i32, generator=gen,
+                      device=dev)
+    for f in B.CROSS_FUSION:
+        kk = log_t + f
+        y = x.clone()
+        B.cross_stage(y, log_t, f, kk)
+        e = int((y.long() - B.cross_stage_ref(x, log_t, f, kk).long()).abs()
+                .max())
+        record([f"cross_stage<{f}>"], e, e == 0, n=1 << 28, j_low=log_t,
+               kk=kk)
+        del y
+        time_pair(f"cross_stage<{f}>", 28,
+                  lambda f=f, kk=kk: B.cross_stage(x, log_t, f, kk),
+                  lambda f=f, kk=kk: B.cross_stage_ref(x, log_t, f, kk),
+                  8 << 28, _cx_ops(1 << 28, f, 1),
+                  lambda f=f: torch.sort(x.view(-1, 1 << f, T), dim=1),
+                  round_trips=B.cross_round_trips(1, log_t, f, kk))
+    del x
+    torch.cuda.empty_cache()
 
     log_n = 26
     x = torch.from_numpy(rng.integers(0, 10007, n26).astype(np.int32)).to(dev)
@@ -2445,13 +2514,14 @@ def main():
               lambda: B.chunk_sort_ref(x, RC, rider=r), 16 * n26,
               _cx_ops(n26, log_rc * (log_rc + 1) // 2, 2),
               round_trips=B.round_trips(log_rc, 1, log_rc, 2))
-    for f in B.CROSS_FUSION:
+    for f in range(1, B.cross_fusion(2) + 1):
         kk = r_log_t + f
         time_pair(f"cross_stage<{f}>/rider", log_n,
                   lambda f=f, kk=kk: B.cross_stage(x, r_log_t, f, kk, rider=r),
                   lambda f=f, kk=kk: B.cross_stage_ref(x, r_log_t, f, kk,
                                                        rider=r),
-                  16 * n26, _cx_ops(n26, f, 2))
+                  16 * n26, _cx_ops(n26, f, 2),
+                  round_trips=B.cross_round_trips(2, r_log_t, f, kk))
     time_pair("finish/rider", log_n, lambda: B.finish(x, RT, log_n, rider=r),
               lambda: B.finish_ref(x, RT, log_n, rider=r), 16 * n26,
               _cx_ops(n26, r_log_t, 2),
@@ -2473,13 +2543,14 @@ def main():
                   lambda: B.chunk_sort_ref(x, lc, lex=lx), 8 * p * n,
                   _cx_ops(n, lcl * (lcl + 1) // 2, p),
                   round_trips=B.round_trips(lcl, 1, lcl, p))
-        for f in range(1, B.max_fusion(p) + 1):
+        for f in range(1, B.cross_fusion(p) + 1):
             kk = ll + f
             time_pair(f"cross_stage<{f}>/lex{p}", 23,
                       lambda f=f, kk=kk: B.cross_stage(x, ll, f, kk, lex=lx),
                       lambda f=f, kk=kk: B.cross_stage_ref(x, ll, f, kk,
                                                            lex=lx),
-                      8 * p * n, _cx_ops(n, f, p))
+                      8 * p * n, _cx_ops(n, f, p),
+                      round_trips=B.cross_round_trips(p, ll, f, kk))
         time_pair(f"finish/lex{p}", 23, lambda: B.finish(x, lf, 23, lex=lx),
                   lambda: B.finish_ref(x, lf, 23, lex=lx), 8 * p * n,
                   _cx_ops(n, ll, p), round_trips=B.round_trips(ll, 23, 23, p))
@@ -2745,6 +2816,9 @@ def main():
         "cross_stage<2>": "radx_tpu/kernels/bitonic.py:352",
         "cross_stage<3>": "radx_tpu/kernels/bitonic.py:374",
         "cross_stage<4>": "radx_tpu/kernels/bitonic.py:398",
+        # more distances a pass than the TPU fused: its widest kernel
+        **{f"cross_stage<{f}>": "radx_tpu/kernels/bitonic.py:398"
+           for f in range(5, B.cross_fusion(1) + 1)},
         "finish": "radx_tpu/kernels/bitonic.py:427",
         "chunk_sort_cyclic": "radx_tpu/kernels/bitonic.py:217",
         "slot_merge": "radx_tpu/kernels/bitonic.py:261",
@@ -2782,8 +2856,9 @@ def main():
         e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": TOTAL_LAUNCHES.get(name, 0),
              "max_abs_err": ERR.get(name, 0.0), **times[log_n]}
-        if log_n != 26 and 26 in times:
-            e.update({f"{k}_n2e26": v for k, v in times[26].items()})
+        for big in (26, 28):
+            if log_n != big and big in times:
+                e.update({f"{k}_n2e{big}": v for k, v in times[big].items()})
         return e
 
     kernels = [entry(k) for k in all_kernels]

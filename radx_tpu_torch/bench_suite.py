@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from radx_tpu_torch import bench
-from radx_tpu_torch.config import tuned
+from radx_tpu_torch.config import SortConfig, tuned
 from radx_tpu_torch.kernels import aggregate, bitonic, msd, radix_sort
 from radx_tpu_torch.ops import chunked
 from radx_tpu_torch.ops import sort as sort_ops
@@ -402,12 +402,20 @@ def _check_sort_chunked(d, out):
 # --- the table ----------------------------------------------------------------
 
 
-def _lex(planes):
-    return bitonic.mode_kernels(2, planes)
+def _lex(planes, distances=None):
+    return bitonic.mode_kernels(2, planes, distances)
 
 
-_RADIX = (*bitonic.KEY_KERNELS, *bitonic.radix_kernels(1, 1),
-          *msd.mode_kernels(1, 1), "radix_hist", "radix_rank")
+def _log2(x):
+    return x.bit_length() - 1
+
+
+# a radix sort runs the levels above the tile inside its chunks of at most
+# radix_sort.MAX_CHUNK rows
+_RADIX = (*bitonic.mode_kernels(
+    1, 1, _log2(radix_sort.MAX_CHUNK) - _log2(SortConfig().finish_elems)),
+          *bitonic.radix_kernels(1, 1), *msd.mode_kernels(1, 1),
+          "radix_hist", "radix_rank")
 _GROUPBY = (*bitonic.RIDER_KERNELS, "segscan", "compact")
 
 
@@ -415,7 +423,9 @@ def _sort_config(n, seed=1, **kw):
     kw.setdefault("iters", 5 if n <= 1 << 26 else 2)
     kw.setdefault("repeats", 5 if n <= 1 << 26 else 3)
     return Config("sort_u32 {n}", n, seed, _make_sort, _sort, _check_sort, 8,
-                  bitonic.KEY_KERNELS, **kw)
+                  bitonic.mode_kernels(
+                      1, 1, _log2(n) - _log2(SortConfig().finish_elems)),
+                  **kw)
 
 
 def _radix_config(n):
@@ -441,8 +451,12 @@ def _groupby_config(n):
 
 
 def _topk_config(n):
+    # the lex2 sort of the candidates: TOPK_K rows of every chunk
+    cfg = SortConfig()
+    rows = n // cfg.topk_chunk_elems * TOPK_K
     return Config("top_k {n} k=1024", n, 11, _make_uniform_sort, _top_k,
-                  _check_top_k, 8, _lex(2))
+                  _check_top_k, 8,
+                  _lex(2, _log2(rows) - _log2(cfg.lex_tiles(2)[1])))
 
 
 def _argsort_config(n):

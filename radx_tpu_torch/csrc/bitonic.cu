@@ -29,8 +29,11 @@
 //   chunk_sort  <- _chunk_sort_kernel (:198).  Stages 1..log2(C) inside each
 //                  chunk of C keys, on the register tile engine.
 //   cross_stage <- _cross_stage_kernel / _cross_stage2/3/4_kernel (:465,
-//                  :352, :374, :398).  F = 1..4 consecutive distances >= the
-//                  finish tile in one pass over device memory.
+//                  :352, :374, :398).  F consecutive distances >= the
+//                  finish tile in one pass over device memory: up to R in
+//                  registers, more (up to 8 at one to three planes, where
+//                  the TPU fused at most 4) on the register tile engine
+//                  over strided tiles.
 //   finish      <- _finishw_kernel (:427).  Every distance of one level that
 //                  is below the finish tile T, inside each tile of T keys,
 //                  on the register tile engine.
@@ -53,10 +56,10 @@
 // span sorts ascending.  A span of the whole array is the plain network.
 //
 // The host side (radx_tpu_torch/kernels/bitonic.py) runs, per merge level,
-// the cross passes for distances >= T (greedy F = max_fusion(P) .. 1) and
-// then one finish pass.  Each entry point launches on the stream it is
-// given, does not synchronise, and returns cudaGetLastError() for the caller
-// to check.
+// the cross passes for distances >= T (greedy, at most cross_fusion(P)
+// distances a pass) and then one finish pass.  Each entry point launches on
+// the stream it is given, does not synchronise, and returns
+// cudaGetLastError() for the caller to check.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,14 +70,12 @@
 
 namespace {
 
-constexpr int kCrossThreads = 256;
 constexpr int kStaticSmemBytes = 48 * 1024;
 constexpr int kCyclicLog = 10;  // block-cyclic tile: 1024 keys (JAX t_rows=8)
 
-// Distances fused per cross pass at P planes, and log2 of the rows a thread
-// holds in the register tile engine: 2^F * P values live in
-// registers per thread, at most 48 (no spills; ptxas report in PERF.md).
-// Kept in step with bitonic.py::max_fusion.
+// log2 of the rows a thread holds in the register tile engine at P planes:
+// 2^R * P values live in registers per thread, at most 48 (no spills;
+// ptxas report in PERF.md).  Kept in step with bitonic.py::max_fusion.
 __host__ __device__ constexpr int max_fusion(int np) {
   return np <= 3 ? 4 : np <= 6 ? 3 : 2;
 }
@@ -104,26 +105,27 @@ __device__ __forceinline__ bool must_swap(int a0, int a1, int b0, int b1,
 }
 
 // ---------------------------------------------------------------------------
-// The register tile engine of chunk_sort, finish, chunk_sort_cyclic and
-// slot_merge.
+// The register tile engine of chunk_sort, cross_stage, finish,
+// chunk_sort_cyclic and slot_merge.
 //
 // A tile pass runs merge levels over one tile of 2^log_t rows in one block.
 // Each thread holds W = 2^R rows of every plane in registers, R =
-// max_fusion(P) (the cap of the cross passes: 2^R * P <= 48 values), and
-// the pass is cut into phases by a plan the host computes
-// (kernels/bitonic.py::tile_plan; this file only reads it).  In a phase a
-// thread holds the rows whose tile indices differ only in bits wlo ..
-// wlo+R-1 and runs there, without synchronisation, every substage of the
-// phase (index bits lo..hi of levels kk_a..kk_b); between two phases the
-// tile goes once through shared memory: store, __syncthreads(), load in the
-// next phase's layout.  The first phase reads device memory through a row
-// -> address map (the tile itself for chunk_sort / finish, the cyclic tiles
-// of a radix chunk, the reversed odd slots) and the last one writes the
-// tile contiguously, in place or to other planes.  A finish tile of 2^14
-// rows at R = 4 runs bits {13..10}, {9..6}, {5..2}, {1, 0}: 3 round trips
-// where a loop of one substage per round trip made 14; a 2^14 chunk runs
-// stages 1..4 in registers at load time, then ceil(kk / 4) phases for each
-// stage kk > 4: 28 round trips where the loop made 105.
+// max_fusion(P) (2^R * P <= 48 values), and the pass is cut into phases by
+// a plan the host computes (kernels/bitonic.py::tile_plan; this file only
+// reads it).  In a phase a thread holds the rows whose tile indices differ
+// only in bits wlo .. wlo+R-1 and runs there, without synchronisation,
+// every substage of the phase (index bits lo..hi of levels kk_a..kk_b);
+// between two phases the tile goes once through shared memory: store,
+// __syncthreads(), load in the next phase's layout.  The first phase reads
+// device memory through a row -> address map (the tile itself for
+// chunk_sort / finish, the cyclic tiles of a radix chunk, the reversed odd
+// slots, the strided segments of a cross pass) and the last one writes it
+// through a map of its own: the tile contiguously, in place or to other
+// planes, or the segments in place.  A finish tile of 2^14 rows at R = 4
+// runs bits {13..10}, {9..6}, {5..2}, {1, 0}: 3 round trips where a loop of
+// one substage per round trip made 14; a 2^14 chunk runs stages 1..4 in
+// registers at load time, then ceil(kk / 4) phases for each stage kk > 4:
+// 28 round trips where the loop made 105.
 //
 // The network is the plain one: the same pairs in the same order, the same
 // direction rule (bit kk of (gbase & dmask) + row, then `invert`) and the
@@ -299,6 +301,21 @@ struct SlotReversed {
   }
 };
 
+// cross_stage: tile row (u, l) = u * L + l is row base + u * 2^j_low + l,
+// u < 2^F segments of L = 2^log_l contiguous rows (log_l <= j_low).  A
+// thread's rows in a phase differ in the compared bits, so they lie
+// 2^j_low apart and never form an int4 run; neighbouring lanes hold
+// neighbouring l, so a warp's loads and stores coalesce.
+struct Strided {
+  static constexpr bool kRuns = false;
+  int64_t base;
+  int log_l, j_low;
+  __device__ __forceinline__ int64_t operator()(int row) const {
+    return base + (static_cast<int64_t>(row >> log_l) << j_low) +
+           (row & ((1 << log_l) - 1));
+  }
+};
+
 // A thread's rows from device memory (rows past a tile smaller than W do
 // not exist).
 template <int P, int W, typename Map>
@@ -335,28 +352,32 @@ __device__ __forceinline__ void rows_from_global(int (&v)[P][W],
   }
 }
 
-template <int P, int W>
-__device__ __forceinline__ void rows_to_global(const Planes& x, int64_t base,
+template <int P, int W, typename Map>
+__device__ __forceinline__ void rows_to_global(const Planes& x, const Map& map,
                                                const int (&v)[P][W], int gb,
                                                int wlo, int t, bool vec) {
-  if (vec && wlo == 0) {
+  if constexpr (Map::kRuns) {
+    if (vec && wlo == 0) {
+      const int64_t at = map(gb);
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      int4* q = reinterpret_cast<int4*>(x.p[j] + base + gb);
+      for (int j = 0; j < P; ++j) {
+        int4* q = reinterpret_cast<int4*>(x.p[j] + at);
 #pragma unroll
-      for (int c = 0; c < W / 4; ++c) {
-        q[c] = make_int4(v[j][4 * c], v[j][4 * c + 1], v[j][4 * c + 2],
-                         v[j][4 * c + 3]);
+        for (int c = 0; c < W / 4; ++c) {
+          q[c] = make_int4(v[j][4 * c], v[j][4 * c + 1], v[j][4 * c + 2],
+                           v[j][4 * c + 3]);
+        }
       }
+      return;
     }
-    return;
   }
 #pragma unroll
   for (int u = 0; u < W; ++u) {
     const int row = gb | (u << wlo);
     if (row < t) {
+      const int64_t at = map(row);
 #pragma unroll
-      for (int j = 0; j < P; ++j) x.p[j][base + row] = v[j][u];
+      for (int j = 0; j < P; ++j) x.p[j][at] = v[j][u];
     }
   }
 }
@@ -406,16 +427,16 @@ __device__ __forceinline__ void rows_to_shared(int* s,
 }
 
 // One tile pass of block blockIdx.x over the plan: the first phase reads
-// tile row i of `in` at map(i), the last one writes it to `out` at obase +
-// i (in place: the same planes and the map Contiguous{obase}).  dbase: the
+// tile row i of `in` at map(i), the last one writes it to `out` at
+// omap(i) (in place: the same planes and maps).  dbase: the
 // tile's base in the direction index (masked by the span, or 0 for
 // `ascending`).  A thread takes the groups threadIdx.x, + blockDim.x, ...
 // of every phase; a group's rows are its own in the phase's layout, so its
 // store to shared memory cannot overwrite a row another thread has yet to
 // load.
-template <int NCMP, int P, typename Map>
+template <int NCMP, int P, typename Map, typename OutMap>
 __device__ __forceinline__ void tile_pass(const Planes& in, const Planes& out,
-                                          const Map& map, int64_t obase,
+                                          const Map& map, const OutMap& omap,
                                           int log_t, const TilePlan& plan,
                                           int64_t dbase, int invert,
                                           bool vec) {
@@ -437,7 +458,7 @@ __device__ __forceinline__ void tile_pass(const Planes& in, const Planes& out,
       }
       phase_substages<NCMP, P, R>(v, f, gb, dbase, log_t, invert);
       if (last) {
-        rows_to_global<P, W>(out, obase, v, gb, f.wlo, t, vec);
+        rows_to_global<P, W>(out, omap, v, gb, f.wlo, t, vec);
       } else {
         rows_to_shared<P, R>(s, v, gb, f.wlo, t);
       }
@@ -462,7 +483,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     chunk_sort_kernel(Planes x, int log_c, int invert, int ascending,
                       TilePlan plan, int vec) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) << log_c;
-  tile_pass<NCMP, P>(x, x, Contiguous{base}, base, log_c, plan,
+  tile_pass<NCMP, P>(x, x, Contiguous{base}, Contiguous{base}, log_c, plan,
                      ascending ? 0 : base, invert, vec != 0);
 }
 
@@ -492,7 +513,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   const int64_t tile = blockIdx.x;
   const int64_t lb = (tile << log_t) & ((static_cast<int64_t>(1) << log_c) - 1);
   tile_pass<NCMP, P>(in, out, Cyclic{lb, tile >> (log_c - log_t), n_chunks},
-                     tile << log_t, log_t, plan, lb, 0, vec != 0);
+                     Contiguous{tile << log_t}, log_t, plan, lb, 0,
+                     vec != 0);
 }
 
 // slot_merge — replaces radx_tpu/kernels/bitonic.py::_slot_merge_kernel
@@ -527,8 +549,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     }
     return;
   }
-  tile_pass<NCMP, P>(in, out, map, base, log_t, plan, base & cmask, 0,
-                     vec != 0);
+  tile_pass<NCMP, P>(in, out, map, Contiguous{base}, log_t, plan, base & cmask,
+                     0, vec != 0);
 }
 
 // finish — replaces radx_tpu/kernels/bitonic.py::_finishw_kernel.
@@ -549,64 +571,77 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     finish_kernel(Planes x, int log_t, int invert, int64_t dmask,
                   TilePlan plan, int vec) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
-  tile_pass<NCMP, P>(x, x, Contiguous{base}, base, log_t, plan, base & dmask,
-                     invert, vec != 0);
+  tile_pass<NCMP, P>(x, x, Contiguous{base}, Contiguous{base}, log_t, plan,
+                     base & dmask, invert, vec != 0);
 }
 
 // cross_stage<F> — replaces radx_tpu/kernels/bitonic.py::_cross_stage_kernel
 // (F = 1) and _cross_stage2/3/4_kernel (F = 2, 3, 4).
 // Bound on the card: device-memory bandwidth; each pass reads and writes
-// every plane once and does F compare-exchanges per row.  Design: F
-// consecutive distances fused per pass (F distances for the cost of one
-// pass).  Thread t owns the 2^F rows i0 + u*J (u < 2^F, J = 2^j_low the
-// lowest distance) of every plane in registers and runs the F substages
-// (2^(F-1) J .. J) there.  Adjacent threads take adjacent i0, so every load
-// and store coalesces (J >= the finish tile >= 32).  The level bit kk lies
-// above the group's index bits, so one direction serves the whole group.
-// F is capped by P (max_fusion) so the 2^F * P registers do not spill.
+// every plane once and does F compare-exchanges per row, so only fewer
+// passes make a level cheaper.  Two designs, one kernel name:
+//
+// F >= 1, F <= R = max_fusion(P) (the register pass): thread t owns the 2^F
+// rows i0 + u*J (u < 2^F, J = 2^j_low the lowest distance) of every plane
+// in registers and runs the F substages (2^(F-1) J .. J) there.  Adjacent
+// threads take adjacent i0, so every load and store coalesces (J >= the
+// finish tile >= 32).  The level bit kk lies above the group's index bits,
+// so one direction serves the whole group.
+//
+// F = 0 (the strided tile pass, the pass's f > R distances in the plan):
+// 2^R rows a thread cap the register pass at R distances, so a wider pass
+// runs on the register tile engine over a strided tile.  A block takes 2^f
+// segments of L = 2^log_l contiguous rows, segment u at base + u * 2^j_low
+// (the distances 2^(j_low+f-1) .. 2^j_low are the tile's bits log_l+f-1 ..
+// log_l); the block's base runs over the address bits between the segment
+// and j_low and above j_low + f.  The plan (bitonic.py::tile_plan with
+// lowest bit log_l) runs the f distances in ceil(f / R) phases, highest
+// first, one shared-memory round trip between two phases: f = 8 at R = 4
+// is two phases and one round trip.  The direction is bit kk of the
+// (span-masked) base, as in finish.  The last phase stores through the
+// same map, in place.  At f <= R the register pass is faster (3-8% a pass
+// out of cache, 30% in L2; PERF.md), so it keeps those passes.
 template <int F, int NCMP, int P>
-__global__ void cross_stage_kernel(Planes x, int64_t groups, int j_low, int kk,
-                                   int invert, int64_t dmask) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= groups) return;
-  const int64_t jmask = (static_cast<int64_t>(1) << j_low) - 1;
-  const int64_t stride = jmask + 1;
-  const int64_t i0 = ((t & ~jmask) << F) | (t & jmask);
-  const bool up = (((i0 & dmask) >> kk) & 1) == invert;
-  constexpr int kW = 1 << F;
-  int v[P][kW];
-#pragma unroll
-  for (int u = 0; u < kW; ++u) {
-#pragma unroll
-    for (int j = 0; j < P; ++j) v[j][u] = x.p[j][i0 + u * stride];
-  }
-#pragma unroll
-  for (int sb = F - 1; sb >= 0; --sb) {
+__global__ void __launch_bounds__(kTileThreads, 1)
+    cross_stage_kernel(Planes x, int64_t n, int j_low, int kk, int f,
+                       int log_l, int invert, int64_t dmask, TilePlan plan,
+                       int vec) {
+  if constexpr (F == 0) {
+    const int64_t b = blockIdx.x;
+    const int low = j_low - log_l;  // base bits between segment and j_low
+    const int64_t base =
+        ((b >> low) << (j_low + f)) |
+        ((b & ((static_cast<int64_t>(1) << low) - 1)) << log_l);
+    const Strided map{base, log_l, j_low};
+    tile_pass<NCMP, P>(x, x, map, map, log_l + f, plan, base & dmask, invert,
+                       vec != 0);
+  } else {
+    const int64_t t =
+        static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= n >> F) return;
+    const int64_t jmask = (static_cast<int64_t>(1) << j_low) - 1;
+    const int64_t stride = jmask + 1;
+    const int64_t i0 = ((t & ~jmask) << F) | (t & jmask);
+    const bool up = (((i0 & dmask) >> kk) & 1) == invert;
+    constexpr int kW = 1 << F;
+    int v[P][kW];
 #pragma unroll
     for (int u = 0; u < kW; ++u) {
-      if (!(u & (1 << sb))) {
-        const int o = u | (1 << sb);
-        if constexpr (P == 1) {
-          compare_exchange(v[0][u], v[0][o], up);
-        } else {
-          const int a1 = NCMP == 2 ? v[1][u] : 0;
-          const int b1 = NCMP == 2 ? v[1][o] : 0;
-          if (must_swap<NCMP>(v[0][u], a1, v[0][o], b1, up)) {
 #pragma unroll
-            for (int j = 0; j < P; ++j) {
-              const int a = v[j][u];
-              v[j][u] = v[j][o];
-              v[j][o] = a;
-            }
-          }
-        }
+      for (int j = 0; j < P; ++j) v[j][u] = x.p[j][i0 + u * stride];
+    }
+#pragma unroll
+    for (int sb = F - 1; sb >= 0; --sb) {
+#pragma unroll
+      for (int u = 0; u < kW; ++u) {
+        if (!(u & (1 << sb))) exchange<NCMP, P, kW>(v, u, u | (1 << sb), up);
       }
     }
-  }
 #pragma unroll
-  for (int u = 0; u < kW; ++u) {
+    for (int u = 0; u < kW; ++u) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) x.p[j][i0 + u * stride] = v[j][u];
+      for (int j = 0; j < P; ++j) x.p[j][i0 + u * stride] = v[j][u];
+    }
   }
 }
 
@@ -616,11 +651,10 @@ cudaError_t launch_cross(const Planes& x, int64_t n, int j_low, int kk,
   if constexpr (F > max_fusion(P)) {
     return cudaErrorInvalidValue;
   } else {
-    const int64_t groups = n >> F;
-    const int64_t blocks = (groups + kCrossThreads - 1) / kCrossThreads;
+    const int64_t blocks = ((n >> F) + kTileThreads - 1) / kTileThreads;
     cross_stage_kernel<F, NCMP, P>
-        <<<static_cast<unsigned>(blocks), kCrossThreads, 0, stream>>>(
-            x, groups, j_low, kk, invert, dmask);
+        <<<static_cast<unsigned>(blocks), kTileThreads, 0, stream>>>(
+            x, n, j_low, kk, F, 0, invert, dmask, TilePlan{}, 0);
     return cudaGetLastError();
   }
 }
@@ -733,20 +767,44 @@ cudaError_t slot_merge(const Planes& in, const Planes& out, int64_t n,
                         (static_cast<int64_t>(1) << log_c) - 1);
 }
 
+// A pass of f distances from 2^j_low: the register pass for f <= R, else
+// the strided tile pass over tiles of 2^f segments of 2^log_l rows, whose
+// plan runs exactly the tile's bits log_l+f-1 .. log_l.
 template <int NCMP, int P>
 cudaError_t cross(const Planes& x, int64_t n, int j_low, int f, int kk,
-                  int invert, int64_t dmask, cudaStream_t stream) {
-  switch (f) {
-    case 1:
-      return launch_cross<1, NCMP, P>(x, n, j_low, kk, invert, dmask, stream);
-    case 2:
-      return launch_cross<2, NCMP, P>(x, n, j_low, kk, invert, dmask, stream);
-    case 3:
-      return launch_cross<3, NCMP, P>(x, n, j_low, kk, invert, dmask, stream);
-    case 4:
-      return launch_cross<4, NCMP, P>(x, n, j_low, kk, invert, dmask, stream);
-    default: return cudaErrorInvalidValue;
+                  int log_l, int invert, int64_t dmask, const int* codes,
+                  int64_t phases, cudaStream_t stream) {
+  if (f < 1 || j_low + f > kk || kk > 62 ||
+      (n >> (j_low + f)) << (j_low + f) != n || n < 1) {
+    return cudaErrorInvalidValue;
   }
+  if (f <= max_fusion(P)) {
+    switch (f) {
+      case 1:
+        return launch_cross<1, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                        stream);
+      case 2:
+        return launch_cross<2, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                        stream);
+      case 3:
+        return launch_cross<3, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                        stream);
+      default:
+        return launch_cross<4, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                        stream);
+    }
+  }
+  TilePlan plan;
+  const int log_t = log_l + f;
+  if (log_l < 0 || log_l > j_low || log_t > 15 ||
+      !make_plan<P>(codes, phases, log_t, &plan) ||
+      decode_phase(plan.code[0]).kk_a != kk ||
+      decode_phase(plan.code[0]).hi != log_t - 1 ||
+      decode_phase(plan.code[plan.n - 1]).lo != log_l) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_tile<P>(cross_stage_kernel<0, NCMP, P>, x, x, n, log_t, plan,
+                        stream, x, n, j_low, kk, f, log_l, invert, dmask);
 }
 
 // The three launches as functors over the template instance (NCMP, P).
@@ -781,12 +839,15 @@ struct FinishLaunch {
 struct CrossLaunch {
   Planes x;
   int64_t n;
-  int j_low, f, kk, invert;
+  int j_low, f, kk, log_l, invert;
   int64_t dmask;
+  const int* plan;
+  int64_t phases;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    return cross<NCMP, P>(x, n, j_low, f, kk, invert, dmask, stream);
+    return cross<NCMP, P>(x, n, j_low, f, kk, log_l, invert, dmask, plan,
+                          phases, stream);
   }
 };
 
@@ -864,17 +925,25 @@ int radx_finish(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }
 
+// Distances 2^(j_low+f-1) .. 2^j_low of level kk.  Above R =
+// max_fusion(np) distances, over tiles of 2^f segments of 2^log_l rows by
+// the plan tile_plan(log_l + f, kk, kk, R, log_l); at most R, in registers
+// (log_l and the plan unused: null and 0).
 int radx_cross_stage(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
-                     int64_t j_low, int64_t f, int64_t kk, int64_t invert,
-                     int64_t log_span, void* stream) {
+                     int64_t j_low, int64_t f, int64_t kk, int64_t log_l,
+                     int64_t invert, int64_t log_span, const int* plan,
+                     int64_t phases, void* stream) {
   CrossLaunch launch;
   if (!make_planes(planes, np, &launch.x)) return cudaErrorInvalidValue;
   launch.n = n;
   launch.j_low = static_cast<int>(j_low);
   launch.f = static_cast<int>(f);
   launch.kk = static_cast<int>(kk);
+  launch.log_l = static_cast<int>(log_l);
   launch.invert = static_cast<int>(invert);
   launch.dmask = span_mask(log_span);
+  launch.plan = plan;
+  launch.phases = phases;
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }

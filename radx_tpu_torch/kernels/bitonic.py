@@ -27,8 +27,11 @@ Five kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
     (``_chunk_sort_kernel``), on the register tile engine: each thread holds
     2^max_fusion(P) rows of every plane and runs up to that many distances
     per shared-memory round trip, by the phases of ``tile_plan``;
-  * ``cross_stage`` — F = 1..max_fusion(P) consecutive distances >= the
-    finish tile in one device-memory pass (``_cross_stage{,2,3,4}_kernel``);
+  * ``cross_stage`` — F = 1..cross_fusion(P) consecutive distances >= the
+    finish tile in one device-memory pass (``_cross_stage{,2,3,4}_kernel``):
+    up to max_fusion(P) with the 2^F rows of a pair group in one thread's
+    registers, more on the tile engine below over a strided tile (2^F
+    segments of contiguous rows 2^j_low apart);
   * ``finish``      — every distance of a level below the finish tile T,
     inside each tile of T rows (``_finishw_kernel``), on the same engine;
   * ``chunk_sort_cyclic`` — the radix sort's phase 1: stages 1..log2(tile)
@@ -69,16 +72,37 @@ from radx_tpu_torch.config import MAX_SMEM_BYTES
 from radx_tpu_torch.kernels import _build
 
 MAX_PLANES = 8
-CROSS_FUSION = (1, 2, 3, 4)  # distances fused per cross pass
 CYCLIC_TILE = 1024  # rows per block-cyclic tile (the JAX t_rows = 8 rows)
+# Shared memory of one cross pass's tile, all planes: 64 KB, the keys-only
+# finish tile's footprint (three blocks an SM).
+CROSS_TILE_BYTES = 64 * 1024
 
 
 def max_fusion(planes: int) -> int:
-    """Largest F for P planes: 2^F * P <= 48 values per thread in
+    """log2 of the rows a thread of the register tile engine holds at P
+    planes (the r of ``tile_plan``): 2^r * P <= 48 values per thread in
     registers, without spills (ptxas report in PERF.md; csrc/bitonic.cu
-    max_fusion).  F distances per cross pass, and log2 of the rows a thread
-    of ``chunk_sort`` / ``finish`` holds (the r of ``tile_plan``)."""
+    max_fusion)."""
     return 4 if planes <= 3 else 3 if planes <= 6 else 2
+
+
+def cross_fusion(planes: int) -> int:
+    """Most distances one cross pass runs at P planes: the fastest sorts of
+    a sweep of caps 4..10 on one H100 (``tools/cross_sweep.py``, PERF.md):
+    10 keys only, 9 at two planes; elsewhere (no cell sorts three or more
+    planes) two phases of the tile engine, one shared-memory round trip
+    (8 at three planes, 6 at four to six, 4 at seven and eight)."""
+    return {1: 10, 2: 9}.get(planes, 2 * max_fusion(planes))
+
+
+def cross_tile(planes: int) -> int:
+    """Rows a plane of one cross pass's tile: the largest power of two
+    whose P planes fit ``CROSS_TILE_BYTES`` (2^14 keys, 2^13 at two planes,
+    2^12 at three and four, 2^11 at five to eight)."""
+    return 1 << (CROSS_TILE_BYTES // (4 * planes)).bit_length() - 1
+
+
+CROSS_FUSION = tuple(range(1, cross_fusion(1) + 1))  # F of a keys-only pass
 
 
 def _suffix(ncmp: int, planes: int) -> str:
@@ -87,11 +111,18 @@ def _suffix(ncmp: int, planes: int) -> str:
     return "/rider" if planes == 2 else ""
 
 
-def mode_kernels(ncmp: int, planes: int) -> tuple[str, ...]:
-    """Launch names of the three kernels in one mode."""
+def mode_kernels(ncmp: int, planes: int,
+                 distances: int | None = None) -> tuple[str, ...]:
+    """Launch names of the three kernels in one mode.  ``distances``: the
+    most cross distances a merge level of a path has (m - t for a sort of
+    2^m rows on a finish tile of 2^t), so that only the cross passes the
+    path can launch are named; by default every F up to the cap."""
     sfx = _suffix(ncmp, planes)
+    top = cross_fusion(planes)
+    if distances is not None:
+        top = min(top, distances)
     return (f"chunk_sort{sfx}",
-            *(f"cross_stage<{f}>{sfx}" for f in range(1, max_fusion(planes) + 1)),
+            *(f"cross_stage<{f}>{sfx}" for f in range(1, top + 1)),
             f"finish{sfx}")
 
 
@@ -327,17 +358,19 @@ def _launch(name, fn_name, planes, ncmp, *args):
 # --- the phase plan of the register tile engine -----------------------------
 
 
-def tile_plan(log_t, kk_first, kk_last, r):
+def tile_plan(log_t, kk_first, kk_last, r, lo_bit=0):
     """The phases of one tile pass (csrc/bitonic.cu ``tile_pass``): merge
     levels ``kk_first`` .. ``kk_last`` over a tile of 2^log_t rows, each
     thread holding 2^r rows of every plane in registers.
 
-    Level kk runs its distances below the tile, index bits min(log_t, kk)-1
-    .. 0, in phases of up to r consecutive bits, highest first.  A phase is
-    a tuple (kk_a, kk_b, hi, lo, wlo): a thread holds the rows whose tile
-    indices differ only in bits wlo .. wlo+r-1 (``phase_rows``), which cover
-    bits lo..hi, and every level kk in kk_a..kk_b runs the substages at bits
-    min(hi, kk-1) down to lo there, with no synchronisation.  Consecutive
+    Level kk runs its distances below the tile down to bit ``lo_bit``,
+    index bits min(log_t, kk)-1 .. lo_bit, in phases of up to r consecutive
+    bits, highest first (a cross pass's strided tile runs its top bits
+    only).  A phase is a tuple (kk_a, kk_b, hi, lo, wlo): a thread holds
+    the rows whose tile indices differ only in bits wlo .. wlo+r-1
+    (``phase_rows``), which cover bits lo..hi, and every level kk in
+    kk_a..kk_b runs the substages at bits min(hi, kk-1) down to lo there,
+    with no synchronisation.  Consecutive
     levels that run all their bits inside bits 0..r-1 share one phase (the
     first r stages of a chunk sort).  Between two phases the tile makes one
     round trip through shared memory; the first phase reads device memory
@@ -347,8 +380,8 @@ def tile_plan(log_t, kk_first, kk_last, r):
     phases = []
     for kk in range(kk_first, kk_last + 1):
         hi = min(log_t, kk) - 1
-        while hi >= 0:
-            lo = max(hi - r + 1, 0)
+        while hi >= lo_bit:
+            lo = max(hi - r + 1, lo_bit)
             prev = phases[-1] if phases else None
             if (prev is not None and hi == kk - 1 and lo == 0
                     and prev[1:] == (kk - 1, kk - 2, 0, 0)):
@@ -376,14 +409,22 @@ def round_trips(log_t, kk_first, kk_last, planes):
                              max_fusion(planes))) - 1, 0)
 
 
+def cross_round_trips(planes, j_low, f, kk):
+    """Shared-memory round trips of one cross pass at ``planes`` planes (0
+    for the register pass, f <= max_fusion(P))."""
+    log_l = cross_segment(planes, j_low, f)
+    return len(tile_plan(log_l + f, kk, kk, max_fusion(planes), log_l)) - 1
+
+
 @functools.lru_cache(maxsize=None)
-def _plan_arg(log_t, kk_first, kk_last, r):
+def _plan_arg(log_t, kk_first, kk_last, r, lo_bit=0):
     """The plan as the kernel takes it: (int32 array, phases), each phase
     packed as kk_a | kk_b << 6 | hi << 12 | lo << 16 | wlo << 20."""
     if kk_last > 63:
         raise ValueError(f"merge level {kk_last} above 63")
     codes = [a | b << 6 | hi << 12 | lo << 16 | w << 20
-             for a, b, hi, lo, w in tile_plan(log_t, kk_first, kk_last, r)]
+             for a, b, hi, lo, w in tile_plan(log_t, kk_first, kk_last, r,
+                                              lo_bit)]
     return (ctypes.c_int32 * len(codes))(*codes), len(codes)
 
 
@@ -403,6 +444,13 @@ def chunk_sort(x, chunk, invert=False, ascending=False, rider=None, lex=None):
     return x
 
 
+def cross_segment(planes, j_low, f):
+    """log2 of the segment L of a cross pass's strided tile: as long as
+    the tile of ``cross_tile`` rows allows with 2^f segments, and at most
+    the lowest distance 2^j_low (segments must not overlap)."""
+    return min(j_low, _log2(cross_tile(planes)) - f)
+
+
 def cross_stage(x, j_low, f, kk, invert=False, rider=None, lex=None,
                 span=None):
     """Compare-exchange at the f consecutive distances 2^(j_low+f-1) ..
@@ -410,15 +458,19 @@ def cross_stage(x, j_low, f, kk, invert=False, rider=None, lex=None,
     within blocks of ``span`` rows (default: the whole array)."""
     planes, ncmp = _planes(x, rider, lex)
     log_span = _log_span(x, span)
-    if (not 1 <= f <= max_fusion(len(planes)) or j_low + f > kk
-            or kk > log_span):
+    p = len(planes)
+    if (not 1 <= f <= cross_fusion(p) or j_low + f > kk or kk > log_span
+            or cross_segment(p, j_low, f) < 0):
         raise ValueError(f"bad cross pass f={f} j_low={j_low} kk={kk} at "
-                         f"{len(planes)} planes, span 2^{log_span}")
+                         f"{p} planes, span 2^{log_span}")
     if not _on_cuda(planes, 1 << (j_low + f)):
         return _plain(planes, cross_stage_ref(x, j_low, f, kk, invert, rider,
                                                lex, span))
+    r = max_fusion(p)
+    log_l = cross_segment(p, j_low, f)
+    plan = (None, 0) if f <= r else _plan_arg(log_l + f, kk, kk, r, log_l)
     _launch(f"cross_stage<{f}>", "radx_cross_stage", planes, ncmp, j_low, f,
-            kk, int(invert), log_span)
+            kk, log_l, int(invert), log_span, *plan)
     return x
 
 
@@ -510,9 +562,9 @@ def slot_merge(src, dst, ncmp, chunk, slot, tile):
 # --- orchestration (radx_tpu/kernels/bitonic.py::_sort_pipeline) ------------
 
 
-def _cross_schedule(kk, log_t, fmax=max(CROSS_FUSION)):
+def _cross_schedule(kk, log_t, fmax):
     """(j_low, f) passes covering level kk's distances 2^(kk-1) .. 2^log_t,
-    greedily fmax, ..., 1 consecutive distances per pass."""
+    greedily fmax, ..., 1 consecutive distances per pass, highest first."""
     djs = list(range(kk - 1, log_t - 1, -1))
     i = 0
     while i < len(djs):
@@ -536,7 +588,7 @@ def _sort_pipeline(x, chunk_elems, finish_elems, presorted,
     c = min(chunk_elems, n)
     t = min(max(finish_elems, c), n)
     log_c, log_t = _log2(c), _log2(t)
-    fmax = max_fusion(len(_planes(x, rider, lex)[0]))
+    fmax = cross_fusion(len(_planes(x, rider, lex)[0]))
     if presorted_log is None:
         presorted_log = log_c
     if not presorted:

@@ -138,7 +138,8 @@ def test_cross_fused_equals_sequential(f, invert):
     """One cross pass fusing f distances == f single-distance passes."""
     rng = np.random.default_rng(20 + f)
     x = _keys(rng, 1 << 12)
-    j_low, kk = 3, 3 + f + 1  # directions alternate between merge groups
+    j_low = min(3, 11 - f)
+    kk = j_low + f + 1  # directions alternate between merge groups
     fused = _port(tb.cross_stage, x, j_low, f, kk, invert)
     seq = torch.from_numpy(x.copy())
     for dj in range(j_low + f - 1, j_low - 1, -1):
@@ -181,18 +182,18 @@ def test_finish_tile_split(kk, invert):
     x = _keys(rng, 1 << 11)
     big = _port(tb.finish, x, 1 << 11, kk, invert)
     small = torch.from_numpy(x.copy())
-    for j_low, f in tb._cross_schedule(kk, 4):
+    for j_low, f in tb._cross_schedule(kk, 4, tb.cross_fusion(1)):
         tb.cross_stage(small, j_low, f, kk, invert)
     tb.finish(small, 1 << 4, kk, invert)
     np.testing.assert_array_equal(big, small.numpy())
 
 
 def test_cross_schedule_is_greedy():
-    assert list(tb._cross_schedule(23, 15)) == [(19, 4), (15, 4)]
-    assert list(tb._cross_schedule(22, 15)) == [(18, 4), (15, 3)]
-    assert list(tb._cross_schedule(17, 15)) == [(15, 2)]
-    assert list(tb._cross_schedule(15, 15)) == []
-    assert list(tb._cross_schedule(14, 15)) == []
+    assert list(tb._cross_schedule(23, 15, 4)) == [(19, 4), (15, 4)]
+    assert list(tb._cross_schedule(22, 15, 4)) == [(18, 4), (15, 3)]
+    assert list(tb._cross_schedule(17, 15, 4)) == [(15, 2)]
+    assert list(tb._cross_schedule(15, 15, 4)) == []
+    assert list(tb._cross_schedule(14, 15, 4)) == []
 
 
 def test_cpu_wrappers_count_plain_calls_not_launches():
@@ -217,8 +218,8 @@ def test_wrappers_reject_bad_buffers():
         tb.chunk_sort(x[::2], 64)
     with pytest.raises(ValueError):
         tb.chunk_sort(x, 2048)
-    with pytest.raises(ValueError):
-        tb.cross_stage(x, 3, 5, 9)
+    with pytest.raises(ValueError):  # more distances than a pass runs
+        tb.cross_stage(x, 0, tb.cross_fusion(1) + 1, 10)
     # a tensor on neither the CPU nor a CUDA device has no path at all
     with pytest.raises(ValueError, match="unsupported device"):
         tb.finish(torch.empty(1024, dtype=torch.int32, device="meta"), 64, 10)

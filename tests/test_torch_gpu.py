@@ -48,9 +48,12 @@ CASES = {
     "chunk_sort_ascending": (
         lambda x: tb.chunk_sort(x, CFG.chunk_elems, ascending=True),
         lambda x: tb.chunk_sort_ref(x, CFG.chunk_elems, ascending=True)),
+    # the lowest distance at the finish tile while f distances fit 2^20 rows
     **{f"cross_stage<{f}>": (
-        lambda x, f=f: tb.cross_stage(x, LOG_T, f, LOG_T + f, f % 2 == 0),
-        lambda x, f=f: tb.cross_stage_ref(x, LOG_T, f, LOG_T + f, f % 2 == 0))
+        lambda x, f=f, j=min(LOG_T, 20 - f): tb.cross_stage(
+            x, j, f, j + f, f % 2 == 0),
+        lambda x, f=f, j=min(LOG_T, 20 - f): tb.cross_stage_ref(
+            x, j, f, j + f, f % 2 == 0))
        for f in tb.CROSS_FUSION},
     "finish": (lambda x: tb.finish(x, CFG.finish_elems, 20, True),
                lambda x: tb.finish_ref(x, CFG.finish_elems, 20, True)),
@@ -109,11 +112,11 @@ RIDER_CASES = {
         lambda x, r: tb.chunk_sort(x, R_C, ascending=True, rider=r),
         lambda x, r: tb.chunk_sort_ref(x, R_C, ascending=True, rider=r)),
     **{f"cross_stage<{f}>": (
-        lambda x, r, f=f: tb.cross_stage(x, R_LOG_T, f, R_LOG_T + f,
-                                         f % 2 == 0, rider=r),
-        lambda x, r, f=f: tb.cross_stage_ref(x, R_LOG_T, f, R_LOG_T + f,
-                                             f % 2 == 0, rider=r))
-       for f in tb.CROSS_FUSION},
+        lambda x, r, f=f, j=min(R_LOG_T, 20 - f): tb.cross_stage(
+            x, j, f, j + f, f % 2 == 0, rider=r),
+        lambda x, r, f=f, j=min(R_LOG_T, 20 - f): tb.cross_stage_ref(
+            x, j, f, j + f, f % 2 == 0, rider=r))
+       for f in range(1, tb.cross_fusion(2) + 1)},
     "finish": (lambda x, r: tb.finish(x, R_T, 20, True, rider=r),
                lambda x, r: tb.finish_ref(x, R_T, 20, True, rider=r)),
 }
@@ -340,12 +343,13 @@ def _lex_cases():
         cases[f"finish/lex{p}"] = (
             p, lambda x, lx, f=f: tb.finish(x, f, 20, True, lex=lx),
             lambda x, lx, f=f: tb.finish_ref(x, f, 20, True, lex=lx))
-        for fu in range(1, tb.max_fusion(p) + 1):
+        for fu in range(1, tb.cross_fusion(p) + 1):
+            j = min(lt, 19 - fu)
             cases[f"cross_stage<{fu}>/lex{p}"] = (
-                p, lambda x, lx, lt=lt, fu=fu: tb.cross_stage(
-                    x, lt, fu, lt + fu + 1, fu % 2 == 0, lex=lx),
-                lambda x, lx, lt=lt, fu=fu: tb.cross_stage_ref(
-                    x, lt, fu, lt + fu + 1, fu % 2 == 0, lex=lx))
+                p, lambda x, lx, j=j, fu=fu: tb.cross_stage(
+                    x, j, fu, j + fu + 1, fu % 2 == 0, lex=lx),
+                lambda x, lx, j=j, fu=fu: tb.cross_stage_ref(
+                    x, j, fu, j + fu + 1, fu % 2 == 0, lex=lx))
     return cases
 
 
@@ -366,6 +370,71 @@ def test_lex_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# the strided tile pass (f > max_fusion(P)) in the keys, rider and lex2
+# modes: ascending and descending, at the finish tile and at the top
+# distances, and under a radix span of 2^19
+STRIDED = [(mode, f) for mode, p in (("keys", 1), ("rider", 2), ("lex2", 2))
+           for f in range(tb.max_fusion(p) + 1, tb.cross_fusion(p) + 1)]
+
+
+@pytest.mark.parametrize("mode,f", STRIDED)
+def test_strided_cross_pass_matches_plain(cuda, mode, f):
+    rng = np.random.default_rng(f)
+    if mode == "keys":
+        base = [_keys(cuda, N, seed=f)]
+    else:  # ties, and a unique second plane
+        base = [torch.from_numpy(rng.integers(0, 16, N).astype(np.int32))
+                .to(cuda), torch.randperm(N, device=cuda).to(torch.int32)]
+
+    def kw(planes):
+        if mode == "keys":
+            return {}
+        return {"rider": planes[1]} if mode == "rider" else {"lex": planes[1:]}
+
+    log_n = N.bit_length() - 1
+    lt = LOG_T if mode == "keys" else R_LOG_T
+    for j, kk, inv, span in ((min(lt, log_n - f), log_n, False, None),
+                             (min(lt, log_n - f), log_n, True, None),
+                             (log_n - f, log_n, True, None),
+                             (min(lt, 19 - f), 19, False, 1 << 19),
+                             (min(lt, 19 - f), 19, True, 1 << 19)):
+        got = [x.clone() for x in base]
+        tb.cross_stage(got[0], j, f, kk, inv, span=span, **kw(got))
+        want = tb.cross_stage_ref(base[0], j, f, kk, inv, span=span,
+                                  **kw(base))
+        torch.cuda.synchronize()
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (j, kk,
+                                                                    inv, span)
+
+
+@pytest.mark.parametrize("mode", ["keys", "rider", "lex2", "lex5"])
+def test_sort_at_the_cross_cap_matches_the_old_grouping(cuda, mode,
+                                                        monkeypatch):
+    """A whole sort with at most cross_fusion(P) distances a pass and with
+    the old max_fusion(P): bit-identical planes, riders included."""
+    ncmp, p = {"keys": (1, 1), "rider": (1, 2), "lex2": (2, 2),
+               "lex5": (2, 5)}[mode]
+    n = 1 << 22
+    rng = np.random.default_rng(p)
+    src = [torch.from_numpy(rng.integers(0, 1 << 12, n).astype(np.int32))
+           .to(cuda)]
+    src += [torch.randperm(n, device=cuda).to(torch.int32)
+            for _ in range(p - 1)]
+    chunk, fin = CFG.mode_tiles(p, ncmp)
+    outs = []
+    for cap in (tb.cross_fusion, tb.max_fusion):
+        monkeypatch.setattr(tb, "cross_fusion", cap)
+        got = [x.clone() for x in src]
+        k, rd, lx = tb._keywords(got, ncmp)
+        tb.sort_planes(k, chunk, fin, mode == "lex5", rd, lx)
+        outs.append(got)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    want = torch.sort(src[0], descending=mode == "lex5").values
+    assert torch.equal(outs[0][0], want)
 
 
 @pytest.mark.parametrize("bins", [128, 256, 8192, 65536])

@@ -85,9 +85,10 @@ def _port1(fn, x, *args, **kw):
 RIDER_PASSES = {
     "chunk_sort": lambda: ((tb.chunk_sort, 64), {"invert": True}),
     "chunk_sort_ascending": lambda: ((tb.chunk_sort, 64), {"ascending": True}),
-    **{f"cross_stage<{f}>": (lambda f=f: ((tb.cross_stage, 3, f, 3 + f + 1),
-                                          {"invert": f % 2 == 1}))
-       for f in tb.CROSS_FUSION},
+    **{f"cross_stage<{f}>": (
+        lambda f=f, j=min(3, 11 - f): ((tb.cross_stage, j, f, j + f + 1),
+                                       {"invert": f % 2 == 1}))
+       for f in range(1, tb.cross_fusion(2) + 1)},
     "finish": lambda: ((tb.finish, 256, 11), {}),
 }
 

@@ -68,14 +68,19 @@ def test_lex_passes_keep_rows_and_validate():
         assert sorted(got_r.tolist()) == r.tolist()
     x = torch.from_numpy(k.copy())
     with pytest.raises(ValueError, match="cross pass"):
-        tb.cross_stage(x, 3, 4, 8, lex=[x.clone(), x.clone(), x.clone()])
+        tb.cross_stage(x, 0, tb.cross_fusion(4) + 1, 8,
+                       lex=[x.clone(), x.clone(), x.clone()])
     with pytest.raises(ValueError, match="lex"):
         tb.chunk_sort(x, 64, lex=[x.clone()] * 8)
     with pytest.raises(ValueError, match="not both"):
         tb.chunk_sort(x, 64, rider=x.clone(), lex=[x.clone()])
     assert [tb.max_fusion(p) for p in range(1, 9)] == [4, 4, 4, 3, 3, 3, 2, 2]
     assert "cross_stage<4>/lex3" in tb.KERNELS
-    assert "cross_stage<3>/lex7" not in tb.KERNELS
+    assert [tb.cross_fusion(p) for p in range(1, 9)] == [10, 9, 8, 6, 6, 6,
+                                                          4, 4]
+    assert "cross_stage<8>/lex3" in tb.KERNELS
+    assert "cross_stage<4>/lex7" in tb.KERNELS
+    assert "cross_stage<5>/lex7" not in tb.KERNELS
 
 
 def test_merge_valley_lex():
