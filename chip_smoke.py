@@ -80,10 +80,15 @@ Phases, one line each (any failure raises and exits nonzero):
           all-equal keys at 2^23 (the overflow
           fallback to the network) and ``tile_histograms`` (K14) at 2^26,
           each window printing its overflow count, every result exact;
-       e. slice 9: BASELINE config 3 eager at 2^30 rows from host memory
-          (``filter_chunked`` + ``groupby_chunked``; rows/s, peak device
-          memory and slab beside the LazyTable query's rate) and
-          ``sort_chunked`` (8 runs of 2^26, and one slab); the distributed
+       e. slice 9: the host copies that chose the streaming operators'
+          staging (pageable and pinned rates, pinned allocation,
+          ``cudaHostRegister``, host copies at 1-8 threads, pieces of 8-512
+          MiB, the staging ring each way), BASELINE config 3 eager at 2^30
+          rows from host memory (``filter_chunked`` + ``groupby_chunked``;
+          rows/s, its phases, peak device memory and slab beside the
+          LazyTable query's rate) and ``sort_chunked`` (8 runs of 2^26, and
+          one slab), each checked to have moved every piece through pinned
+          memory on a copy stream (the staged GB/s each way); the distributed
           sort on an in-process mesh of 8 shards on the one card, 2^28
           keys (flat with and without overlap, hier, stable and unstable
           pairs, argsort, ``_auto`` on presorted keys, ragged n on 6
@@ -1525,6 +1530,22 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def _staged(name):
+    """Check that every copy of the streamed calls since the last
+    ``_staging.reset_stats()`` went through pinned pieces on a copy stream;
+    print the staged bytes and GB/s each way."""
+    from radx_tpu_torch.ops import _staging
+
+    st = dict(_staging.STATS)
+    pieces = st["pieces_up"] + st["pieces_down"]
+    _line("chunked", staged=name, **st,
+          staged_to_card_gb_per_s=st["bytes_up"] / max(st["seconds_up"], 1e-9) / 1e9,
+          staged_to_host_gb_per_s=st["bytes_down"] / max(st["seconds_down"], 1e-9) / 1e9)
+    if not pieces or st["pinned_pieces"] != pieces:
+        _fail(f"{name}: {st['pinned_pieces']} of {pieces} pieces went "
+              "through pinned memory on a copy stream")
+
+
 def chunked_path(dev, card):
     """Slice 9, the streaming operators: BASELINE config 3 eager at 2^30
     rows from host memory (``filter_chunked`` + ``groupby_chunked``, slabs
@@ -1532,14 +1553,18 @@ def chunked_path(dev, card):
     card, beside the LazyTable query on the same rows; ``sort_chunked`` of
     5 * 2^26 + 7 keys in slabs of 2^26 (8 runs, three merge levels, a last
     merge of 2^29 keys) and of one slab (the shortcut through ``sort``),
-    against ``torch.sort``."""
+    against ``torch.sort``.  Every streamed copy must have gone through the
+    pinned staging ring on a copy stream (``_staged``); the host copies'
+    measurements (``bench.measure_host_copies``) and the query's phases
+    (mask, ``filter_chunked``, ``groupby_chunked``) are printed."""
     from radx_tpu_torch import bench
     from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.kernels import compact as CP
     from radx_tpu_torch.kernels import segscan as SG
-    from radx_tpu_torch.ops import chunked
+    from radx_tpu_torch.ops import _staging, chunked
     from radx_tpu_torch.utils import timing
 
+    _line("chunked", **bench.measure_host_copies(), **card)
     n30 = 1 << 30
     table = bench.query_dense_data(n30)
     ref = bench.query_dense_ref(table)
@@ -1550,26 +1575,29 @@ def chunked_path(dev, card):
     del table
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    _staging.reset_stats()
     with window("config3_eager_chunked_2e30",
                 (*B.RIDER_KERNELS, *CP.KERNELS, *SG.KERNELS)):
         res, first = _timed(lambda: bench.run_query_chunked(*cols))
     peak = torch.cuda.max_memory_allocated()
+    _staged("config3_eager_chunked_2e30")
     g = bench.check_query_chunked(*res, ref)
     _line("slice", input=f"config3_eager_chunked_n{n30}", kept=res[0],
           groups=g, equal_reference=True)
     del res
-    _, secs = _timed(lambda: bench.run_query_chunked(*cols))
+    phases = {}
+    _, secs = _timed(lambda: bench.run_query_chunked(*cols, phase_ms=phases))
     _line("chunked", what="config 3 eager at 2^30 rows from host memory: "
           "filter_chunked(pred < 2^31) + groupby_chunked sum by bucket, the "
           "host mask and the copies included; seconds: a second run by the "
-          "host clock, first_seconds: the window's", rows_per_s=n30 / secs,
-          seconds=secs, first_seconds=first, slab=chunked.SLAB,
-          max_memory_allocated_bytes=peak,
+          "host clock, first_seconds: the window's; phase_ms: the second "
+          "run's host-clock phases", rows_per_s=n30 / secs,
+          seconds=secs, first_seconds=first, phase_ms=phases,
+          slab=chunked.SLAB, max_memory_allocated_bytes=peak,
           lazytable_rows_per_s=n30 / lazy.seconds,
           lazytable_ms=lazy.seconds * 1e3,
           lazytable_spread_pct=lazy.spread_pct, **card)
     del cols, ref
-    _line("chunked", **bench.measure_host_copies())
 
     n = 5 * (1 << 26) + 7
     gen = torch.Generator(device=dev).manual_seed(91)
@@ -1577,9 +1605,11 @@ def chunked_path(dev, card):
     keys = keys_dev.cpu().numpy()
     for name, m, slab in (("sort_chunked_8_runs_2e26_slabs", n, 1 << 26),
                           ("sort_chunked_one_slab", (1 << 26) - 5, 1 << 26)):
+        _staging.reset_stats()
         with window(name, B.KEY_KERNELS):
             got, secs = _timed(lambda: chunked.sort_chunked(keys[:m],
                                                             slab=slab))
+        _staged(name)
         want = bench.torch_sort_u32(keys_dev[:m])
         ok = got.dtype == np.uint32 and torch.equal(
             torch.from_numpy(got).to(dev).view(torch.int32), _i32(want))

@@ -436,13 +436,22 @@ def query_chunked_data(n: int, seed: int = 13):
 
 
 def run_query_chunked(bucket, value, pred, slab: int = chunked.SLAB,
-                      cfg=None):
+                      cfg=None, phase_ms: dict | None = None):
     """Config 3 eager on host columns: ``filter_chunked(pred < 2^31,
     [bucket, value])`` then ``groupby_chunked`` sum by bucket; returns
-    (kept row count, (keys, sums, num_groups))."""
+    (kept row count, (keys, sums, num_groups)).  ``phase_ms``, where
+    given, gets the host-clock ms of the mask, ``filter_chunked`` and
+    ``groupby_chunked`` (each ends with its outputs in host memory)."""
+    t0 = time.perf_counter()
     mask = pred.view(np.int32) >= 0  # pred < 2^31
+    t1 = time.perf_counter()
     (kb, kv), count = chunked.filter_chunked(mask, [bucket, value], cfg, slab)
-    return count, chunked.groupby_chunked(kb, kv, "sum", cfg, slab)
+    t2 = time.perf_counter()
+    out = chunked.groupby_chunked(kb, kv, "sum", cfg, slab)
+    if phase_ms is not None:
+        phase_ms.update(mask=(t1 - t0) * 1e3, filter_chunked=(t2 - t1) * 1e3,
+                        groupby_chunked=(time.perf_counter() - t2) * 1e3)
+    return count, out
 
 
 def check_query_chunked(count, result, ref):
@@ -1099,25 +1108,174 @@ def profile_radix(n: int = 1 << 26, calls: int = 3) -> dict:
                     radix_idle_split)
 
 
+MIB = 1 << 20
+
+
+def _best_seconds(fn, repeats: int = 3) -> float:
+    """Least host seconds of ``fn()`` over ``repeats`` runs, the card
+    synchronised before and after each."""
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _pinned_alloc_ms(sizes=(64 * MIB, 256 * MIB, 1024 * MIB)) -> dict:
+    """ms of ``torch.empty(size, pin_memory=True)``: the first allocation
+    of each size, then a second one after the first was freed (PyTorch's
+    caching host allocator keeps freed pinned blocks)."""
+    out = {}
+    for size in sizes:
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not buf.is_pinned():
+                raise RuntimeError("torch.empty(pin_memory=True) is not pinned")
+            del buf
+        out[f"{size // MIB}MiB"] = {"first_ms": times[0], "second_ms": times[1]}
+    return out
+
+
+def _register_ms_per_gib(host: np.ndarray, dev) -> dict:
+    """``cudaHostRegister`` / ``cudaHostUnregister`` of an existing numpy
+    array (ms a GiB), and the card's copy rate from it while registered."""
+    cudart = torch.cuda.cudart()
+    gib = host.nbytes / (1 << 30)
+    ptr = host.ctypes.data
+    t0 = time.perf_counter()
+    torch.cuda.check_error(cudart.cudaHostRegister(ptr, host.nbytes, 0))
+    t1 = time.perf_counter()
+    try:
+        src = torch.from_numpy(host)
+        pinned = src.is_pinned()
+        to_card = host.nbytes / _best_seconds(
+            lambda: src.to(dev, non_blocking=True)) / 1e9
+    finally:
+        t2 = time.perf_counter()
+        torch.cuda.check_error(cudart.cudaHostUnregister(ptr))
+        t3 = time.perf_counter()
+    return {"register_ms_per_gib": (t1 - t0) * 1e3 / gib,
+            "unregister_ms_per_gib": (t3 - t2) * 1e3 / gib,
+            "is_pinned_while_registered": pinned,
+            "registered_to_card_gb_per_s": to_card}
+
+
+def _memcpy_rates(host: np.ndarray, pinned: torch.Tensor,
+                  threads=(1, 2, 4, 8)) -> dict:
+    """GB/s of host copies between numpy memory and a pinned buffer of the
+    same size, each way: ``torch.Tensor.copy_`` under
+    ``torch.set_num_threads(k)``, and ``np.copyto`` of k ranges from a
+    pool of k threads; then pinned into fresh numpy memory (first touch:
+    the page faults of a new output array) at the default thread count."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    src = torch.from_numpy(host)
+    pin_np = pinned.numpy()
+    nbytes = host.nbytes
+
+    def pool_copy(pool, k, dst, s):
+        step = -(-dst.shape[0] // k)
+        list(pool.map(lambda i: np.copyto(dst[i:i + step], s[i:i + step]),
+                      range(0, dst.shape[0], step)))
+
+    default = torch.get_num_threads()
+    out = {"torch_default_threads": default}
+    try:
+        for k in threads:
+            torch.set_num_threads(k)
+            with ThreadPoolExecutor(k) as pool:
+                out[f"threads_{k}"] = {
+                    "torch_to_pinned": nbytes / _best_seconds(
+                        lambda: pinned.copy_(src)) / 1e9,
+                    "torch_from_pinned": nbytes / _best_seconds(
+                        lambda: src.copy_(pinned)) / 1e9,
+                    "numpy_to_pinned": nbytes / _best_seconds(
+                        lambda: pool_copy(pool, k, pin_np, host)) / 1e9,
+                    "numpy_from_pinned": nbytes / _best_seconds(
+                        lambda: pool_copy(pool, k, host, pin_np)) / 1e9,
+                    "numpy_from_pinned_into_fresh_numpy": nbytes / _best_seconds(
+                        lambda: pool_copy(pool, k, np.empty_like(host),
+                                          pin_np)) / 1e9,
+                }
+    finally:
+        torch.set_num_threads(default)
+    out["torch_from_pinned_into_fresh_numpy"] = nbytes / _best_seconds(
+        lambda: torch.from_numpy(np.empty_like(host)).copy_(pinned)) / 1e9
+    return out
+
+
+def _piece_rates(pinned: torch.Tensor, on_card: torch.Tensor,
+                 pieces=(8 * MIB, 32 * MIB, 128 * MIB, 512 * MIB)) -> dict:
+    """GB/s of the whole buffer between pinned memory and the card, copied
+    in pieces of each size with ``non_blocking=True`` on a side stream."""
+    side = torch.cuda.Stream()
+    src, card = pinned.view(torch.uint8), on_card.view(torch.uint8)
+    nbytes = src.numel()
+
+    def moved(piece, up):
+        with torch.cuda.stream(side):
+            for lo in range(0, nbytes, piece):
+                hi = min(lo + piece, nbytes)
+                if up:
+                    card[lo:hi].copy_(src[lo:hi], non_blocking=True)
+                else:
+                    src[lo:hi].copy_(card[lo:hi], non_blocking=True)
+        side.synchronize()
+
+    return {f"{p // MIB}MiB": {
+        "to_card": nbytes / _best_seconds(lambda: moved(p, True)) / 1e9,
+        "to_pinned": nbytes / _best_seconds(lambda: moved(p, False)) / 1e9}
+        for p in pieces}
+
+
+def _staged_rates(host: np.ndarray, dev) -> dict:
+    """GB/s of the streaming operators' staging (``ops/_staging.py``, its
+    own piece size, ring and threads) each way: numpy to the card, the card
+    to numpy memory already written once, and to fresh numpy memory."""
+    from radx_tpu_torch.ops import _staging
+
+    out = np.zeros_like(host)
+    with _staging.Staging(dev) as st:
+        card = st.upload(host)
+
+        def down(dst):
+            st.get(card, dst)
+            st.wait()
+
+        return {"piece_bytes": st.up.piece_bytes, "ring": _staging.RING,
+                "threads": _staging.THREADS,
+                "to_card": host.nbytes / _best_seconds(
+                    lambda: st.put(host, card)) / 1e9,
+                "to_numpy": host.nbytes / _best_seconds(
+                    lambda: down(out)) / 1e9,
+                "to_fresh_numpy": host.nbytes / _best_seconds(
+                    lambda: down(np.empty_like(host))) / 1e9}
+
+
 def measure_host_copies(nbytes: int = 1 << 30) -> dict:
-    """GB/s of one copy of ``nbytes`` between host and card: numpy
-    (pageable) memory to the card and back, as the streaming operators
-    copy, and pinned memory for comparison (least of 3 copies each)."""
+    """The host <-> card copies that choose the streaming operators'
+    staging (``ops/_staging.py``), on ``nbytes``: numpy (pageable) memory
+    to the card and back, pinned memory (least of 3 copies each, GB/s);
+    the cost of allocating pinned memory (first and second allocation, ms)
+    and of registering a numpy array (ms a GiB); host copies between numpy
+    and pinned memory at 1-8 threads (and into fresh numpy memory); pinned
+    <-> card in pieces of 8-512 MiB on a side stream; and the staging path
+    itself, each way."""
     dev = timing.require_cuda()
+    alloc = _pinned_alloc_ms()  # before anything else of this size is pinned
     n = nbytes // 4
     host = np.random.default_rng(0).integers(0, 2**31, n, dtype=np.int32)
     pinned = torch.from_numpy(host).pin_memory()
     on_card = torch.from_numpy(host).to(dev)
 
     def rate(fn):
-        best = float("inf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
-        return nbytes / best / 1e9
+        return nbytes / _best_seconds(fn) / 1e9
 
     row = {"what": f"host <-> card copies of {nbytes} bytes, GB/s",
            "pageable_to_card": rate(lambda: torch.from_numpy(host).to(dev)),
@@ -1125,6 +1283,11 @@ def measure_host_copies(nbytes: int = 1 << 30) -> dict:
            "pinned_to_card": rate(lambda: pinned.to(dev, non_blocking=True)),
            "card_to_pinned": rate(lambda: pinned.copy_(on_card,
                                                        non_blocking=True)),
+           "pinned_alloc_ms": alloc,
+           "register": _register_ms_per_gib(host, dev),
+           "memcpy_gb_per_s": _memcpy_rates(host, pinned),
+           "pieces_gb_per_s": _piece_rates(pinned, on_card),
+           "staged_gb_per_s": _staged_rates(host, dev),
            "device": timing.device_info()}
     del pinned, on_card
     return row
@@ -1147,6 +1310,7 @@ MEASURES = {
     "join": lambda: [measure_join()],
     "dense": lambda: [measure_query_dense()],
     "chunked": lambda: [measure_host_copies(), *_chunked_slabs()],
+    "host_copies": lambda: [measure_host_copies()],
     "sweep": lambda: sweep_tiles(),
     "sweep_scan": lambda: sweep_single_pass(),
     "profile": lambda: [profile_sort(1 << 23), profile_sort(), profile_groupby(),

@@ -830,6 +830,37 @@ def test_chunked_ops_match_torch(cuda):
                        torch_sort_u32(kd).view(torch.int32))
 
 
+def test_chunked_staging_pinned_on_the_card(cuda, monkeypatch):
+    """The streamed copies through a ring of two 1 MiB pieces (each slab
+    wraps it many times) on the card: every piece pinned and on the copy
+    stream, and every output equal to the default ring's."""
+    from radx_tpu_torch.ops import _staging
+
+    rng = np.random.default_rng(92)
+    keys = rng.integers(0, 2**32, N9, dtype=np.uint32)
+    vals = rng.integers(0, 2**32, N9, dtype=np.uint32)
+    mask = keys.view(np.int32) >= 0
+    gk = (keys & 63).astype(np.uint32)
+
+    def run():
+        return (tch.filter_chunked(mask, [keys, vals], slab=SLAB9),
+                tch.groupby_chunked(gk, vals, "min", slab=SLAB9),
+                tch.sort_chunked(keys, slab=SLAB9))
+
+    want = run()
+    monkeypatch.setattr(_staging, "PIECE_BYTES", 1 << 20)
+    monkeypatch.setattr(_staging, "RING", 2)
+    _staging.reset_stats()
+    (fcols, count), (uk, mins, ng), keys_sorted = run()
+    st = _staging.STATS
+    assert st["pinned_pieces"] == st["pieces_up"] + st["pieces_down"] > 64
+    assert count == want[0][1] and ng == want[1][2] == 64
+    for got, exp in zip([*fcols, uk, mins, keys_sorted],
+                        [*want[0][0], *want[1][:2], want[2]]):
+        assert got.dtype == exp.dtype and np.array_equal(got, exp)
+    assert np.array_equal(keys_sorted, np.sort(keys))
+
+
 @pytest.mark.parametrize("exchange,overlap", [("flat", True), ("flat", False),
                                               ("hier", True)])
 def test_in_process_mesh_matches_torch(cuda, exchange, overlap):
