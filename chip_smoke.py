@@ -44,7 +44,9 @@ Phases, one line each (any failure raises and exits nonzero):
      2^28 and 1..4 sources at 2^26 + 4099 on an unaligned index plane with
      out-of-range indices, tagged mode on the join's union of 2 x 10^8 rows
      and on ties with pads, the skew cases at 2^26, the direct route up to
-     one window);
+     one window); ``merge_runs`` and its path launch (``merge_checks``: 1,
+     2 and 3 planes, runs of 0 to 2^27 rows, all-equal and 0xFFFFFFFF
+     keys);
   4. the paths through the public entry points, each in a window of its
      own (``window``): the launch counts are set to 0 just before the path
      and read just after it, and every kernel the path runs must show >= 1
@@ -95,7 +97,9 @@ Phases, one line each (any failure raises and exits nonzero):
           shards, all-0xFFFFFFFF keys with payloads), one NCCL rank through
           ``init_multihost`` / ``sort_sharded_guarded`` at 2^26 and
           ``dryrun_multichip(8)``: every result exact against torch (or
-          numpy), every rate beside the one-device ``sort``;
+          numpy), every window launching ``merge_runs`` and its path (the
+          runs merged at their own length), every rate beside the
+          one-device ``sort`` and the call's peak device memory;
        f. slice 10: every config of ``radx_tpu_torch.bench_suite`` but
           ``sort_chunked_1g``, each gated and then timed in a window that
           requires its op's kernels (one row each with its peak device
@@ -110,8 +114,9 @@ Phases, one line each (any failure raises and exits nonzero):
           ``filter_chunked(mask, [])`` over three slabs; the scaling model
           (radx_tpu_torch/tools/scaling_model.py): its rates measured on the
           card, the exchange audit on 8 shards (flat and 4 x 2 hier: the
-          counted waves, bytes a wave and receive bytes equal to the
-          model's), the calibration line, the model's table and its trace
+          model's waves and output row, every run and phase within the
+          model's bytes), the calibration line, the model's table and its
+          trace
           of the 8-shard sort; BASELINE config 1 against the host C++
           oracle (``radx_tpu_torch.oracle`` / ``.runtime``: 2^26 keys of
           the three host generators, bit-equal, ``validate_sort`` 0; stable
@@ -125,6 +130,9 @@ Phases, one line each (any failure raises and exits nonzero):
      shapes through both routes (the direct kernel and the partitioned
      route, whole and step by step) beside ``index_select`` and the
      partitioned route's floor;
+     ``merge_runs`` and its path at 2^24 + 2^24 and 2^27 + 2^27 rows (keys)
+     and 2^24 + 2^24 in lex2 with a payload, beside a stable ``torch.sort``
+     of the concatenation;
      ``cross_stage<1>`` at the last merge level and ``finish`` on bitonic
      tiles, each first held equal to ``torch.sort`` of its view;
      ``cross_stage<2..10>`` likewise on columns bitonic along the 2^F
@@ -192,6 +200,10 @@ def _ptxas_name(kernel, args):
     if kernel == "gather_planes":
         return ({1: "gather_planes/tagged", 2: "gather_planes/side"}.get(a[1])
                 or f"gather_planes<{a[0]}>")
+    if kernel == "merge_runs":
+        return f"merge_runs<{a[0]},{a[1]}>"
+    if kernel == "merge_path":
+        return f"merge_runs/path<{a[0]}>"
     if kernel.startswith("gather_"):
         tag = "tagged/" if a and a[0] else ""
         return f"gather_planes/{tag}{kernel[len('gather_'):]}"
@@ -208,7 +220,8 @@ def ptxas_report(log):
             r"chunk_sort|finish|cross_stage|radix_hist|radix_rank|radix_pack|"
             r"radix_concat|compact|segscan|dense_sums_smem|dense_sums_global|"
             r"dense_extrema|gather_planes|gather_count|gather_scan|"
-            r"gather_part|gather_place)_kernel(I(?:L[ib]\d+E)+E)?", ln)
+            r"gather_part|gather_place|merge_runs|merge_path)_kernel"
+            r"(I(?:L[ib]\d+E)+E)?", ln)
         if found:
             kernel = _ptxas_name(found.group(1), found.group(2))
         elif kernel and ("Used" in ln or "spill" in ln):
@@ -269,9 +282,9 @@ def record(names, e, ok, **case):
 
 def _kernel_modules():
     from radx_tpu_torch.kernels import (aggregate, bitonic, compact, gather,
-                                        msd, radix, segscan)
+                                        merge, msd, radix, segscan)
 
-    return bitonic, compact, segscan, aggregate, radix, msd, gather
+    return bitonic, compact, segscan, aggregate, radix, msd, gather, merge
 
 
 def bound(bytes_, ops=0):
@@ -1034,6 +1047,70 @@ def gather_checks(dev):
     torch.cuda.empty_cache()
 
 
+def merge_inputs(dev, na, nb, ncmp, planes, keys, seed):
+    """Two ascending runs of ``planes`` int32 planes on the card: keys
+    uniform, ``equal`` (one value) or ``ffffffff`` (half of them the
+    sign-biased 0xFFFFFFFF, the pads' key), the tie plane (lex2) unique
+    where the keys are uniform, else random, payloads random."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def run(n, base):
+        if keys == "equal":
+            k = torch.full((n,), 0x5EED, dtype=torch.int32, device=dev)
+        elif keys == "ffffffff":
+            k = torch.where(torch.rand(n, device=dev, generator=gen) < 0.5,
+                            PAD, torch.randint(0, 1 << 20, (n,), device=dev,
+                                               generator=gen,
+                                               dtype=torch.int32))
+        else:
+            k = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                              device=dev, generator=gen)
+        rest = [torch.arange(base, base + n, dtype=torch.int32, device=dev)
+                if i == 0 and keys == "uniform" else
+                torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                              device=dev, generator=gen)
+                for i in range(planes - 1)]
+        if ncmp == 2:  # (key, tie) order: stable by the tie, then the key
+            order = torch.sort(rest[0], stable=True).indices
+            order = order[torch.sort(k[order], stable=True).indices]
+        else:
+            order = torch.sort(k, stable=True).indices
+        return [k[order], *(r[order] for r in rest)]
+
+    return run(na, 0), run(nb, na)
+
+
+def merge_checks(dev):
+    """``merge_runs`` and its path (csrc/merge.cu) against their plain
+    versions on the card, bit for bit, the key XOR on: 1, 2 and 3 planes
+    (keys, lex2, lex2 and a payload) at lengths from 0 to 2^28 in all,
+    about a tile (2047 + 2049) and at the main paths' shapes (the 8-shard
+    mesh's last merge, 2^24 + 2^24; two runs of 2^27, the four-card
+    cell's first level), all-equal keys, and real 0xFFFFFFFF keys."""
+    from radx_tpu_torch.kernels import merge as MG
+
+    cases = [(0, 1 << 20, 1, 1, "uniform"), (1 << 20, 0, 2, 2, "uniform"),
+             (1, 1, 1, 1, "uniform"), (2047, 2049, 2, 3, "uniform"),
+             (1 << 24, 1 << 24, 1, 1, "uniform"),
+             ((1 << 27) + 3, (1 << 27) - 3, 1, 1, "uniform"),
+             (1 << 27, 1 << 27, 2, 3, "uniform"),
+             ((1 << 24) + 1, 1 << 23, 1, 1, "equal"),
+             ((1 << 22) + 5, 1 << 22, 2, 3, "equal"),
+             (1 << 24, (1 << 24) - 7, 1, 1, "ffffffff"),
+             (1 << 24, (1 << 24) - 7, 2, 2, "ffffffff")]
+    for i, (na, nb, ncmp, planes, keys) in enumerate(cases):
+        a, b = merge_inputs(dev, na, nb, ncmp, planes, keys, 70 + i)
+        got = MG.merge_runs(a, b, ncmp, key_xor=SIGN)
+        split = MG.merge_path(a, b, ncmp)
+        want = MG.merge_runs_ref(a, b, ncmp, key_xor=SIGN)
+        want_split = MG.merge_path_ref(a, b, ncmp)
+        e = max(_max_err(got, want), _max_err([split], [want_split]))
+        record(["merge_runs", "merge_runs/path"], e, e == 0, na=na, nb=nb,
+               ncmp=ncmp, planes=planes, keys=keys)
+        del a, b, got, want, split, want_split
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def window(name, required):
     """Drive one path inside the block: every launch count is set to 0 just
@@ -1637,6 +1714,7 @@ def dist_path(dev, card):
 
     from radx_tpu_torch import bench, sort
     from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import merge as MG
     from radx_tpu_torch.parallel import Mesh, dryrun_multichip, multihost
     from radx_tpu_torch.parallel import dist_sort as DS
 
@@ -1655,14 +1733,21 @@ def dist_path(dev, card):
 
     def drive(name, required, n, fn, check):
         """The path once in its window (checked by ``check(out) -> (ok,
-        fields)``), then once more by the host clock, warm."""
-        with window(name, required):
+        fields)``; every path runs the merge kernels too), then once more
+        by the host clock, warm, with its peak device memory (the peak
+        over what was allocated before the call: inputs not counted)."""
+        with window(name, (*required, *MG.KERNELS)):
             out, first = _timed(fn)
         ok, extra = check(out)
         del out
-        _, secs = _timed(fn)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = _timed(fn)
+        del out
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
         _line("dist", window=name, n=n, keys_per_s=n / secs, seconds=secs,
-              first_seconds=first,
+              peak_device_gib_above_inputs=peak, first_seconds=first,
               single_device_sort_keys_per_s_n2e28=n28 / t_single,
               equal_reference=ok, note="the shards share one card: no "
               "scaling can be read from this rate", **extra, **card)
@@ -1739,7 +1824,8 @@ def dist_path(dev, card):
     del host, expect
     # shards of 2^18 keys: levels of up to 4 cross distances
     with window("dryrun_multichip_8", (*B.mode_kernels(1, 1, 4),
-                                       "chunk_sort/lex3", "finish/lex3")):
+                                       "chunk_sort/lex3", "finish/lex3",
+                                       *MG.KERNELS)):
         _, secs = _timed(lambda: dryrun_multichip(8, dev))
     _line("dist", window="dryrun_multichip_8", seconds=secs, ok=True, **card)
     torch.cuda.empty_cache()
@@ -1866,8 +1952,9 @@ def last_modules_path(dev, card):
                     B.mode_kernels(1, 1, 9)):
             a = SM.audit(8, SM.DEFAULT_L, exchange, device=dev)
         _line("scaling_audit", **a, **card)
-        if not (a["equal"] and a["shards_alike"]):
-            _fail(f"the counted exchange ({exchange}) is not the model's")
+        if not a["agrees"]:
+            _fail(f"the counted exchange ({exchange}) departs from the "
+                  "model's")
     with window("scaling_model_calibration_8x2e23", B.mode_kernels(1, 1, 9)):
         cal = SM.calibrate(rates, SM.DEFAULT_L, device=dev)
     _line("scaling_calibration", **cal, **card)
@@ -1963,6 +2050,7 @@ def main():
     from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.kernels import compact as CP
     from radx_tpu_torch.kernels import gather as GT
+    from radx_tpu_torch.kernels import merge as MG
     from radx_tpu_torch.kernels import msd as M
     from radx_tpu_torch.kernels import radix as RX
     from radx_tpu_torch.kernels import radix_sort as RS
@@ -1984,7 +2072,7 @@ def main():
     # keys, rider, lex2 and lex3 modes)
     all_kernels = (*B.KEY_KERNELS, *B.RIDER_KERNELS, *B.LEX_KERNELS,
                    *CP.KERNELS, *SG.KERNELS, *AG.KERNELS, *RX.KERNELS,
-                   *GT.KERNELS, "radix_rank",
+                   *GT.KERNELS, *MG.KERNELS, "radix_rank",
                    *(k for m in MODES.values() for k in
                      (*B.radix_kernels(*m), *M.mode_kernels(*m))))
     i32 = torch.int32
@@ -2158,6 +2246,7 @@ def main():
     del base, ties, iota
     single_pass_checks(dev, cfg, rng)
     gather_checks(dev)
+    merge_checks(dev)
 
     # the dense aggregates at 2^26 rows, a ragged n_valid
     n26 = 1 << 26
@@ -2708,6 +2797,36 @@ def main():
         gather_time(case, suffix)
         torch.cuda.empty_cache()
 
+    # merge_runs at the distributed sort's shapes: the 8-shard mesh's last
+    # merge (2^24 + 2^24 rows) and the four-card cell's first level (2^27 +
+    # 2^27), keys only, then two runs of 2^24 in lex2 with a payload (the
+    # pairs' three planes).  Bound: each row of each plane read once and
+    # written once, the path's searches (ceil(log2(shorter run + 1)) reads
+    # of each compare plane of both runs a tile boundary) and its splits.
+    # Library call: torch.sort of the concatenation (stable), keys only
+    def path_bytes(na, nb, ncmp):
+        bounds = -(-(na + nb) // MG.TILE) + 1
+        steps = (min(na, nb) + 1).bit_length()
+        return bounds * (8 + steps * 2 * 4 * ncmp)
+
+    for log_n, ncmp, planes in ((25, 1, 1), (28, 1, 1), (25, 2, 3)):
+        half = 1 << (log_n - 1)
+        ma, mb = merge_inputs(dev, half, half, ncmp, planes, "uniform", 90)
+        suffix = "" if planes == 1 else f"/lex{planes}"
+        lib = None if ncmp == 2 else (
+            lambda: torch.sort(torch.cat([ma[0], mb[0]]), stable=True))
+        time_pair("merge_runs" + suffix, log_n,
+                  lambda: MG.merge_runs(ma, mb, ncmp, key_xor=SIGN),
+                  lambda: MG.merge_runs_ref(ma, mb, ncmp, key_xor=SIGN),
+                  8 * planes * 2 * half + path_bytes(half, half, ncmp),
+                  lib=lib, planes=planes)
+        time_pair("merge_runs/path" + suffix, log_n,
+                  lambda: MG.merge_path(ma, mb, ncmp),
+                  lambda: MG.merge_path_ref(ma, mb, ncmp),
+                  path_bytes(half, half, ncmp), planes=planes)
+        del ma, mb
+        torch.cuda.empty_cache()
+
     # the dense aggregates at 2^26 rows, 256 bins (the config-3 shape)
     dk = torch.randint(0, 256, (n26,), dtype=i32, generator=gen,
                        device=dev).view(torch.uint32)
@@ -2839,7 +2958,8 @@ def main():
               "segscan": "radx_tpu_torch/csrc/segscan.cu",
               "dense": "radx_tpu_torch/csrc/aggregate.cu",
               "radix": "radx_tpu_torch/csrc/radix.cu",
-              "gather": "radx_tpu_torch/csrc/gather.cu"}
+              "gather": "radx_tpu_torch/csrc/gather.cu",
+              "merge": "radx_tpu_torch/csrc/merge.cu"}
     replaces = {
         "chunk_sort": "radx_tpu/kernels/bitonic.py:198",
         "cross_stage<1>": "radx_tpu/kernels/bitonic.py:465",
@@ -2866,6 +2986,9 @@ def main():
         # routes, every step of the partitioned one
         **{k: "radx_tpu/ops/join.py:70" if "tagged" in k
            else "radx_tpu/ops/sort.py:136" for k in GT.KERNELS},
+        # no Pallas kernel: the network's run merge over the padded slots
+        # of the JAX distributed sort (XLA's static shapes)
+        **{k: "radx_tpu/parallel/dist_sort.py:112" for k in MG.KERNELS},
     }
 
     def entry(name):
@@ -2878,6 +3001,8 @@ def main():
             src, rep = source["radix"], replaces.get(name, replaces[family])
         elif name in GT.KERNELS:
             src, rep = source["gather"], replaces[name]
+        elif name in MG.KERNELS:
+            src, rep = source["merge"], replaces[name]
         else:
             kind = name.split("_")[0]
             src, rep = source[kind], replaces[kind]

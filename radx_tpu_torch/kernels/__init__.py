@@ -13,6 +13,8 @@
   * gather.py  — int32 value planes gathered by a sorted index or tie
                  plane (../csrc/gather.cu), after a sort of the two compare
                  planes alone;
+  * merge.py   — the merge of two ascending runs of any lengths
+                 (../csrc/merge.cu), the distributed sort's arrivals;
   * lookback.py — the CPU model of the look-back walk both share;
   * _build.py  — builds ../csrc/*.cu with nvcc and binds them with ctypes.
 """

@@ -12,30 +12,39 @@ Per shard (``_shard_body``):
      regular ranks.  Each shard then receives at most n/D + n/OVERSAMPLE
      keys under any key distribution;
   3. rank the splitters in the sorted shard (``torch.searchsorted``,
-     clipped to the valid prefix) and pack the D runs into sentinel-padded
-     slots of a fixed size;
-  4. exchange the slots in D - 1 waves, merging the runs that have arrived
-     between waves (``overlap=True``) or all of them at the end, with the
-     network's run merge (``kernels/bitonic.merge_sorted_runs``): the
-     source flips the runs bound for odd arrival positions, so every merge
-     finds its runs in alternating directions.  ``exchange="hier"`` routes
-     in two phases over a Dr x Dc factorisation of D: (Dr - 1) + (Dc - 1)
-     waves instead of D - 1, each key moving twice.
+     clipped to the valid prefix): run g of the shard is the contiguous
+     slice [bounds[g], bounds[g + 1]) of its sorted planes;
+  4. gather every shard's run bounds (``all_gather``) and read them on the
+     host, once a phase (two host reads with ``exchange="hier"``).  That
+     read replaces the JAX package's static shapes: each run travels and
+     is merged at its own length, min(count, slot) rows;
+  5. exchange the runs in D - 1 waves, merging the runs that have arrived
+     between waves (``overlap=True``) or all of them at the end, pairwise
+     with the merge-path kernel (``kernels/merge.merge_runs``); the last
+     merge writes the output row's prefix, and the rest of the row is each
+     plane's pad.  ``exchange="hier"`` routes in two phases over a Dr x Dc
+     factorisation of D: (Dr - 1) + (Dc - 1) waves instead of D - 1, each
+     key moving twice.
 
 Row d's valid prefix, then row d + 1's, ... is the globally sorted
-sequence.  Slots are the power-of-two round-up of ``capacity`` x
-ceil(n / D^2) keys (at least 128); a shard pair that needs more sets the
-overflow flag, which stays on the device: the caller reads it (the
-``_auto`` wrappers read it once an attempt and double the capacity).
+sequence.  The outputs are the JAX package's bit for bit: (D, L) rows of
+L = n_runs x slot (n_runs the power-of-two round-up of the group), slots
+the power-of-two round-up of ``capacity`` x ceil(n / D^2) keys (at least
+128), the sentinel pads past the real rows, ``valid`` the sum of the raw
+run counts.  A run longer than its slot keeps its first ``slot`` rows and
+sets the overflow flag, which stays on the device: the caller reads it
+(the ``_auto`` wrappers read it once an attempt and double the
+capacity).  The JAX package sends and merges whole padded slots (XLA's
+static shapes); the port moves and merges the real rows only.
 
-The body is written once against a transport of three operations: gather
-the samples, one wave of slots and their counts within a subgroup, and the
-global max of the overflow.  ``mesh.InProcess`` runs every shard in this
-process, phase by phase; ``multihost.Group`` runs one shard per rank of a
-``torch.distributed`` group.  With an in-process ``Mesh`` the functions
-take the whole array and return (D, L) rows, gathered on the mesh's first
-device; with a group mesh they take this rank's shard and return its (1, L)
-row, (1,) valid count and (1,) global flag.
+The body is written once against a transport of three operations: an
+all-gather (the samples, the run bounds), one wave of runs within a
+subgroup, and the global max of the overflow.  ``mesh.InProcess`` runs
+every shard in this process, phase by phase; ``multihost.Group`` runs one
+shard per rank of a ``torch.distributed`` group.  With an in-process
+``Mesh`` the functions take the whole array and return (D, L) rows, on the
+mesh's first device; with a group mesh they take this rank's shard and
+return its (1, L) row, (1,) valid count and (1,) global flag.
 
 Payload sorts always thread the global-index plane (``internal_stable``):
 a real key 0xFFFFFFFF ties with the pads otherwise, and a pad's payload
@@ -49,7 +58,7 @@ import numpy as np
 import torch
 
 from radx_tpu_torch.config import DEFAULT, SortConfig
-from radx_tpu_torch.kernels import bitonic
+from radx_tpu_torch.kernels import bitonic, merge
 
 _SIGN = -(1 << 31)  # int32 bit pattern 0x80000000
 _PAD_KEY = 0x7FFFFFFF  # sign-biased 0xFFFFFFFF
@@ -108,42 +117,8 @@ def _local_sort_planes(planes, m: int, cfg: SortConfig, num_cmp: int):
     return [b[:m] for b in padded]
 
 
-def _merge_runs(planes, log_run: int, num_cmp: int, cfg: SortConfig,
-                descending: bool = False):
-    """Merge alternating-direction runs of 2^log_run rows in place."""
-    keys, lex, chunk, fin = _network(planes, num_cmp, cfg)
-    bitonic.merge_sorted_runs(keys, log_run, chunk, fin, descending=descending,
-                              lex=lex)
-    return planes
-
-
-def _merge_pair(a_planes, b_planes, log_run, num_cmp, cfg, descending):
-    """Merge run a (ascending) and run b (descending) into one new run of
-    twice the length, ascending unless ``descending``.  The concatenation
-    copies, so neither input is written."""
-    planes = [torch.cat([a, b]) for a, b in zip(a_planes, b_planes)]
-    return _merge_runs(planes, log_run, num_cmp, cfg, descending)
-
-
-def _pack_slots(planes, bounds, counts, group_size: int, slot: int,
-                num_cmp: int):
-    """Rows [bounds[g], bounds[g + 1]) of the sorted planes into fixed
-    sentinel-padded slots: a (G, P, slot) int32 tensor.  A run longer than
-    the slot keeps its first ``slot`` rows (the overflow flag says so)."""
-    dev = planes[0].device
-    j = torch.arange(slot, device=dev)
-    idx = (bounds[:-1, None] + j).clamp_(max=planes[0].numel() - 1)
-    in_slot = j < counts[:, None]
-    send = torch.empty((group_size, len(planes), slot), dtype=torch.int32,
-                       device=dev)
-    for i, p in enumerate(planes):
-        send[:, i] = torch.where(in_slot, p[idx], _plane_fill(i, num_cmp))
-    return send
-
-
-def _bounds(ranks, valid):
-    """[0, ranks..., valid] as int64 on the ranks' device (valid: an int or
-    a 0-d tensor)."""
+def _bounds(ranks, valid: int):
+    """[0, ranks..., valid] as int64 on the ranks' device."""
     b = torch.zeros(ranks.numel() + 2, dtype=torch.int64, device=ranks.device)
     b[1:-1] = ranks
     b[-1] = valid
@@ -154,94 +129,128 @@ def _split_ranks(sorted_key, valid, split_vals):
     """Rank of each splitter in the ascending key plane, clipped to the
     valid prefix (a splitter equal to the pad sentinel must not count the
     pads into its run)."""
-    ranks = torch.searchsorted(sorted_key, split_vals)
-    if isinstance(valid, torch.Tensor):
-        return torch.minimum(ranks, valid)
-    return ranks.clamp_(max=valid)
+    return torch.searchsorted(sorted_key, split_vals).clamp_(max=valid)
 
 
-def _group_exchange_merge(tr, sends, counts, me_g, group_size, group_sel, slot,
-                          num_cmp, cfg, overlap):
-    """Exchange fixed slots within subgroups and merge the arrivals.
+def _run_table(tr, bounds, planes_k):
+    """Every shard's run bounds and source rows on the host: row i of the
+    (D, G + 2) int64 array is shard i's [0, ranks..., valid, rows of its
+    source planes].  One ``all_gather`` and one host read: the lengths that
+    XLA's static shapes fixed in advance."""
+    parts = [torch.cat([b, b.new_tensor([p[0].numel()])])
+             for b, p in zip(bounds, planes_k)]
+    return tr.all_gather(parts)[0].cpu().numpy().reshape(tr.size, -1)
 
-    Per local shard k: ``sends[k]`` (G, P, slot), run g bound for the
-    group's g-th member; ``counts[k]`` (G,) int32 valid lengths;
-    ``me_g[k]`` its coordinate in its group.  ``group_sel[i] = (g,
-    flat_of)`` maps flat shard i to its coordinate and its group's flat
-    indices.  Returns per local shard the merged ascending planes
-    (n_runs * slot rows, sentinel runs completing a non-power-of-two group)
-    and the valid total (0-d int32).  ``sends`` is emptied."""
-    n_local = len(tr.local)
-    log_slot = _log2(slot)
-    n_runs = 1 << (group_size - 1).bit_length()
-    for k in range(n_local):
-        odd = [g for g in range(group_size) if (g - me_g[k]) % group_size & 1]
-        if odd:  # the source flips the runs bound for odd arrival positions
-            sends[k][odd] = sends[k][odd].flip(-1)
+
+class _Merger:
+    """A shard's arrivals merged pairwise in arrival order (the overlap
+    stack: two runs of one level merge into one of the next), the rest
+    pairwise from the top once the last run has come.  The last merge
+    writes ``out`` (the output's prefix; XORing ``key_xor`` into the keys),
+    or new planes when ``out`` is None.  A merge before the last one with
+    an empty run keeps the other run as it is."""
+
+    def __init__(self, n_runs, num_cmp, out, key_xor):
+        self.left, self.num_cmp = n_runs, num_cmp
+        self.out, self.key_xor = out, key_xor
+        self.stack = []  # (level, planes)
+        self.result = None
+
+    def _merge(self, a, b, last):
+        if not last:
+            if b[0].numel() == 0:
+                return a
+            if a[0].numel() == 0:
+                return b
+        return merge.merge_runs(a, b, self.num_cmp,
+                                out=self.out if last else None,
+                                key_xor=self.key_xor if last else 0)
+
+    def push(self, run):
+        self.left -= 1
+        stack = self.stack
+        stack.append((0, run))
+        while len(stack) >= 2 and (not self.left
+                                   or stack[-1][0] == stack[-2][0]):
+            (lb, b), (la, a) = stack.pop(), stack.pop()
+            stack.append((max(la, lb) + 1,
+                          self._merge(a, b, not self.left and not stack)))
+        if not self.left:
+            (level, planes), = stack
+            if level == 0:  # a group of one: the run itself is the output
+                planes = self._merge(planes, [p[:0] for p in planes], True)
+            self.result = planes
+
+
+def _exchange_merge(tr, planes_k, bounds, group_sel, slot, num_cmp, overlap,
+                    out_rows=None):
+    """Exchange the runs within subgroups at their own length and merge the
+    arrivals.
+
+    Per local shard k: ``planes_k[k]`` its sorted planes, ``bounds[k]``
+    (G + 1,) int64 the run bounds [0, ranks..., valid] in them, run g bound
+    for the group's g-th member.  ``group_sel[i] = (g, flat_of)`` maps flat
+    shard i to its coordinate and its group's flat indices.  A source sends
+    run g's first min(count, slot) rows (those within its planes), the
+    JAX slots' truncation.  ``out_rows(k)``: the (P, L) output of shard k,
+    its prefix the merged rows (keys un-biased), the rest each plane's pad;
+    None: the merged rows alone, keys biased.  Returns per local shard the merged planes and the valid
+    total (int: the raw counts, as the JAX package sums them).
+    ``planes_k`` is emptied once the last wave has left."""
+    table = _run_table(tr, bounds, planes_k)
+    starts, src_rows = table[:, :-2], table[:, -1]
+    counts = np.diff(table[:, :-1], axis=1)
+    sends = np.clip(np.minimum(counts, slot), 0, src_rows[:, None] - starts)
+    group_size = counts.shape[1]
+    key_xor = 0 if out_rows is None else _SIGN
+    mergers, valid, fulls = [], [], []
+    for k, i in enumerate(tr.local):
+        g, flat_of = group_sel[i]
+        rows = int(sends[flat_of, g].sum())
+        out = None
+        if out_rows is not None:
+            full = out_rows(k)
+            for p, o in enumerate(full):
+                o[rows:].fill_(_plane_fill(p, num_cmp)
+                               ^ (key_xor if p == 0 else 0))
+            out = [o[:rows] for o in full]
+            fulls.append(full)
+        mergers.append(_Merger(group_size, num_cmp, out, key_xor))
+        valid.append(int(counts[flat_of, g].sum()))
+
+    def run(k, dest):
+        i = tr.local[k]
+        b, s = int(starts[i, dest]), int(sends[i, dest])
+        return [p[b: b + s] for p in planes_k[k]]
 
     def wave(shift):
         msgs = []
         for k, i in enumerate(tr.local):
             g, flat_of = group_sel[i]
-            dest = (g + shift) % group_size
-            msgs.append((flat_of[dest], flat_of[(g - shift) % group_size],
-                         sends[k][dest], counts[k][dest: dest + 1]))
+            dest, src = (g + shift) % group_size, (g - shift) % group_size
+            msgs.append((flat_of[dest], flat_of[src], run(k, dest),
+                         int(sends[flat_of[src], g])))
         return tr.wave(msgs)
 
-    def sentinel_run(dev, n_planes):
-        return [torch.full((slot,), _plane_fill(i, num_cmp), dtype=torch.int32,
-                           device=dev) for i in range(n_planes)]
-
-    own = [sends[k][me_g[k]] for k in range(n_local)]
-    rcounts = [[counts[k][me_g[k]: me_g[k] + 1]] for k in range(n_local)]
-    n_planes = own[0].shape[0]
-    if overlap:
-        stacks = [[] for _ in range(n_local)]  # (level, position, planes)
-
-        def push(k, run_planes, a):
-            stack = stacks[k]
-            stack.append((0, a, run_planes))
-            while len(stack) >= 2 and stack[-1][0] == stack[-2][0]:
-                lvl, _, b = stack.pop()
-                _, pos1, a_pl = stack.pop()
-                parent = pos1 >> 1
-                stack.append((lvl + 1, parent, _merge_pair(
-                    a_pl, b, log_slot + lvl, num_cmp, cfg,
-                    descending=(parent & 1) == 1)))
-
-        for k in range(n_local):
-            push(k, list(own[k].unbind(0)), 0)
-        for shift in range(1, group_size):
-            for k, (r, rc) in enumerate(wave(shift)):
-                rcounts[k].append(rc)
-                push(k, list(r.unbind(0)), shift)
-        for k in range(n_local):
-            for a in range(group_size, n_runs):
-                push(k, sentinel_run(own[k].device, n_planes), a)
-        if any(len(s) != 1 for s in stacks):
-            raise RuntimeError("the run merge tree did not close")
-        merged = [s[0][2] for s in stacks]
-    else:
-        runs = [[o] for o in own]
-        for shift in range(1, group_size):
-            for k, (r, rc) in enumerate(wave(shift)):
-                rcounts[k].append(rc)
-                runs[k].append(r)
-        merged = []
-        for k in range(n_local):
-            runs[k] += [torch.stack(sentinel_run(own[k].device, n_planes))
-                        for _ in range(n_runs - group_size)]
-            flat = torch.cat(runs[k], dim=-1)  # (P, n_runs * slot), a copy
-            runs[k] = None
-            merged.append(_merge_runs(list(flat.unbind(0)), log_slot, num_cmp,
-                                      cfg))
-    sends[:] = [None] * n_local
-    valid = [torch.cat(rc).sum().to(torch.int32) for rc in rcounts]
-    return merged, valid
+    arrivals = [[run(k, group_sel[i][0])] for k, i in enumerate(tr.local)]
+    for shift in range(1, group_size):
+        for k, got in enumerate(wave(shift)):
+            arrivals[k].append(got)
+        if overlap and shift < group_size - 1:
+            # merge what has arrived before the next wave
+            for k in range(len(tr.local)):
+                for r in arrivals[k]:
+                    mergers[k].push(r)
+                arrivals[k] = []
+    planes_k[:] = [None] * len(planes_k)  # the runs hold what they need
+    for k in range(len(tr.local)):
+        for r in arrivals[k]:
+            mergers[k].push(r)
+    return fulls or [m.result for m in mergers], valid
 
 
 def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, overlap,
-                hier=None):
+                hier=None, out_rows=None):
     """The shards' body (the JAX ``_shard_body`` under ``shard_map``), run
     for the transport's local shards together, phase by phase.
 
@@ -250,8 +259,9 @@ def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, overlap,
     the global tail, so shard ``me`` holds clip(n - me * m, 0, m) real keys
     first, and pads never enter the samples, the counts or the exchange.
     hier=None: the flat exchange (slot an int); hier=(Dr, Dc): the two-phase
-    exchange (slot = (slot1, slot2)).  Returns per local shard
-    ([uint32 keys, other planes...], valid 0-d int32, overflow 0-d bool)."""
+    exchange (slot = (slot1, slot2)).  ``out_rows(k)``: shard k's (P, L)
+    int32 output.  Returns per local shard ([uint32 keys, other
+    planes...], valid 0-d int32, overflow 0-d bool)."""
     n_dev = tr.size
     num_cmp = 2 if stable else 1
     ns = OVERSAMPLE * n_dev
@@ -271,30 +281,28 @@ def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, overlap,
         samples.append(planes[0][jj * m_valid // (ns + 1)])
         planes_k.append(planes)
         valid_k.append(m_valid)
+    del planes
     spos = torch.arange(1, n_dev) * ns  # = j * (ns * D) // D exactly
     splitters = [torch.sort(g).values[spos.to(g.device)]
                  for g in tr.all_gather(samples)]  # (D-1,): shard s gets
     # [split[s-1], split[s])
     flat_sel = {i: (i, list(range(n_dev))) for i in range(n_dev)}
 
+    def cut(planes, valid, split_vals, slot_):
+        """The run bounds at the splitters, and the overflow of the slot."""
+        b = _bounds(_split_ranks(planes[0], valid, split_vals), valid)
+        return b, (b[1:] - b[:-1] - slot_).max()
+
     if hier is None:
-        sends, counts, ovf = [], [], []
-        for k in range(len(tr.local)):
-            ranks = _split_ranks(planes_k[k][0], valid_k[k], splitters[k])
-            b = _bounds(ranks, valid_k[k])
-            c = (b[1:] - b[:-1]).to(torch.int32)
-            ovf.append((c - slot).max())
-            sends.append(_pack_slots(planes_k[k], b, c, n_dev, slot, num_cmp))
-            counts.append(c)
-            planes_k[k] = None
-        merged, valid = _group_exchange_merge(
-            tr, sends, counts, list(tr.local), n_dev, flat_sel, slot, num_cmp,
-            cfg, overlap)
+        bounds, ovf = zip(*(cut(planes_k[k], valid_k[k], splitters[k], slot)
+                            for k in range(len(tr.local))))
+        merged, valid = _exchange_merge(tr, planes_k, bounds, flat_sel, slot,
+                                        num_cmp, overlap, out_rows)
     else:
         # Phase 1 routes by destination block r' (final shards
         # [r'*Dc, (r'+1)*Dc): one contiguous slice of the sorted shard)
-        # along the column peers {(*, c)}; phase 2 slices the merged block
-        # run at the block's internal splitters and routes along the row
+        # along the column peers {(*, c)}; phase 2 cuts the merged block
+        # at the block's internal splitters and routes along the row
         # peers {(r', *)}.
         d_r, d_c = hier
         col_sel = {i: (i // d_c, [g * d_c + i % d_c for g in range(d_r)])
@@ -302,35 +310,24 @@ def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, overlap,
         row_sel = {i: (i % d_c, [(i // d_c) * d_c + g for g in range(d_c)])
                    for i in range(n_dev)}
         slot1, slot2 = slot
-        sends, counts, ovf = [], [], []
-        for k in range(len(tr.local)):
-            block_splits = splitters[k][[b * d_c - 1 for b in range(1, d_r)]]
-            ranks = _split_ranks(planes_k[k][0], valid_k[k], block_splits)
-            b = _bounds(ranks, valid_k[k])
-            c = (b[1:] - b[:-1]).to(torch.int32)
-            ovf.append((c - slot1).max())
-            sends.append(_pack_slots(planes_k[k], b, c, d_r, slot1, num_cmp))
-            counts.append(c)
-            planes_k[k] = None
-        merged1, valid1 = _group_exchange_merge(
-            tr, sends, counts, [me // d_c for me in tr.local], d_r, col_sel,
-            slot1, num_cmp, cfg, overlap)
-        sends, counts = [], []
-        for k, me in enumerate(tr.local):
-            r_me = me // d_c
-            inner = splitters[k][r_me * d_c: r_me * d_c + d_c - 1]
-            ranks = _split_ranks(merged1[k][0], valid1[k], inner)
-            b = _bounds(ranks, valid1[k])
-            c = (b[1:] - b[:-1]).to(torch.int32)
-            ovf[k] = torch.maximum(ovf[k], (c - slot2).max())
-            sends.append(_pack_slots(merged1[k], b, c, d_c, slot2, num_cmp))
-            counts.append(c)
-            merged1[k] = None
-        merged, valid = _group_exchange_merge(
-            tr, sends, counts, [me % d_c for me in tr.local], d_c, row_sel,
-            slot2, num_cmp, cfg, overlap)
-    overflow = [o > 0 for o in tr.max(ovf)]
-    return [([(p[0] ^ _SIGN).view(torch.uint32), *p[1:]], v, o)
+        bounds, ovf1 = zip(*(cut(planes_k[k], valid_k[k],
+                                 splitters[k][[b * d_c - 1
+                                               for b in range(1, d_r)]],
+                                 slot1)
+                             for k in range(len(tr.local))))
+        merged1, valid1 = _exchange_merge(tr, planes_k, bounds, col_sel,
+                                          slot1, num_cmp, overlap)
+        bounds, ovf2 = zip(*(cut(merged1[k], valid1[k],
+                                 splitters[k][me // d_c * d_c:
+                                              me // d_c * d_c + d_c - 1],
+                                 slot2)
+                             for k, me in enumerate(tr.local)))
+        merged, valid = _exchange_merge(tr, merged1, bounds, row_sel, slot2,
+                                        num_cmp, overlap, out_rows)
+        ovf = [torch.maximum(a, b) for a, b in zip(ovf1, ovf2)]
+    overflow = [o > 0 for o in tr.max(list(ovf))]
+    return [([p[0].view(torch.uint32), *p[1:]],
+             torch.tensor(v, dtype=torch.int32, device=p[0].device), o)
             for p, v, o in zip(merged, valid, overflow)]
 
 
@@ -414,12 +411,32 @@ def _run_sharded(keys, payloads, mesh, axis, capacity, cfg, stable, overlap,
         slot = _pow2_pad(capacity * _cdiv(n, n_dev * n_dev),
                          min_total=MIN_SLOT)
     internal_stable = stable or bool(payloads)
-    outs = _shard_body(tr, shards, pay, n, m, slot, cfg, internal_stable,
-                       overlap, hier)
-    del shards, pay
+    # the output rows: n_runs x slot of the last phase, a (P, L) block a
+    # shard, rows of one (P, D, L) tensor where every shard is on ``home``
+    last_group, last_slot = (n_dev, slot) if hier is None else (hier[1],
+                                                                slot[1])
+    shape = (1 + internal_stable + len(payloads),
+             (1 << (last_group - 1).bit_length()) * last_slot)
     home = tr.device(tr.local[0])
-    planes = [torch.stack([o[0][i].to(home) for o in outs])
-              for i in range(len(outs[0][0]))]
+    rows = None
+    if all(tr.device(i) == home for i in tr.local):
+        rows = torch.empty((shape[0], len(tr.local), shape[1]),
+                           dtype=torch.int32, device=home)
+
+    def out_rows(k):
+        if rows is not None:
+            return rows[:, k]
+        return torch.empty(shape, dtype=torch.int32,
+                           device=tr.device(tr.local[k]))
+
+    outs = _shard_body(tr, shards, pay, n, m, slot, cfg, internal_stable,
+                       overlap, hier, out_rows)
+    del shards, pay
+    if rows is not None:
+        planes = [rows[0].view(torch.uint32), *rows[1:]]
+    else:
+        planes = [torch.stack([o[0][i].to(home) for o in outs])
+                  for i in range(len(outs[0][0]))]
     valid = torch.stack([o[1].to(home) for o in outs])
     overflow = torch.stack([o[2].to(home) for o in outs])
     return planes, valid, overflow

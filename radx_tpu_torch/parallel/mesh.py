@@ -3,7 +3,7 @@
 A ``Mesh`` is the counterpart of a one-axis ``jax.sharding.Mesh``: a list of
 ``torch.device``s and an axis name.  ``parallel/dist_sort.py`` runs its D
 shard bodies in this one process, phase by phase; an exchange wave is a copy
-of each slot to its destination shard's device.
+of each run to its destination shard's device.
 
 A mesh may list one device several times.  Its shards then share that
 device, as the JAX tests' virtual CPU devices share the host
@@ -44,7 +44,7 @@ class InProcess:
 
     The collectives take one tensor per shard (in shard order) and return
     one result per shard, on that shard's device.  No result is written in
-    place by its receiver's sort: a slot that stays on its device is passed
+    place by its receiver's sort: a run that stays on its device is passed
     by reference."""
 
     whole = True  # the caller passes the global array, split here
@@ -68,13 +68,19 @@ class InProcess:
         return [top.to(d) for d in self.devices]
 
     def wave(self, sends):
-        """One exchange wave: ``sends[k] = (dst, src, block, count)`` for
-        shard k, a permutation of the shards.  Returns, per shard, the
-        (block, count) that its source sent."""
+        """One exchange wave: ``sends[k] = (dst, src, planes, recv_rows)``
+        for shard k, a permutation of the shards: shard k sends its run's
+        planes to ``dst`` and receives ``recv_rows`` rows a plane from
+        ``src``.  Returns, per shard, the planes that its source sent (on
+        its device: a run that stays on its device is passed by
+        reference)."""
         got = {}
-        for dst, _src, block, count in sends:
+        for dst, _src, planes, _rows in sends:
             dev = self.devices[dst]
-            got[dst] = (block.to(dev), count.to(dev))
+            got[dst] = [p.to(dev) for p in planes]
+        for i, (_dst, _src, _planes, rows) in zip(self.local, sends):
+            if any(p.numel() != rows for p in got[i]):
+                raise RuntimeError(f"shard {i} expected runs of {rows} rows")
         return [got[i] for i in self.local]
 
 

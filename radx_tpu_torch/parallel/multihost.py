@@ -8,11 +8,12 @@ body over it as over an in-process ``Mesh``, through ``Group``, the
 process-group transport:
 
   * the samples through ``dist.all_gather``;
-  * each exchange wave as one ``dist.batch_isend_irecv`` of the slots and
-    their counts: every rank posts its send to the wave's destination and
-    its receive from the wave's source, so the op lists of a wave match on
-    every rank (the hierarchical exchange's subgroups are sets of peers in
-    the default group);
+  * each exchange wave as one ``dist.batch_isend_irecv`` of the run's
+    planes at their own length: every rank posts its send to the wave's
+    destination and its receive from the wave's source, both sized from the
+    run lengths that every rank read (``dist_sort._run_table``), so the op
+    lists of a wave match on every rank (the hierarchical exchange's
+    subgroups are sets of peers in the default group);
   * the overflow through ``all_reduce(MAX)``.
 
 On a group mesh the sort takes this rank's shard (``shard_global``) and
@@ -107,17 +108,26 @@ class Group:
         return [top.reshape(())]
 
     def wave(self, sends):
+        """One wave: this rank's run (``planes``) to ``dst`` and
+        ``recv_rows`` rows a plane from ``src``, one ``isend`` / ``irecv``
+        a plane in one ``batch_isend_irecv`` (none for an empty run: both
+        sides know its length)."""
         import torch.distributed as dist
 
-        ((dst, src, block, count),) = sends
-        rblock, rcount = torch.empty_like(block), torch.empty_like(count)
-        ops = [dist.P2POp(dist.isend, block.contiguous(), dst, tag=0),
-               dist.P2POp(dist.irecv, rblock, src, tag=0),
-               dist.P2POp(dist.isend, count.contiguous(), dst, tag=1),
-               dist.P2POp(dist.irecv, rcount, src, tag=1)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return [(rblock, rcount)]
+        ((dst, src, planes, recv_rows),) = sends
+        got = [torch.empty(recv_rows, dtype=p.dtype, device=self._device)
+               for p in planes]
+        ops = []
+        for tag, (p, r) in enumerate(zip(planes, got)):
+            if p.numel():
+                ops.append(dist.P2POp(dist.isend, p.contiguous(), dst,
+                                      tag=tag))
+            if recv_rows:
+                ops.append(dist.P2POp(dist.irecv, r, src, tag=tag))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [got]
 
 
 def global_mesh(axis: str = "d") -> GroupMesh:
