@@ -132,7 +132,9 @@ Phases, one line each (any failure raises and exits nonzero):
      partitioned route's floor;
      ``merge_runs`` and its path at 2^24 + 2^24 and 2^27 + 2^27 rows (keys)
      and 2^24 + 2^24 in lex2 with a payload, beside a stable ``torch.sort``
-     of the concatenation;
+     of the concatenation; the pairwise tree of a shard's arrivals
+     (``dist_sort._Merger``) at 8 x 2^22 and 4 x 2^27 keys beside the
+     bound of one pass;
      ``cross_stage<1>`` at the last merge level and ``finish`` on bitonic
      tiles, each first held equal to ``torch.sort`` of its view;
      ``cross_stage<2..10>`` likewise on columns bitonic along the 2^F
@@ -2825,6 +2827,36 @@ def main():
                   lambda: MG.merge_path_ref(ma, mb, ncmp),
                   path_bytes(half, half, ncmp), planes=planes)
         del ma, mb
+        torch.cuda.empty_cache()
+
+    # the pairwise tree that merges a shard's arrivals after the last wave
+    # (dist_sort._Merger, K - 1 merge_runs into the output row), keys only,
+    # at the 8-shard mesh's shape (8 runs of 2^22) and the four-card cell's
+    # (4 runs of 2^27), checked against torch.sort first; beside it the
+    # bound of one pass (each row read once and written once)
+    from radx_tpu_torch.parallel import dist_sort as DS
+
+    for k, log_run in ((8, 22), (4, 27)):
+        runs = [merge_inputs(dev, 1 << log_run, 0, 1, 1, "uniform", 95 + r)[0]
+                for r in range(k)]
+        tree_out = [torch.empty(k << log_run, dtype=i32, device=dev)]
+
+        def tree():
+            merger = DS._Merger(k, 1, tree_out, SIGN)
+            for r in runs:
+                merger.push(r)
+
+        tree()
+        want = torch.sort(torch.cat([r[0] for r in runs])).values ^ SIGN
+        if not torch.equal(tree_out[0], want):
+            raise AssertionError(f"merge tree of {k} x 2^{log_run} differs")
+        del want
+        tt = timing.time_cuda(tree, iters=5, repeats=5)
+        _line("context", what=f"merge tree of {k} runs of 2^{log_run} "
+              f"(dist_sort._Merger: {k - 1} merge_runs and paths)",
+              ms=tt.seconds * 1e3, spread_pct=tt.spread_pct,
+              one_pass_bound_ms=bound(8 * (k << log_run), 0)[0], **card)
+        del runs, tree_out
         torch.cuda.empty_cache()
 
     # the dense aggregates at 2^26 rows, 256 bins (the config-3 shape)

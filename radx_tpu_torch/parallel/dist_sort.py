@@ -18,13 +18,14 @@ Per shard (``_shard_body``):
      host, once a phase (two host reads with ``exchange="hier"``).  That
      read replaces the JAX package's static shapes: each run travels and
      is merged at its own length, min(count, slot) rows;
-  5. exchange the runs in D - 1 waves, merging the runs that have arrived
-     between waves (``overlap=True``) or all of them at the end, pairwise
-     with the merge-path kernel (``kernels/merge.merge_runs``); the last
-     merge writes the output row's prefix, and the rest of the row is each
-     plane's pad.  ``exchange="hier"`` routes in two phases over a Dr x Dc
-     factorisation of D: (Dr - 1) + (Dc - 1) waves instead of D - 1, each
-     key moving twice.
+  5. exchange the runs in D - 1 waves, then merge a shard's arrivals
+     pairwise with the merge-path kernel (``kernels/merge.merge_runs``),
+     in arrival order; the last merge writes the output row's prefix, and
+     the rest of the row is each plane's pad.  ``exchange="hier"`` routes
+     in two phases over a Dr x Dc factorisation of D: (Dr - 1) + (Dc - 1)
+     waves instead of D - 1, each key moving twice.  The entry points take
+     the JAX package's ``overlap`` for compatibility; it has no effect: a
+     merge between waves only delayed the next wave on the card.
 
 Row d's valid prefix, then row d + 1's, ... is the globally sorted
 sequence.  The outputs are the JAX package's bit for bit: (D, L) rows of
@@ -143,9 +144,10 @@ def _run_table(tr, bounds, planes_k):
 
 
 class _Merger:
-    """A shard's arrivals merged pairwise in arrival order (the overlap
-    stack: two runs of one level merge into one of the next), the rest
-    pairwise from the top once the last run has come.  The last merge
+    """A shard's arrivals, pushed after the last wave, merged pairwise in
+    arrival order (a stack: two runs of one level merge into one of the
+    next, so it holds at most one merged run a level), the rest pairwise
+    from the top once the last run has come.  The last merge
     writes ``out`` (the output's prefix; XORing ``key_xor`` into the keys),
     or new planes when ``out`` is None.  A merge before the last one with
     an empty run keeps the other run as it is."""
@@ -182,7 +184,7 @@ class _Merger:
             self.result = planes
 
 
-def _exchange_merge(tr, planes_k, bounds, group_sel, slot, num_cmp, overlap,
+def _exchange_merge(tr, planes_k, bounds, group_sel, slot, num_cmp,
                     out_rows=None):
     """Exchange the runs within subgroups at their own length and merge the
     arrivals.
@@ -236,21 +238,23 @@ def _exchange_merge(tr, planes_k, bounds, group_sel, slot, num_cmp, overlap,
     for shift in range(1, group_size):
         for k, got in enumerate(wave(shift)):
             arrivals[k].append(got)
-        if overlap and shift < group_size - 1:
-            # merge what has arrived before the next wave
-            for k in range(len(tr.local)):
-                for r in arrivals[k]:
-                    mergers[k].push(r)
-                arrivals[k] = []
+    if not tr.whole:
+        # a rank's sorted planes now serve only its own run: copied out,
+        # they go before the merges (in one process the other shards'
+        # arrivals are views of them, so copying there frees nothing)
+        for a in arrivals:
+            a[0] = [p.clone() for p in a[0]]
     planes_k[:] = [None] * len(planes_k)  # the runs hold what they need
     for k in range(len(tr.local)):
-        for r in arrivals[k]:
-            mergers[k].push(r)
+        runs = arrivals[k][::-1]
+        arrivals[k] = None
+        while runs:  # a run is freed once the merger has taken it
+            mergers[k].push(runs.pop())
     return fulls or [m.result for m in mergers], valid
 
 
-def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, overlap,
-                hier=None, out_rows=None):
+def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, hier=None,
+                out_rows=None):
     """The shards' body (the JAX ``_shard_body`` under ``shard_map``), run
     for the transport's local shards together, phase by phase.
 
@@ -297,7 +301,7 @@ def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, overlap,
         bounds, ovf = zip(*(cut(planes_k[k], valid_k[k], splitters[k], slot)
                             for k in range(len(tr.local))))
         merged, valid = _exchange_merge(tr, planes_k, bounds, flat_sel, slot,
-                                        num_cmp, overlap, out_rows)
+                                        num_cmp, out_rows)
     else:
         # Phase 1 routes by destination block r' (final shards
         # [r'*Dc, (r'+1)*Dc): one contiguous slice of the sorted shard)
@@ -316,14 +320,14 @@ def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, overlap,
                                  slot1)
                              for k in range(len(tr.local))))
         merged1, valid1 = _exchange_merge(tr, planes_k, bounds, col_sel,
-                                          slot1, num_cmp, overlap)
+                                          slot1, num_cmp)
         bounds, ovf2 = zip(*(cut(merged1[k], valid1[k],
                                  splitters[k][me // d_c * d_c:
                                               me // d_c * d_c + d_c - 1],
                                  slot2)
                              for k, me in enumerate(tr.local)))
         merged, valid = _exchange_merge(tr, merged1, bounds, row_sel, slot2,
-                                        num_cmp, overlap, out_rows)
+                                        num_cmp, out_rows)
         ovf = [torch.maximum(a, b) for a, b in zip(ovf1, ovf2)]
     overflow = [o > 0 for o in tr.max(list(ovf))]
     return [([p[0].view(torch.uint32), *p[1:]],
@@ -369,7 +373,7 @@ def _shard_len(n: int, n_dev: int) -> int:
     return m
 
 
-def _run_sharded(keys, payloads, mesh, axis, capacity, cfg, stable, overlap,
+def _run_sharded(keys, payloads, mesh, axis, capacity, cfg, stable,
                  exchange="flat"):
     """Shard, run the body, assemble: (planes, valid, overflow)."""
     cfg = cfg or DEFAULT
@@ -430,7 +434,7 @@ def _run_sharded(keys, payloads, mesh, axis, capacity, cfg, stable, overlap,
                            device=tr.device(tr.local[k]))
 
     outs = _shard_body(tr, shards, pay, n, m, slot, cfg, internal_stable,
-                       overlap, hier, out_rows)
+                       hier, out_rows)
     del shards, pay
     if rows is not None:
         planes = [rows[0].view(torch.uint32), *rows[1:]]
@@ -451,10 +455,12 @@ def sort_sharded(keys, mesh, axis: str = "d", capacity: int = 4,
     shard d's sorted keys padded with sentinels past ``valid[d]``; (D,)
     int32 valid counts; (D,) bool, True anywhere when a slot overflowed and
     the result must not be trusted (run again with a larger capacity).  On
-    a group mesh: this rank's (1, L) row, (1,) count and (1,) flag."""
+    a group mesh: this rank's (1, L) row, (1,) count and (1,) flag.
+    ``overlap`` (here and in every entry point of this module) is accepted
+    for compatibility with the JAX package's API and has no effect: the
+    arrivals are merged after the last wave."""
     planes, valid, overflow = _run_sharded(
-        keys, (), mesh, axis, capacity, cfg, stable=False, overlap=overlap,
-        exchange=exchange)
+        keys, (), mesh, axis, capacity, cfg, stable=False, exchange=exchange)
     return planes[0], valid, overflow
 
 
@@ -465,10 +471,11 @@ def sort_pairs_sharded(keys, values, mesh, axis: str = "d", capacity: int = 4,
     shape.  Returns (sorted_keys, sorted_values, valid, overflow) with the
     rows of ``sort_sharded``.  ``stable=True`` keeps the original order of
     equal keys across the mesh; the index plane that does so runs inside
-    every payload sort, so the order is the same either way."""
+    every payload sort, so the order is the same either way.  ``overlap``
+    has no effect (``sort_sharded``)."""
     planes, valid, overflow = _run_sharded(
         keys, (values,), mesh, axis, capacity, cfg, stable=stable,
-        overlap=overlap, exchange=exchange)
+        exchange=exchange)
     return planes[0], planes[-1].view(_tensor(values).dtype), valid, overflow
 
 
@@ -476,9 +483,9 @@ def argsort_sharded(keys, mesh, axis: str = "d", capacity: int = 4,
                     cfg: SortConfig | None = None, overlap: bool = True):
     """Distributed stable argsort: (sorted_keys, global_indices, valid,
     overflow); global_indices[d, i] (int32) is the original flat position
-    of sorted_keys[d, i]."""
+    of sorted_keys[d, i].  ``overlap`` has no effect (``sort_sharded``)."""
     planes, valid, overflow = _run_sharded(
-        keys, (), mesh, axis, capacity, cfg, stable=True, overlap=overlap)
+        keys, (), mesh, axis, capacity, cfg, stable=True)
     return planes[0], planes[1], valid, overflow
 
 
@@ -503,10 +510,11 @@ def sort_sharded_auto(keys, mesh, axis: str = "d",
     """``sort_sharded`` with the smallest capacity that does not overflow:
     2, doubled as the data's (source, destination) skew demands (a
     presorted input escalates to about D).  Returns (sorted_padded, valid,
-    capacity_used); RuntimeError if ``max_capacity`` still overflows."""
+    capacity_used); RuntimeError if ``max_capacity`` still overflows.
+    ``overlap`` has no effect (``sort_sharded``)."""
     (out, valid), c = _escalate(
         lambda c: sort_sharded(keys, mesh, axis=axis, capacity=c, cfg=cfg,
-                               overlap=overlap, exchange=exchange),
+                               exchange=exchange),
         start_capacity, max_capacity)
     return out, valid, c
 
@@ -517,10 +525,11 @@ def sort_pairs_sharded_auto(keys, values, mesh, axis: str = "d",
                             exchange: str = "flat", start_capacity: int = 2,
                             max_capacity: int = 64):
     """``sort_sharded_auto`` for key + payload shards: (sorted_keys,
-    sorted_values, valid, capacity_used)."""
+    sorted_values, valid, capacity_used).  ``overlap`` has no effect
+    (``sort_sharded``)."""
     (k, v, valid), c = _escalate(
         lambda c: sort_pairs_sharded(keys, values, mesh, axis=axis, capacity=c,
-                                     cfg=cfg, stable=stable, overlap=overlap,
+                                     cfg=cfg, stable=stable,
                                      exchange=exchange),
         start_capacity, max_capacity)
     return k, v, valid, c

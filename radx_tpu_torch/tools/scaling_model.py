@@ -12,9 +12,12 @@ config 5 is a model built from single-device rates plus link rates:
     and hierarchical ((Dr - 1) + (Dc - 1) waves) exchange, over each link
     of ``links``.  It is the JAX tool's arithmetic unchanged.  The rates
     come from ``measure_rates`` on the card (the local ``sort`` of
-    permutation keys at L = 2^22 .. 2^30, and one level of the run merge,
-    ``kernels/bitonic.merge_sorted_runs`` of 2 x 2^21 keys), each gated on
-    its output and timed with CUDA events; they are written to ``--save``
+    permutation keys at L = 2^22 .. 2^30, and one level of the pairwise
+    merge that merges a shard's arrivals, ``kernels/merge.merge_runs`` of
+    two runs of 2^21 keys), each gated on its output and timed with CUDA
+    events; the merge term charges ceil(log2 D) pairwise levels a shard,
+    the levels the port runs (hier's two phases, Dr x Dc powers of two,
+    have as many).  They are written to ``--save``
     (default ``.traces/scaling_rates.json``).  ``--rates FILE`` reads such
     a file instead, so the table prints without a card
     (``h100_rates.json`` beside this module is one, from an H100).
@@ -193,18 +196,17 @@ def _permutation(n: int, gen) -> torch.Tensor:
 
 def measure_rates(device=None) -> dict:
     """The model's rates measured on the card: ``radx_tpu_torch.sort`` of
-    permutation keys at each L of ``SORT_SIZES`` (G keys/s), and one run-merge
-    level, ``merge_sorted_runs`` of an ascending and a descending run of
-    2^21 keys (G keys/s).  Each output is checked first (the sort against
-    0 .. L-1, the merge against ``torch.sort``), then timed with CUDA
-    events (``utils.timing.time_op``: the least of the repeats), after a
-    warm-up of at least 2^28 keys: a fresh process finds the card below
-    its clocks.  The merge runs in place: the network's compare-exchanges
-    run whatever the data, so the repeats after the first time the same
-    work; a level of 2^22 keys is a few launches (tens of microseconds), so
-    it runs 32 times a repeat."""
+    permutation keys at each L of ``SORT_SIZES`` (G keys/s), and one
+    pairwise merge level, ``merge_runs`` of two ascending runs of a
+    permutation of 2 x ``MERGE_RUN`` keys into the output, un-biasing the
+    keys as the distributed sort's last merge does (G keys/s).  Each output
+    is checked first (the sort against 0 .. L-1, the merge against
+    ``torch.sort``), then timed with CUDA events (``utils.timing.time_op``:
+    the least of the repeats), after a warm-up of at least 2^28 keys: a
+    fresh process finds the card below its clocks.  A merge of 2^22 keys
+    takes tens of microseconds, so it runs 32 times a repeat."""
     from radx_tpu_torch import sort, tuned
-    from radx_tpu_torch.kernels import bitonic
+    from radx_tpu_torch.kernels import merge
     from radx_tpu_torch.utils import timing
 
     dev = _card(device)
@@ -224,19 +226,16 @@ def measure_rates(device=None) -> dict:
         del keys
         torch.cuda.empty_cache()
     x = _permutation(2 * MERGE_RUN, gen)
-    want = torch.sort(x).values
-    x[:MERGE_RUN] = torch.sort(x[:MERGE_RUN]).values
-    x[MERGE_RUN:] = torch.sort(x[MERGE_RUN:], descending=True).values
-    log_run = MERGE_RUN.bit_length() - 1
+    a, b = ([torch.sort(r).values] for r in x.chunk(2))
+    out = torch.empty_like(x)
 
-    def merge(y):
-        bitonic.merge_sorted_runs(y, log_run, cfg.chunk_elems,
-                                  cfg.finish_elems)
+    def level(o):
+        merge.merge_runs(a, b, 1, out=[o], key_xor=-(1 << 31))
 
-    merge(x)
-    if not torch.equal(x, want):
-        raise RuntimeError("merge_sorted_runs of two runs is wrong")
-    m = timing.time_op(merge, x, name="merge level", iters=32, repeats=5,
+    level(out)
+    if not torch.equal(out ^ (-(1 << 31)), torch.sort(x).values):
+        raise RuntimeError("merge_runs of the two runs is wrong")
+    m = timing.time_op(level, out, name="merge level", iters=32, repeats=5,
                        warmup=32)
     info = timing.device_info()
     return {"sort": sort_rates, "merge_per_level": m.items_per_s / 1e9,

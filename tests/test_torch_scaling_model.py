@@ -16,6 +16,7 @@ no JAX), and its exchange audit on meshes of CPU shards.
 
 import importlib.util
 import json
+import math
 import pathlib
 
 import pytest
@@ -56,6 +57,24 @@ def test_model_prints_the_jax_table(jax_tool, capsys):
     got = capsys.readouterr().out.splitlines()
     assert len(got) == len(want) == 2 + 2 * (8 + 7)
     assert got == want
+
+
+def test_merge_passes_are_the_ports():
+    """The merge term charges the pairwise levels the port runs a shard:
+    ceil(log2 D) of ``merge_runs`` over the group of D runs, and as many
+    for hier's two phases (Dr x Dc = D, powers of two), each a level of
+    HEADROOM x L keys at the measured rate."""
+    rates = {"sort": {1 << 23: 5.0}, "merge_per_level": 50.0}
+    rows = {(r["D"], r["exchange"]): r for r in
+            sm.model(rates, {"NVL": (300.0, 5e-6)}, L=1 << 23)}
+    one = sm.HEADROOM * (1 << 23) / 50e9
+    for D in sm.DEVICE_COUNTS:
+        assert rows[D, "flat"]["t_merge"] == pytest.approx(
+            math.log2(D) * one)
+        if D >= 4:
+            d_r, d_c = sm.dist_sort._hier_factor(D)
+            assert rows[D, "hier"]["t_merge"] == pytest.approx(
+                (math.log2(d_r) + math.log2(d_c)) * one)
 
 
 def test_interp_rate_matches_jax(jax_tool):
