@@ -44,9 +44,10 @@ Phases, one line each (any failure raises and exits nonzero):
      2^28 and 1..4 sources at 2^26 + 4099 on an unaligned index plane with
      out-of-range indices, tagged mode on the join's union of 2 x 10^8 rows
      and on ties with pads, the skew cases at 2^26, the direct route up to
-     one window); ``merge_runs`` and its path launch (``merge_checks``: 1,
-     2 and 3 planes, runs of 0 to 2^27 rows, all-equal and 0xFFFFFFFF
-     keys);
+     one window); ``merge_runs`` (``merge_checks``: 1 to 4 planes, runs
+     of 0 to 2^27 rows, shorter than a tile and a tile and a row either
+     side, runs and outputs that start 1-3 rows past a 16-byte boundary,
+     all-equal and 0xFFFFFFFF keys, both rows-a-thread variants);
   4. the paths through the public entry points, each in a window of its
      own (``window``): the launch counts are set to 0 just before the path
      and read just after it, and every kernel the path runs must show >= 1
@@ -97,8 +98,8 @@ Phases, one line each (any failure raises and exits nonzero):
           shards, all-0xFFFFFFFF keys with payloads), one NCCL rank through
           ``init_multihost`` / ``sort_sharded_guarded`` at 2^26 and
           ``dryrun_multichip(8)``: every result exact against torch (or
-          numpy), every window launching ``merge_runs`` and its path (the
-          runs merged at their own length), every rate beside the
+          numpy), every window launching ``merge_runs`` (the runs merged
+          at their own length), every rate beside the
           one-device ``sort`` and the call's peak device memory;
        f. slice 10: every config of ``radx_tpu_torch.bench_suite`` but
           ``sort_chunked_1g``, each gated and then timed in a window that
@@ -130,7 +131,7 @@ Phases, one line each (any failure raises and exits nonzero):
      shapes through both routes (the direct kernel and the partitioned
      route, whole and step by step) beside ``index_select`` and the
      partitioned route's floor;
-     ``merge_runs`` and its path at 2^24 + 2^24 and 2^27 + 2^27 rows (keys)
+     ``merge_runs`` at 2^24 + 2^24 and 2^27 + 2^27 rows (keys)
      and 2^24 + 2^24 in lex2 with a payload, beside a stable ``torch.sort``
      of the concatenation; the pairwise tree of a shard's arrivals
      (``dist_sort._Merger``) at 8 x 2^22 and 4 x 2^27 keys beside the
@@ -202,10 +203,8 @@ def _ptxas_name(kernel, args):
     if kernel == "gather_planes":
         return ({1: "gather_planes/tagged", 2: "gather_planes/side"}.get(a[1])
                 or f"gather_planes<{a[0]}>")
-    if kernel == "merge_runs":
-        return f"merge_runs<{a[0]},{a[1]}>"
-    if kernel == "merge_path":
-        return f"merge_runs/path<{a[0]}>"
+    if kernel == "merge_runs":  # compare planes, planes, rows a thread
+        return f"merge_runs<{a[0]},{a[1]},{a[2]}>"
     if kernel.startswith("gather_"):
         tag = "tagged/" if a and a[0] else ""
         return f"gather_planes/{tag}{kernel[len('gather_'):]}"
@@ -222,7 +221,7 @@ def ptxas_report(log):
             r"chunk_sort|finish|cross_stage|radix_hist|radix_rank|radix_pack|"
             r"radix_concat|compact|segscan|dense_sums_smem|dense_sums_global|"
             r"dense_extrema|gather_planes|gather_count|gather_scan|"
-            r"gather_part|gather_place|merge_runs|merge_path)_kernel"
+            r"gather_part|gather_place|merge_runs)_kernel"
             r"(I(?:L[ib]\d+E)+E)?", ln)
         if found:
             kernel = _ptxas_name(found.group(1), found.group(2))
@@ -1083,33 +1082,67 @@ def merge_inputs(dev, na, nb, ncmp, planes, keys, seed):
 
 
 def merge_checks(dev):
-    """``merge_runs`` and its path (csrc/merge.cu) against their plain
-    versions on the card, bit for bit, the key XOR on: 1, 2 and 3 planes
-    (keys, lex2, lex2 and a payload) at lengths from 0 to 2^28 in all,
-    about a tile (2047 + 2049) and at the main paths' shapes (the 8-shard
-    mesh's last merge, 2^24 + 2^24; two runs of 2^27, the four-card
-    cell's first level), all-equal keys, and real 0xFFFFFFFF keys."""
+    """``merge_runs`` (csrc/merge.cu) against its plain version on the card,
+    bit for bit, the key XOR on: 1 to 4 planes (keys, lex2, lex2 and one
+    or two payloads, keys and three riders) at lengths from 0 to 2^28 in
+    all; runs shorter than a tile, and a tile, a row less and a row more at
+    each tile size (``THREADS`` x ``ITEMS``); the main paths' shapes (the
+    8-shard mesh's last merge, 2^24 + 2^24; two runs of 2^27, the four-card
+    cell's first level); all-equal keys and real 0xFFFFFFFF keys; runs and
+    outputs that start 1, 2 or 3 rows past a 16-byte boundary (views of
+    larger planes; the rows around the output untouched)."""
     from radx_tpu_torch.kernels import merge as MG
 
+    def tile(planes):
+        return MG.THREADS * MG.ITEMS[planes]
+
+    def at(run, off):
+        """``run``'s planes as views ``off`` rows into larger planes."""
+        n = run[0].numel()
+        held = torch.zeros((len(run), n + 8), dtype=torch.int32, device=dev)
+        base = (4 - (held.data_ptr() >> 2) % 4) % 4
+        held[:, base + off:base + off + n] = torch.stack(run)
+        return [h[base + off:base + off + n] for h in held]
+
+    # (na, nb, ncmp, planes, keys, offsets of a / b / out)
     cases = [(0, 1 << 20, 1, 1, "uniform"), (1 << 20, 0, 2, 2, "uniform"),
              (1, 1, 1, 1, "uniform"), (2047, 2049, 2, 3, "uniform"),
+             (5, 17, 1, 1, "uniform"), (100, 1000, 2, 3, "uniform"),
+             *((na, tile(p) + d - na, ncmp, p, "uniform")
+               for ncmp, p in ((1, 1), (2, 3)) for d in (-1, 0, 1)
+               for na in (tile(p) // 3,)),
              (1 << 24, 1 << 24, 1, 1, "uniform"),
              ((1 << 27) + 3, (1 << 27) - 3, 1, 1, "uniform"),
              (1 << 27, 1 << 27, 2, 3, "uniform"),
+             ((1 << 20) + 3, (1 << 20) - 1, 1, 4, "uniform"),
+             (1 << 22, 12345, 2, 4, "uniform"),
              ((1 << 24) + 1, 1 << 23, 1, 1, "equal"),
              ((1 << 22) + 5, 1 << 22, 2, 3, "equal"),
              (1 << 24, (1 << 24) - 7, 1, 1, "ffffffff"),
              (1 << 24, (1 << 24) - 7, 2, 2, "ffffffff")]
-    for i, (na, nb, ncmp, planes, keys) in enumerate(cases):
+    cases = [(*c, (0, 0, 0)) for c in cases] + [
+        ((1 << 22) + 1, (1 << 21) + 7, 1, 1, "uniform", (1, 2, 3)),
+        (1 << 22, (1 << 22) + 9, 2, 3, "uniform", (3, 1, 2)),
+        (tile(4) - 1, 2, 2, 4, "uniform", (2, 3, 1)),
+        (777, 5, 1, 2, "uniform", (1, 1, 1)),
+        ((1 << 23) + 5, 1 << 23, 1, 1, "uniform", (2, 1, 3)),
+        ((1 << 22) + 5, 1 << 22, 2, 2, "equal", (0, 0, 1))]
+    for i, (na, nb, ncmp, planes, keys, (oa, ob, oo)) in enumerate(cases):
         a, b = merge_inputs(dev, na, nb, ncmp, planes, keys, 70 + i)
-        got = MG.merge_runs(a, b, ncmp, key_xor=SIGN)
-        split = MG.merge_path(a, b, ncmp)
+        a, b = at(a, oa), at(b, ob)
+        n = a[0].numel() + b[0].numel()
+        held = torch.full((planes, n + 8), 7, dtype=torch.int32, device=dev)
+        base = (4 - (held.data_ptr() >> 2) % 4) % 4
+        out = [h[base + oo:base + oo + n] for h in held]
+        MG.merge_runs(a, b, ncmp, out=out, key_xor=SIGN)
         want = MG.merge_runs_ref(a, b, ncmp, key_xor=SIGN)
-        want_split = MG.merge_path_ref(a, b, ncmp)
-        e = max(_max_err(got, want), _max_err([split], [want_split]))
-        record(["merge_runs", "merge_runs/path"], e, e == 0, na=na, nb=nb,
-               ncmp=ncmp, planes=planes, keys=keys)
-        del a, b, got, want, split, want_split
+        e = _max_err(out, want)
+        untouched = bool((held[:, :base + oo] == 7).all()
+                         and (held[:, base + oo + n:] == 7).all())
+        record(["merge_runs"], e, e == 0 and untouched, na=na, nb=nb,
+               ncmp=ncmp, planes=planes, keys=keys, offsets=[oa, ob, oo],
+               items=MG.ITEMS[planes])
+        del a, b, held, out, want
     torch.cuda.empty_cache()
 
 
@@ -2803,30 +2836,38 @@ def main():
     # merge (2^24 + 2^24 rows) and the four-card cell's first level (2^27 +
     # 2^27), keys only, then two runs of 2^24 in lex2 with a payload (the
     # pairs' three planes).  Bound: each row of each plane read once and
-    # written once, the path's searches (ceil(log2(shorter run + 1)) reads
-    # of each compare plane of both runs a tile boundary) and its splits.
-    # Library call: torch.sort of the concatenation (stable), keys only
-    def path_bytes(na, nb, ncmp):
-        bounds = -(-(na + nb) // MG.TILE) + 1
-        steps = (min(na, nb) + 1).bit_length()
-        return bounds * (8 + steps * 2 * 4 * ncmp)
-
+    # written once.  Library call: torch.sort of the concatenation
+    # (stable), keys only.  Timed into the same output planes, 100 calls a
+    # repeat: a repeat of 10 calls also holds the host's time to enqueue its
+    # first call and any stall longer than the queue's lead, which late in
+    # this process inflate a short merge's time (the context line beside it
+    # keeps that reading: a new output a call, 10 calls a repeat)
     for log_n, ncmp, planes in ((25, 1, 1), (28, 1, 1), (25, 2, 3)):
         half = 1 << (log_n - 1)
         ma, mb = merge_inputs(dev, half, half, ncmp, planes, "uniform", 90)
+        mo = [torch.empty(2 * half, dtype=i32, device=dev)
+              for _ in range(planes)]
         suffix = "" if planes == 1 else f"/lex{planes}"
         lib = None if ncmp == 2 else (
             lambda: torch.sort(torch.cat([ma[0], mb[0]]), stable=True))
         time_pair("merge_runs" + suffix, log_n,
-                  lambda: MG.merge_runs(ma, mb, ncmp, key_xor=SIGN),
+                  lambda: MG.merge_runs(ma, mb, ncmp, out=mo, key_xor=SIGN),
                   lambda: MG.merge_runs_ref(ma, mb, ncmp, key_xor=SIGN),
-                  8 * planes * 2 * half + path_bytes(half, half, ncmp),
-                  lib=lib, planes=planes)
-        time_pair("merge_runs/path" + suffix, log_n,
-                  lambda: MG.merge_path(ma, mb, ncmp),
-                  lambda: MG.merge_path_ref(ma, mb, ncmp),
-                  path_bytes(half, half, ncmp), planes=planes)
-        del ma, mb
+                  8 * planes * 2 * half, lib=lib, iters=100, planes=planes,
+                  items=MG.ITEMS[planes])
+        # the kernel's own device time beside the events'
+        new_out = timing.time_cuda(
+            lambda: MG.merge_runs(ma, mb, ncmp, key_xor=SIGN), iters=10,
+            repeats=5)
+        _line("context", what=f"merge_runs{suffix} at 2^{log_n}: ms by "
+              "events of 10 calls into a new output each, device ms "
+              "(torch.profiler) and host µs to enqueue a call",
+              new_out_ms=new_out.seconds * 1e3,
+              new_out_spread_pct=new_out.spread_pct,
+              **timing.profile(
+                  lambda: MG.merge_runs(ma, mb, ncmp, out=mo, key_xor=SIGN),
+                  lambda: MG.LAUNCHES["merge_runs"], "merge"), **card)
+        del ma, mb, mo
         torch.cuda.empty_cache()
 
     # the pairwise tree that merges a shard's arrivals after the last wave
@@ -2853,7 +2894,7 @@ def main():
         del want
         tt = timing.time_cuda(tree, iters=5, repeats=5)
         _line("context", what=f"merge tree of {k} runs of 2^{log_run} "
-              f"(dist_sort._Merger: {k - 1} merge_runs and paths)",
+              f"(dist_sort._Merger: {k - 1} merge_runs)",
               ms=tt.seconds * 1e3, spread_pct=tt.spread_pct,
               one_pass_bound_ms=bound(8 * (k << log_run), 0)[0], **card)
         del runs, tree_out

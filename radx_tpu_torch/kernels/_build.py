@@ -86,10 +86,8 @@ _SIGNATURES = {
     # out0, out1, stream
     "radx_gather_place": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P),
-    # a, na, b, nb, np, ncmp, split, stream
-    "radx_merge_path": (_P, _I, _P, _I, _I, _I, _P, _P),
-    # a, na, b, nb, out, np, ncmp, key_xor, split, stream
-    "radx_merge_runs": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P),
+    # a, na, b, nb, out, np, ncmp, key_xor, stream
+    "radx_merge_runs": (_P, _I, _P, _I, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -7,10 +7,11 @@ of one card, by capacity and key distribution.
 For each capacity and each of two key distributions (``uniform`` uint32;
 ``equal90``: 90% of the keys one value, the rest uniform), ``sort_sharded``
 of shards x 2^log_shard keys on a mesh of that many shards of the card,
-flat exchange, overlap on.  One JSON line each: the peak device memory of
-one call (``max_memory_allocated`` after ``reset_peak_memory_stats``, the
-input's bytes included, as the benchmark counts it), the least ms a call of
-3 repeats by CUDA events after a warm-up, the output row's length, the
+flat exchange (``overlap`` is left at its default: it has no effect, the
+arrivals merge after the last wave).  One JSON line each: the peak device
+memory of one call (``max_memory_allocated`` after
+``reset_peak_memory_stats``, the input's bytes included, as the benchmark
+counts it), the least ms a call of 3 repeats by CUDA events after a warm-up, the output row's length, the
 overflow flag (an overflowing sort is timed all the same: its rows are the
 JAX package's, not the sorted keys) and, where it did not overflow, whether
 the rows equal ``torch.sort``.  Then the nvidia-smi line.

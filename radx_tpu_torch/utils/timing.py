@@ -14,7 +14,9 @@ function here raises: a measurement never falls back to the CPU.
 chains k applications inside one ``jit`` and reports (t_k - t_1)/(k - 1):
 that defeats XLA's dead-code elimination and a relay's asynchronous
 dispatch, neither of which PyTorch has, so it is not ported.  ``trace``
-records a ``torch.profiler`` trace of the enclosed calls.
+records a ``torch.profiler`` trace of the enclosed calls; ``profile`` gives
+the device time a call of some kernels by the profiler, beside the host's
+time to enqueue the call.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import contextlib
 import dataclasses
 import shutil
 import subprocess
+import time
 from typing import Callable
 
 import torch
@@ -149,3 +152,34 @@ def trace(path):
         yield prof
         torch.cuda.synchronize()
     prof.export_chrome_trace(str(path))
+
+
+def profile(fn: Callable[[], object], launches: Callable[[], int],
+            match: str, calls: int = 10) -> dict:
+    """The device ms a call of ``fn``'s kernels whose names hold ``match``,
+    by ``torch.profiler``: the mean of the kernel events it recorded, times
+    the launches a call (``launches()`` reads a launch count before and
+    after), so a profiler that drops events does not skew it.  Beside it
+    the host µs to enqueue one call (``2 * calls`` calls, no sync)."""
+    require_cuda()
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(2 * calls):
+        fn()
+    host_us = (time.perf_counter() - start) / (2 * calls) * 1e6
+    torch.cuda.synchronize()
+    launched = launches()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_call = (launches() - launched) / calls
+    events = [e for e in prof.key_averages() if match in e.key]
+    device_us = sum(getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0) for e in events)
+    recorded = sum(e.count for e in events)
+    return {"device_ms": device_us / max(recorded, 1) * per_call / 1e3,
+            "host_us": host_us, "kernel_events": recorded,
+            "launches": per_call * calls}

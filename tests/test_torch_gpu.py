@@ -882,7 +882,7 @@ def test_in_process_mesh_matches_torch(cuda, exchange, overlap):
     torch.cuda.synchronize()
     assert _no_plain_calls() and tb.LAUNCHES["chunk_sort"]
     assert tb.LAUNCHES["chunk_sort/lex3"] and tb.LAUNCHES["chunk_sort/lex2"]
-    assert tmg.LAUNCHES["merge_runs"] and tmg.LAUNCHES["merge_runs/path"]
+    assert tmg.LAUNCHES["merge_runs"]
     assert not (ovf.any() or povf.any() or aovf.any())
     o = torch.sort(keys.view(torch.int32), stable=True)
     assert np.array_equal(tds.collect(out, valid), o.values.cpu().numpy())
@@ -893,8 +893,10 @@ def test_in_process_mesh_matches_torch(cuda, exchange, overlap):
                           o.indices.to(torch.int32).cpu().numpy())
 
 
-def _merge_case(cuda, na, nb, ncmp, planes, keys, seed):
-    """Two ascending runs (lists of int32 planes on the card)."""
+def _merge_case(cuda, na, nb, ncmp, planes, keys, seed, offsets=(0, 0)):
+    """Two ascending runs (lists of int32 planes on the card), their planes
+    views that start ``offsets`` rows (A's, B's) past a 16-byte
+    boundary."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def run(n):
@@ -913,30 +915,42 @@ def _merge_case(cuda, na, nb, ncmp, planes, keys, seed):
         if ncmp == 2:
             order = order[torch.sort(rest[0][order], stable=True).indices]
             order = order[torch.sort(k[order], stable=True).indices]
-        return [k[order].contiguous(), *(r[order].contiguous() for r in rest)]
+        return [k[order], *(r[order] for r in rest)]
 
-    return run(na), run(nb)
+    def at(run, off):
+        held = torch.empty((len(run), run[0].numel() + 4), dtype=torch.int32,
+                           device=cuda)
+        held[:, off:off + run[0].numel()] = torch.stack(run)
+        return [h[off:off + run[0].numel()] for h in held]
+
+    return at(run(na), offsets[0]), at(run(nb), offsets[1])
 
 
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 3)])
 @pytest.mark.parametrize("na,nb,ncmp,planes,keys", [
     (0, 1, 1, 1, "uniform"), (1, 0, 2, 2, "uniform"), (1, 1, 1, 1, "equal"),
     (2047, 2049, 1, 1, "uniform"), ((1 << 22) + 3, (1 << 21) - 5, 1, 1,
                                     "uniform"),
     ((1 << 20) + 1, 1 << 20, 2, 3, "uniform"), (1 << 20, 3, 2, 4, "equal"),
     (123457, 98765, 1, 1, "ffffffff"), (123457, 98765, 2, 2, "ffffffff")])
-def test_merge_runs_matches_plain(cuda, na, nb, ncmp, planes, keys):
-    """merge_runs (both launches) and its path against the plain versions
-    on the same runs, bit for bit, the key XOR on."""
-    a, b = _merge_case(cuda, na, nb, ncmp, planes, keys, na + nb)
+def test_merge_runs_matches_plain(cuda, na, nb, ncmp, planes, keys,
+                                  offsets):
+    """merge_runs (one launch, no path launch) against the plain version
+    on the same runs, bit for bit, the key XOR on: runs at a 16-byte
+    boundary and runs 1 / 3 rows past one (``offsets``), into new planes
+    and into planes that start 2 rows past a 16-byte boundary."""
+    a, b = _merge_case(cuda, na, nb, ncmp, planes, keys, na + nb, offsets)
     _reset_all()
     got = tmg.merge_runs(a, b, ncmp, key_xor=-(1 << 31))
-    split = tmg.merge_path(a, b, ncmp)
+    held = torch.zeros((planes, na + nb + 4), dtype=torch.int32, device=cuda)
+    tmg.merge_runs(a, b, ncmp, out=[h[2:2 + na + nb] for h in held],
+                   key_xor=-(1 << 31))
     torch.cuda.synchronize()
-    assert tmg.LAUNCHES["merge_runs"] == 1
-    assert tmg.LAUNCHES["merge_runs/path"] == 2 and _no_plain_calls()
+    assert tmg.LAUNCHES == {"merge_runs": 2} and _no_plain_calls()
     want = tmg.merge_runs_ref(a, b, ncmp, key_xor=-(1 << 31))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert torch.equal(split, tmg.merge_path_ref(a, b, ncmp))
+    assert all(torch.equal(h[2:2 + na + nb], w) for h, w in zip(held, want))
+    assert not held[:, :2].any() and not held[:, 2 + na + nb:].any()
 
 
 def test_sort_sharded_eight_shards_matches_torch_sort(cuda):
