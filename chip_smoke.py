@@ -16,7 +16,10 @@ Phases, one line each (any failure raises and exits nonzero):
      direction span; every cross pass up to the cap, ``cross_fusion(P)``:
      the register pass up to ``max_fusion(P)`` distances, the strided tile
      pass above, ascending and descending, under a span in the keys, rider
-     and lex2 modes, and at 2^28 keys), ``chunk_sort`` / ``finish`` on the
+     and lex2 modes, and at 2^28 keys), ``finish`` on both of its kernels
+     (the run-time plan and, at levels at or above the mode's finish tile,
+     the compile-time plan: ``finish_forced``), also at 2^28 keys and 2^28
+     lex2, ``chunk_sort`` / ``finish`` on the
      register tile engine in every mode at 2^20 rows
      (``tile_engine_checks``: the paths' tiles and the tiny tiles 2..32,
      invert, ascending, finish below, at and above the tile's level and as
@@ -55,7 +58,10 @@ Phases, one line each (any failure raises and exits nonzero):
        a. ``sort`` / ``sort_any`` (slice 1), bit-equal to ``torch.sort``;
        b. the sort-based config-3 query at 2^28 rows and the other group-by
           / unique inputs (slice 2), against plain torch references;
-       c. slice 3: BASELINE config 3 at 2^30 rows through LazyTable and the
+       c. slice 3 (the arbitrary-N windows ``groupby_rider_arbn_1e8`` and
+          ``config4_join_inner_1e8`` also print their valley merges'
+          overhangs, each required to be one row-limited ``cross_stage<1>``
+          launch): BASELINE config 3 at 2^30 rows through LazyTable and the
           dense group-by under ``torch.cuda.set_sync_debug_mode("error")``
           until ``collect()`` (peak device memory printed), then K8 / K9
           against their plain versions on that path's own inputs; config 4,
@@ -137,7 +143,12 @@ Phases, one line each (any failure raises and exits nonzero):
      (``dist_sort._Merger``) at 8 x 2^22 and 4 x 2^27 keys beside the
      bound of one pass;
      ``cross_stage<1>`` at the last merge level and ``finish`` on bitonic
-     tiles, each first held equal to ``torch.sort`` of its view;
+     tiles, each first held equal to ``torch.sort`` of its view; ``finish``
+     at 2^28 keys and 2^28 lex2, and its two plans in turns at 2^26 and
+     2^28 keys and 2^28 lex2; the valley merge's overhang (the
+     row-limited ``cross_stage<1>``) at q3's and the join's shapes held
+     bit-equal to its plain version ``_cx_directed``, ascending and
+     descending, and timed beside it;
      ``cross_stage<2..10>`` likewise on columns bitonic along the 2^F
      axis, at 2^23 and 2^26 keys, and at 2^28 beside its plain version;
      the cross passes with their shared-memory round trips); then the
@@ -189,6 +200,8 @@ def _ptxas_name(kernel, args):
     if kernel == "cross_stage":  # F = 0: the strided tile pass
         return (f"cross_stage<{a[0] or 'strided'}>"
                 + _suffix(a[1], a[2]))
+    if kernel == "finish" and a[2]:  # the compile-time plan of its tile
+        return f"finish{_suffix(a[0], a[1])}/top"
     if kernel in ("chunk_sort", "finish", "chunk_sort_cyclic", "slot_merge",
                   "radix_pack", "radix_concat"):
         return kernel + _suffix(a[0], a[1])
@@ -362,6 +375,29 @@ def _mode_planes(dev, mode, n, gen):
     return planes
 
 
+def finish_forced(top):
+    """``bitonic.finish`` with its kernel forced: the compile-time plan
+    (``top``, a level at or above the mode's finish tile) or the run-time
+    plan, whatever the rule (``finish_top``) would pick."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    def run(x, tile, kk, invert=False, rider=None, lex=None, span=None):
+        planes, ncmp = B._planes(x, rider, lex)
+        B._launch_finish(planes, ncmp, tile, kk, invert,
+                         B._log_span(x, span), top)
+        return x
+
+    return run
+
+
+def finish_plans(planes, tile, kk):
+    """finish's kernels a pass can take: the run-time plan, and the
+    compile-time plan where it applies."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    return (False, True) if B.finish_top(planes, tile, kk) else (False,)
+
+
 def _max_err(got, want):
     return max(int((a.long() - b.long()).abs().max()) for a, b in
                zip(got, want))
@@ -398,7 +434,7 @@ def tile_engine_checks(dev, cfg):
             planes.append(rand(-(2**31), 2**31))
         k, rider, lex = B._keywords(planes, ncmp)
         tiles = sorted({2, 4, 8, 16, 32, *cfg.mode_tiles(p, ncmp)})
-        cases = {"chunk_sort": [], "finish": []}
+        cases = {"chunk_sort": [], "finish": []}  # finish: both plans
         for tile in tiles:
             lt = tile.bit_length() - 1
             for inv, asc in ((False, False), (True, False), (False, True)):
@@ -407,12 +443,14 @@ def tile_engine_checks(dev, cfg):
             for kk, inv, sp in ((max(1, lt - 2), False, None),
                                 (lt, True, None), (lt + 3, False, None),
                                 (19, True, span)):
-                cases["finish"].append((tile, dict(kk=kk, invert=inv,
-                                                   span=sp)))
+                for top in finish_plans(p, tile, kk):
+                    cases["finish"].append((tile, dict(kk=kk, invert=inv,
+                                                       span=sp), top))
         for op, todo in cases.items():
-            kernel, ref = getattr(B, op), getattr(B, op + "_ref")
+            ref = getattr(B, op + "_ref")
             worst = 0
-            for tile, kw in todo:
+            for tile, kw, *top in todo:
+                kernel = finish_forced(*top) if top else getattr(B, op)
                 got = [q.clone() for q in planes]
                 gk, grd, glx = B._keywords(got, ncmp)
                 kernel(gk, tile, rider=grd, lex=glx, **kw)
@@ -422,7 +460,7 @@ def tile_engine_checks(dev, cfg):
                 e = _max_err(got, want)
                 if e:
                     record([op + _suffix(ncmp, p)], e, False, n=n, tile=tile,
-                           **kw)
+                           compile_time_plan=bool(top and top[0]), **kw)
                 worst = max(worst, e)
             record([op + _suffix(ncmp, p)], worst, worst == 0, n=n,
                    tiles=tiles, cases=len(todo),
@@ -1292,6 +1330,41 @@ def sorted_rows(seen):
         B.sort_planes = real
 
 
+@contextlib.contextmanager
+def overhang_passes(seen):
+    """Append to ``seen`` (rows, launches) of every valley-merge overhang
+    inside the block: the rows of its planes and the ``cross_stage<1>``
+    launches the pass made (one: the row-limited cross pass)."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    real = B._overhang
+
+    def spy(planes, *args, **kwargs):
+        before = sum(v for k, v in B.LAUNCHES.items()
+                     if k.startswith("cross_stage<1>"))
+        real(planes, *args, **kwargs)
+        seen.append((planes[0].numel(), sum(
+            v for k, v in B.LAUNCHES.items()
+            if k.startswith("cross_stage<1>")) - before))
+
+    B._overhang = spy
+    try:
+        yield
+    finally:
+        B._overhang = real
+
+
+def check_overhangs(name, seen, expect):
+    """The window's valley merges ran ``expect`` overhangs, each as one
+    row-limited ``cross_stage<1>`` launch (the window itself fails on any
+    call of the plain ``_cx_directed``)."""
+    _line("overhang", path=name, passes=[{"rows": r, "launches": k}
+                                         for r, k in seen])
+    if len(seen) != expect or any(k != 1 for _, k in seen):
+        _fail(f"{name}: the valley merges' overhangs ran {seen}, expected "
+              f"{expect} row-limited cross_stage<1> launches")
+
+
 def join_path(dev):
     """Config 4 (``Table.join`` of two 10^8-row tables, inner and left with
     float32 build values: the union sorted at its own length, pieces of
@@ -1328,14 +1401,16 @@ def join_path(dev):
     build, probe = bench._join_tables(n8)
     want = bench.torch_join_ref(build.column("k"), build.column("w"),
                                 probe.column("k"), probe.column("v"))
-    pieces = []
+    pieces, overhangs = [], []
     with window("config4_join_inner_1e8", join_kernels), peak_memory(
             "config4_join_inner_1e8", 8.95094,
             *(t.column(c) for t, c in ((build, "k"), (build, "w"),
                                        (probe, "k"), (probe, "v")))), \
-            sorted_rows(pieces):
+            sorted_rows(pieces), overhang_passes(overhangs):
         inner = probe.join(build, "k", "v", "w")
     bench.check_join(inner, "k", "v", "w", want)
+    # pieces of 2^27 and 2^26 rows: one valley merge, one overhang
+    check_overhangs("config4_join_inner_1e8", overhangs, 1)
     if sum(pieces) != union_rows(2 * n8) or len(pieces) != 2:
         _fail(f"the union of 2 x 10^8 rows sorted pieces of {pieces} rows")
     _line("slice", input=f"config4_join_inner_n{n8}x{n8}", rows=inner.num_rows,
@@ -1578,10 +1653,15 @@ def rider_arbn_path(dev):
                         device=dev)
     v1 = torch.randint(1, 101, (n,), dtype=torch.int32, generator=gen,
                        device=dev)
+    overhangs = []
     with window("groupby_rider_arbn_1e8",
-                (*B.RIDER_KERNELS, *SG.KERNELS, *CP.KERNELS)):
+                (*B.RIDER_KERNELS, *SG.KERNELS, *CP.KERNELS)), \
+            overhang_passes(overhangs):
         res = {agg: groupby(ids.view(torch.uint32), v1.view(torch.uint32),
                             agg, cfg) for agg in ("sum", "count")}
+    # two rider sorts, each of pieces of 2^26 and 2^25 rows: one valley
+    # merge and one overhang a sort
+    check_overhangs("groupby_rider_arbn_1e8", overhangs, 2)
     want_ids, inv = torch.unique(ids, sorted=True, return_inverse=True)
     g = want_ids.numel()
     want = {"sum": torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
@@ -2190,13 +2270,17 @@ def main():
                     lambda x, r: B.cross_stage(x, rj, f, rj + f, inv, r),
                     lambda x, r: B.cross_stage_ref(x, rj, f, rj + f, inv, r),
                     j_low=rj, kk=rj + f, invert=inv)
+    # finish: the run-time plan, and the compile-time plan where it applies
     for kk, inv in ((log_t + 1, False), (23, True), (5, False)):
-        check("finish", lambda x: B.finish(x, T, kk, inv),
-              lambda x: B.finish_ref(x, T, kk, inv), tile=T, kk=kk,
-              invert=inv)
-        check_rider("finish", lambda x, r: B.finish(x, RT, kk, inv, r),
-                    lambda x, r: B.finish_ref(x, RT, kk, inv, r), tile=RT,
-                    kk=kk, invert=inv)
+        for top in finish_plans(1, T, kk):
+            check("finish", lambda x: finish_forced(top)(x, T, kk, inv),
+                  lambda x: B.finish_ref(x, T, kk, inv), tile=T, kk=kk,
+                  invert=inv, compile_time_plan=top)
+        for top in finish_plans(2, RT, kk):
+            check_rider("finish",
+                        lambda x, r: finish_forced(top)(x, RT, kk, inv, r),
+                        lambda x, r: B.finish_ref(x, RT, kk, inv, r),
+                        tile=RT, kk=kk, invert=inv, compile_time_plan=top)
     # the radix sort's span passes: directions from the index within 2^19
     # (the lowest distance cut below the tile where f distances from the
     # tile would pass the span's top level)
@@ -2215,9 +2299,10 @@ def main():
                     lambda x, r: B.cross_stage_ref(x, j, f, 19, True, r,
                                                    span=span),
                     j_low=j, kk=19, invert=True, span=span)
-    check("finish", lambda x: B.finish(x, T, 19, span=span),
-          lambda x: B.finish_ref(x, T, 19, span=span), tile=T, kk=19,
-          span=span)
+    for top in finish_plans(1, T, 19):
+        check("finish", lambda x: finish_forced(top)(x, T, 19, span=span),
+              lambda x: B.finish_ref(x, T, 19, span=span), tile=T, kk=19,
+              span=span, compile_time_plan=top)
 
     # the lexicographic mode: plane 0 in [0, 16), plane 1 a permutation (the
     # stable sorts' index plane), the rest random riders
@@ -2270,12 +2355,36 @@ def main():
                           lambda x, lx: B.cross_stage_ref(x, j, f, 19,
                                                           lex=lx, span=span),
                           j_low=j, kk=19, span=span)
-        for kk, inv in ((ll + 1, True), (23, False)):
-            check_lex(p, "finish",
-                      lambda x, lx: B.finish(x, lf, kk, inv, lex=lx),
-                      lambda x, lx: B.finish_ref(x, lf, kk, inv, lex=lx),
-                      tile=lf, kk=kk, invert=inv)
+        for kk, inv in ((ll + 1, True), (23, False), (ll - 2, False)):
+            for top in finish_plans(p, lf, kk):
+                check_lex(p, "finish",
+                          lambda x, lx: finish_forced(top)(x, lf, kk, inv,
+                                                           lex=lx),
+                          lambda x, lx: B.finish_ref(x, lf, kk, inv, lex=lx),
+                          tile=lf, kk=kk, invert=inv, compile_time_plan=top)
     del tie_plane, riders
+    # finish at 2^28 keys and 2^28 (key, index) pairs (the sort cells'
+    # sizes), the top level and one below, both plans
+    for p, tile in ((1, T), (2, cfg.lex_tiles(2)[1])):
+        big = [torch.randint(0, 1 << 20, (1 << 28,), dtype=i32,
+                             device=dev)]
+        if p == 2:
+            big.append(torch.randperm(1 << 28, device=dev).to(i32))
+        for kk, inv in ((28, False), (20, True)):
+            want = B.finish_ref(big[0], tile, kk, inv, lex=big[1:] or None)
+            want = want if isinstance(want, tuple) else (want,)
+            for top in finish_plans(p, tile, kk):
+                got = [q.clone() for q in big]
+                finish_forced(top)(got[0], tile, kk, inv, lex=got[1:] or None)
+                torch.cuda.synchronize()
+                e = _max_err(got, want)
+                record(["finish" + ("/lex2" if p == 2 else "")], e, e == 0,
+                       n=1 << 28,
+                       tile=tile, kk=kk, invert=inv, compile_time_plan=top)
+                del got
+            del want
+        del big
+        torch.cuda.empty_cache()
     tile_engine_checks(dev, cfg)
 
     del base, ties, iota
@@ -2552,6 +2661,25 @@ def main():
     # -- 5. timings ------------------------------------------------------------
     rows = {}
 
+    def finish_in_turns(planes, ncmp, tile, log_n, lib):
+        """finish at the top level on the run-time plan (the kernel before
+        its compile-time plan) and on the compile-time plan, in turns (old,
+        new, new, old), each beside the bound and the library call."""
+        bound_ms = bound(4 * 2 * len(planes) << log_n)[0]
+        ms = {}
+        for top in (False, True, True, False):
+            t = timing.time_cuda(
+                lambda: finish_forced(top)(planes[0], tile, log_n,
+                                           lex=planes[1:] or None),
+                iters=10, repeats=5)
+            ms.setdefault("compile_time_plan" if top else "runtime_plan",
+                          []).append(t.seconds * 1e3)
+        lib_ms = (None if lib is None else
+                  timing.time_cuda(lib, iters=10, repeats=5).seconds * 1e3)
+        _line("context", what=f"finish{_suffix(ncmp, len(planes))} in "
+              f"turns, n=2^{log_n}", **ms, bound_ms=bound_ms,
+              library_ms=lib_ms, **card)
+
     def time_pair(name, log_n, kern, ref, bytes_, ops=0, lib=None, iters=10,
                   n=None, **extra):
         """Kernel and plain version, the bound of the kernel's work and,
@@ -2637,6 +2765,8 @@ def main():
                   lambda: B.finish_ref(xb, T, log_n), 8 * nx,
                   _cx_ops(nx, log_t, 1), tile_sort(xb, T),
                   round_trips=B.round_trips(log_t, log_n, log_n, 1))
+        if log_n == 26:
+            finish_in_turns([xb], 1, T, log_n, tile_sort(xb, T))
         del x, keys, y, xb, halves
     # the cross passes at 2^28 keys (the sort_u32_uniform_n2e28 cell's
     # size), each first held equal to the plain version
@@ -2658,6 +2788,69 @@ def main():
                   lambda f=f: torch.sort(x.view(-1, 1 << f, T), dim=1),
                   round_trips=B.cross_round_trips(1, log_t, f, kk))
     del x
+    torch.cuda.empty_cache()
+    # finish at 2^28 keys and 2^28 (key, index) pairs on bitonic tiles (the
+    # sort cells' sizes): the rule's kernel beside its plain version, then
+    # both plans in turns
+    halves = torch.sort(torch.randint(0, 1 << 20, (1 << 28,), dtype=i32,
+                                      generator=gen, device=dev)
+                        .view(-1, 2, T // 2), dim=2).values
+    halves[:, 1] = halves[:, 1].flip(-1)
+    xb = halves.view(-1)
+    del halves
+    time_pair("finish", 28, lambda: B.finish(xb, T, 28),
+              lambda: B.finish_ref(xb, T, 28), 8 << 28,
+              _cx_ops(1 << 28, log_t, 1), tile_sort(xb, T),
+              round_trips=B.round_trips(log_t, 28, 28, 1))
+    finish_in_turns([xb], 1, T, 28, tile_sort(xb, T))
+    del xb
+    lf2 = cfg.lex_tiles(2)[1]
+    lex2 = [torch.randint(0, 1 << 20, (1 << 28,), dtype=i32, generator=gen,
+                          device=dev),
+            torch.randperm(1 << 28, generator=gen, device=dev).to(i32)]
+    time_pair("finish/lex2", 28,
+              lambda: B.finish(lex2[0], lf2, 28, lex=lex2[1:]),
+              lambda: B.finish_ref(lex2[0], lf2, 28, lex=lex2[1:]), 16 << 28,
+              _cx_ops(1 << 28, lf2.bit_length() - 1, 2),
+              round_trips=B.round_trips(lf2.bit_length() - 1, 28, 28, 2))
+    finish_in_turns(lex2, 2, lf2, 28, None)
+    del lex2
+    torch.cuda.empty_cache()
+    # the valley merge's overhang at q3's (3 * 2^25 rider rows) and the
+    # join's (3 * 2^26 lex2 rows) shapes: the row-limited cross_stage<1>
+    # held bit-equal to its plain version in PyTorch (_cx_directed) in both
+    # directions (keys in [-1, 15) and 0x7FFFFFFF: ties decided by the
+    # second plane), then timed beside it and its bound (each overhang row
+    # and its partner read once and written once)
+    for ncmp, r in ((1, 3 << 25), (2, 3 << 26)):
+        planes = [torch.randint(-1, 15, (r,), dtype=i32, generator=gen,
+                                device=dev),
+                  torch.randint(-(2**31), 2**31, (r,), dtype=i32,
+                                generator=gen, device=dev)]
+        planes[0][::5] = 2**31 - 1
+        half = 1 << (r - 1).bit_length() - 1
+        for desc in (False, True):
+            got = [q.clone() for q in planes]
+            B._overhang(got, ncmp, desc)
+            want = [q.clone() for q in planes]
+            B._cx_directed([q[: r - half] for q in want],
+                           [q[half:] for q in want], ncmp, desc)
+            torch.cuda.synchronize()
+            e = max(int((g.long() - w.long()).abs().max())
+                    for g, w in zip(got, want))
+            record([f"cross_stage<1>{_suffix(ncmp, 2)}"], e, e == 0,
+                   n=r, overhang=r - half, descending=desc,
+                   keys="[-1,15) and 0x7FFFFFFF")
+            del got, want
+        tk = timing.time_cuda(lambda: B._overhang(planes, ncmp, False),
+                              iters=10, repeats=5)
+        tp = timing.time_cuda(lambda: B._cx_directed(
+            [q[: r - half] for q in planes], [q[half:] for q in planes], ncmp,
+            False), iters=10, repeats=5)
+        _line("context", what=f"overhang{_suffix(ncmp, 2)} r={r}",
+              ms=tk.seconds * 1e3, plain_ms=tp.seconds * 1e3,
+              bound_ms=bound(4 * 2 * 2 * 2 * (r - half))[0], **card)
+        del planes
     torch.cuda.empty_cache()
 
     log_n = 26

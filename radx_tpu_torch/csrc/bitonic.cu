@@ -398,14 +398,14 @@ __device__ __forceinline__ void shared_places(int (&at)[1 << R], int gb,
   }
 }
 
-// Shared memory holds plane j at s + j * t, swizzled; a plan of more than
-// one phase has t > W, so every row exists.
+// Shared memory holds plane j at s + j * t, swizzled, a thread's rows at
+// the places `at` (shared_places); a plan of more than one phase has t >
+// W, so every row exists.
 template <int P, int R>
 __device__ __forceinline__ void rows_from_shared(int (&v)[P][1 << R],
-                                                 const int* s, int gb, int wlo,
+                                                 const int* s,
+                                                 const int (&at)[1 << R],
                                                  int t) {
-  int at[1 << R];
-  shared_places<R>(at, gb, wlo);
 #pragma unroll
   for (int u = 0; u < (1 << R); ++u) {
 #pragma unroll
@@ -416,15 +416,21 @@ __device__ __forceinline__ void rows_from_shared(int (&v)[P][1 << R],
 template <int P, int R>
 __device__ __forceinline__ void rows_to_shared(int* s,
                                                const int (&v)[P][1 << R],
-                                               int gb, int wlo, int t) {
-  int at[1 << R];
-  shared_places<R>(at, gb, wlo);
+                                               const int (&at)[1 << R],
+                                               int t) {
 #pragma unroll
   for (int u = 0; u < (1 << R); ++u) {
 #pragma unroll
     for (int j = 0; j < P; ++j) s[j * t + at[u]] = v[j][u];
   }
 }
+
+// A phase stores its rows to the places it loaded them from.  At one plane
+// the places stay in registers across the substages (finish 5% and
+// chunk_sort 10% faster at 2^28 keys, PERF.md); at two planes that made
+// the passes slower (more registers a thread), so they are computed again.
+template <int P>
+constexpr bool kKeepPlaces = P == 1;
 
 // One tile pass of block blockIdx.x over the plan: the first phase reads
 // tile row i of `in` at map(i), the last one writes it to `out` at
@@ -451,16 +457,19 @@ __device__ __forceinline__ void tile_pass(const Planes& in, const Planes& out,
     const bool last = ph == plan.n - 1;
     for (int g = threadIdx.x; g < groups; g += blockDim.x) {
       const int gb = ((g >> f.wlo) << (f.wlo + R)) | (g & ((1 << f.wlo) - 1));
+      int at[W];
       if (ph == 0) {
         rows_from_global<P, W>(v, in, map, gb, f.wlo, t, vec);
       } else {
-        rows_from_shared<P, R>(v, s, gb, f.wlo, t);
+        shared_places<R>(at, gb, f.wlo);
+        rows_from_shared<P, R>(v, s, at, t);
       }
       phase_substages<NCMP, P, R>(v, f, gb, dbase, log_t, invert);
       if (last) {
         rows_to_global<P, W>(out, omap, v, gb, f.wlo, t, vec);
       } else {
-        rows_to_shared<P, R>(s, v, gb, f.wlo, t);
+        if (ph == 0 || !kKeepPlaces<P>) shared_places<R>(at, gb, f.wlo);
+        rows_to_shared<P, R>(s, v, at, t);
       }
     }
     if (!last) __syncthreads();
@@ -554,25 +563,106 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 }
 
 // finish — replaces radx_tpu/kernels/bitonic.py::_finishw_kernel.
-// Bound on the card: device memory (one read and one write of every plane
-// per level), once the shared-memory round trips are few.  On the TPU the
-// last log2(W) cross distances of a level fold into a W-chunk finish sized
-// by VMEM; here every distance below the tile T runs in one block and the
-// distances >= T are cross passes, so a level costs one device-memory pass
-// for its whole tail.  Design: the register tile engine above, ceil(log2(T)
-// / R) phases (4 at T = 2^14, R = 4: 3 shared-memory round trips where the
-// substage loop made 14); the first phase's register bits are the tile's
-// top bits, so its loads coalesce, and the last phase stores int4 vectors.
-// The direction comes from bit kk of each key's index within the span
-// (dmask), so a tile may hold several merge groups of a low level (kk <
-// log_t: min(log_t, kk) distances).  The level kk is in the plan.
-template <int NCMP, int P>
+// Bound on the card: the instructions of its shared-memory phases, then
+// device memory (one read and one write of every plane per level).  On
+// the TPU the last log2(W) cross distances of a level fold into a W-chunk
+// finish sized by VMEM; here every distance below the tile T runs in one
+// block and the distances >= T are cross passes, so a level costs one
+// device-memory pass for its whole tail.  Design: the register tile engine
+// above, ceil(log2(T) / R) phases (4 at T = 2^14, R = 4: 3 shared-memory
+// round trips where the substage loop made 14); the first phase's register
+// bits are the tile's top bits, so its loads coalesce, and the last phase
+// stores int4 vectors.  The direction comes from bit kk of each key's
+// index within the span (dmask), so a tile may hold several merge groups
+// of a low level (kk < log_t: min(log_t, kk) distances).
+//
+// LOG_T = 0 reads the plan (any tile, any level) as tile_pass does.  Every
+// finish pass of a sort's merge levels is a level at or above the tile of
+// the mode's finish tile; LOG_T = that tile runs it on its plan at compile
+// time (top_pass: no plan decoding, constant register windows and substage
+// ranges, one direction a tile), the same network bit for bit in fewer
+// instructions: the pass is bound by them more than by device memory (at
+// 2^28 keys a copy of the same bytes takes 0.71 ms, the pass cut to one
+// round trip 0.78, the run-time plan 0.97, the compile-time one 0.85;
+// tools/finish_bench.py, PERF.md).
+//
+// The TopPhase list of a level at or above the tile, as
+// kernels/bitonic.py::tile_plan(log_t, kk, kk, R) makes it: phase PH runs
+// tile bits kHi..kLo in registers kWlo..kWlo+R-1.
+template <int LOG_T, int R, int PH>
+struct TopPhase {
+  static constexpr int kHi = LOG_T - 1 - PH * R;
+  static constexpr int kLo = kHi - R + 1 > 0 ? kHi - R + 1 : 0;
+  static constexpr int kWlo = kLo < LOG_T - R ? kLo : LOG_T - R;
+  static constexpr bool kLast = kLo == 0;
+};
+
+// The finish tile of each mode (config.py, kernels/bitonic.py top_tile):
+// the tile whose levels at or above it have a compile-time plan.
+__host__ __device__ constexpr int top_log_t(int np) {
+  return np == 1 ? 14 : np <= 3 ? 13 : np <= 6 ? 12 : 11;
+}
+
+// Phases PH.. of the tile pass of block blockIdx.x at a level at or above
+// the tile: phase 0 loads the tile's rows from device memory, the last
+// stores them, the phases between go through the swizzled shared memory s,
+// one __syncthreads() after each.  flip: bit kk of the tile's (span-
+// masked) base, XOR invert, the direction of every pair of the tile.
+template <int NCMP, int P, int LOG_T, int PH>
+__device__ __forceinline__ void top_pass(const Planes& x, int* s,
+                                         const Contiguous& tile, int flip,
+                                         bool vec) {
+  constexpr int R = max_fusion(P);
+  constexpr int W = 1 << R;
+  constexpr int T = 1 << LOG_T;
+  using F = TopPhase<LOG_T, R, PH>;
+  for (int g = threadIdx.x; g < (T >> R); g += blockDim.x) {
+    const int gb =
+        ((g >> F::kWlo) << (F::kWlo + R)) | (g & ((1 << F::kWlo) - 1));
+    int v[P][W];
+    int at[W];
+    if constexpr (PH == 0) {
+      rows_from_global<P, W>(v, x, tile, gb, F::kWlo, T, vec);
+    } else {
+      shared_places<R>(at, gb, F::kWlo);
+      rows_from_shared<P, R>(v, s, at, T);
+    }
+    if (flip) {
+      level_fixed<NCMP, P, R, R, 1>(v, F::kHi - F::kWlo, F::kLo - F::kWlo);
+    } else {
+      level_fixed<NCMP, P, R, R, 0>(v, F::kHi - F::kWlo, F::kLo - F::kWlo);
+    }
+    if constexpr (F::kLast) {
+      rows_to_global<P, W>(x, tile, v, gb, F::kWlo, T, vec);
+    } else {
+      if constexpr (PH == 0 || !kKeepPlaces<P>) {
+        shared_places<R>(at, gb, F::kWlo);
+      }
+      rows_to_shared<P, R>(s, v, at, T);
+    }
+  }
+  if constexpr (!F::kLast) {
+    __syncthreads();
+    top_pass<NCMP, P, LOG_T, PH + 1>(x, s, tile, flip, vec);
+  }
+}
+
+template <int NCMP, int P, int LOG_T>
 __global__ void __launch_bounds__(kTileThreads, 1)
     finish_kernel(Planes x, int log_t, int invert, int64_t dmask,
                   TilePlan plan, int vec) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
-  tile_pass<NCMP, P>(x, x, Contiguous{base}, Contiguous{base}, log_t, plan,
-                     base & dmask, invert, vec != 0);
+  if constexpr (LOG_T == 0) {
+    const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
+    tile_pass<NCMP, P>(x, x, Contiguous{base}, Contiguous{base}, log_t, plan,
+                       base & dmask, invert, vec != 0);
+  } else {
+    extern __shared__ int top_smem[];
+    const int64_t base = static_cast<int64_t>(blockIdx.x) << LOG_T;
+    const int kk = decode_phase(plan.code[0]).kk_a;
+    const int flip = invert ^ static_cast<int>(((base & dmask) >> kk) & 1);
+    top_pass<NCMP, P, LOG_T, 0>(x, top_smem, Contiguous{base}, flip,
+                                vec != 0);
+  }
 }
 
 // cross_stage<F> — replaces radx_tpu/kernels/bitonic.py::_cross_stage_kernel
@@ -603,9 +693,9 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 // out of cache, 30% in L2; PERF.md), so it keeps those passes.
 template <int F, int NCMP, int P>
 __global__ void __launch_bounds__(kTileThreads, 1)
-    cross_stage_kernel(Planes x, int64_t n, int j_low, int kk, int f,
-                       int log_l, int invert, int64_t dmask, TilePlan plan,
-                       int vec) {
+    cross_stage_kernel(Planes x, int64_t n, int64_t rows, int j_low, int kk,
+                       int f, int log_l, int invert, int64_t dmask,
+                       TilePlan plan, int vec) {
   if constexpr (F == 0) {
     const int64_t b = blockIdx.x;
     const int low = j_low - log_l;  // base bits between segment and j_low
@@ -622,6 +712,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     const int64_t jmask = (static_cast<int64_t>(1) << j_low) - 1;
     const int64_t stride = jmask + 1;
     const int64_t i0 = ((t & ~jmask) << F) | (t & jmask);
+    if (i0 + (static_cast<int64_t>(1 << F) - 1) * stride >= rows) return;
     const bool up = (((i0 & dmask) >> kk) & 1) == invert;
     constexpr int kW = 1 << F;
     int v[P][kW];
@@ -645,16 +736,22 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   }
 }
 
+// The register pass over the groups whose rows all lie below `rows`: n, or
+// the valley merge's overhang (F = 1, n = 2^(j_low+1), 2^j_low < rows): the
+// pairs (i, i + 2^j_low) for i < rows - 2^j_low, one thread each.
 template <int F, int NCMP, int P>
-cudaError_t launch_cross(const Planes& x, int64_t n, int j_low, int kk,
-                         int invert, int64_t dmask, cudaStream_t stream) {
+cudaError_t launch_cross(const Planes& x, int64_t n, int64_t rows, int j_low,
+                         int kk, int invert, int64_t dmask,
+                         cudaStream_t stream) {
   if constexpr (F > max_fusion(P)) {
     return cudaErrorInvalidValue;
   } else {
-    const int64_t blocks = ((n >> F) + kTileThreads - 1) / kTileThreads;
+    const int64_t groups =
+        rows == n ? n >> F : rows - (static_cast<int64_t>(1) << j_low);
+    const int64_t blocks = (groups + kTileThreads - 1) / kTileThreads;
     cross_stage_kernel<F, NCMP, P>
         <<<static_cast<unsigned>(blocks), kTileThreads, 0, stream>>>(
-            x, n, j_low, kk, F, 0, invert, dmask, TilePlan{}, 0);
+            x, n, rows, j_low, kk, F, 0, invert, dmask, TilePlan{}, 0);
     return cudaGetLastError();
   }
 }
@@ -663,10 +760,9 @@ cudaError_t launch_cross(const Planes& x, int64_t n, int j_low, int kk,
 // lie in its register window wlo..wlo+R-1, which lies in the tile (or is
 // bits 0..R-1 of a tile smaller than W).  Only slot_merge takes an empty
 // plan (min_phases 0).
-template <int P>
+template <int R>
 bool make_plan(const int* codes, int64_t phases, int log_t, TilePlan* plan,
                int64_t min_phases = 1) {
-  constexpr int R = max_fusion(P);
   if ((codes == nullptr && phases > 0) || phases < min_phases ||
       phases > kMaxPhases || log_t < 1 || log_t > 30) {
     return false;
@@ -721,19 +817,50 @@ cudaError_t chunk_sort(const Planes& x, int64_t n, int log_c, int invert,
                        int ascending, const int* codes, int64_t phases,
                        cudaStream_t stream) {
   TilePlan plan;
-  if (!make_plan<P>(codes, phases, log_c, &plan)) return cudaErrorInvalidValue;
+  if (!make_plan<max_fusion(P)>(codes, phases, log_c, &plan)) {
+    return cudaErrorInvalidValue;
+  }
   return launch_tile<P>(chunk_sort_kernel<NCMP, P>, x, x, n, log_c, plan,
                         stream, x, log_c, invert, ascending);
 }
 
+// Is the plan that of a level at or above the mode's finish tile
+// (TopPhase)?
+template <int P>
+bool top_plan(const TilePlan& plan, int log_t) {
+  constexpr int R = max_fusion(P);
+  constexpr int kLogT = top_log_t(P);
+  if (log_t != kLogT || plan.n != (kLogT + R - 1) / R) return false;
+  const int kk = decode_phase(plan.code[0]).kk_a;
+  for (int i = 0; i < plan.n; ++i) {
+    const Phase f = decode_phase(plan.code[i]);
+    const int hi = kLogT - 1 - i * R;
+    const int lo = std::max(hi - R + 1, 0);
+    if (f.kk_a != kk || f.kk_b != kk || kk < kLogT || f.hi != hi ||
+        f.lo != lo || f.wlo != std::min(lo, kLogT - R)) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// top: run the plan at compile time (kernels/bitonic.py::finish_top; the
+// plan must be that of a level at or above the mode's finish tile).
 template <int NCMP, int P>
 cudaError_t finish(const Planes& x, int64_t n, int log_t, int invert,
-                   int64_t dmask, const int* codes, int64_t phases,
+                   int64_t dmask, const int* codes, int64_t phases, int top,
                    cudaStream_t stream) {
   TilePlan plan;
-  if (!make_plan<P>(codes, phases, log_t, &plan)) return cudaErrorInvalidValue;
-  return launch_tile<P>(finish_kernel<NCMP, P>, x, x, n, log_t, plan, stream,
-                        x, log_t, invert, dmask);
+  if (!make_plan<max_fusion(P)>(codes, phases, log_t, &plan) ||
+      (top && !top_plan<P>(plan, log_t))) {
+    return cudaErrorInvalidValue;
+  }
+  if (top) {
+    return launch_tile<P>(finish_kernel<NCMP, P, top_log_t(P)>, x, x, n,
+                          log_t, plan, stream, x, log_t, invert, dmask);
+  }
+  return launch_tile<P>(finish_kernel<NCMP, P, 0>, x, x, n, log_t, plan,
+                        stream, x, log_t, invert, dmask);
 }
 
 template <int NCMP, int P>
@@ -743,7 +870,7 @@ cudaError_t chunk_sort_cyclic(const Planes& in, const Planes& out, int64_t n,
   TilePlan plan;
   if (log_t > log_c || log_c < kCyclicLog || log_c > 62 ||
       (n >> log_c) << log_c != n ||
-      !make_plan<P>(codes, phases, log_t, &plan)) {
+      !make_plan<max_fusion(P)>(codes, phases, log_t, &plan)) {
     return cudaErrorInvalidValue;
   }
   return launch_tile<P>(chunk_sort_cyclic_kernel<NCMP, P>, in, out, n, log_t,
@@ -759,7 +886,7 @@ cudaError_t slot_merge(const Planes& in, const Planes& out, int64_t n,
   const bool copy = log_s >= log_t;
   if (log_t > log_c || log_s < 0 || log_s >= log_c || log_c > 62 ||
       (n >> log_c) << log_c != n || (copy && phases != 0) ||
-      !make_plan<P>(codes, phases, log_t, &plan, copy ? 0 : 1)) {
+      !make_plan<max_fusion(P)>(codes, phases, log_t, &plan, copy ? 0 : 1)) {
     return cudaErrorInvalidValue;
   }
   return launch_tile<P>(slot_merge_kernel<NCMP, P>, in, out, n, log_t, plan,
@@ -771,40 +898,42 @@ cudaError_t slot_merge(const Planes& in, const Planes& out, int64_t n,
 // the strided tile pass over tiles of 2^f segments of 2^log_l rows, whose
 // plan runs exactly the tile's bits log_l+f-1 .. log_l.
 template <int NCMP, int P>
-cudaError_t cross(const Planes& x, int64_t n, int j_low, int f, int kk,
-                  int log_l, int invert, int64_t dmask, const int* codes,
-                  int64_t phases, cudaStream_t stream) {
+cudaError_t cross(const Planes& x, int64_t n, int64_t rows, int j_low, int f,
+                  int kk, int log_l, int invert, int64_t dmask,
+                  const int* codes, int64_t phases, cudaStream_t stream) {
   if (f < 1 || j_low + f > kk || kk > 62 ||
-      (n >> (j_low + f)) << (j_low + f) != n || n < 1) {
+      (n >> (j_low + f)) << (j_low + f) != n || n < 1 || rows > n ||
+      (rows != n && (f != 1 || n != static_cast<int64_t>(2) << j_low ||
+                     rows <= n / 2))) {
     return cudaErrorInvalidValue;
   }
   if (f <= max_fusion(P)) {
     switch (f) {
       case 1:
-        return launch_cross<1, NCMP, P>(x, n, j_low, kk, invert, dmask,
+        return launch_cross<1, NCMP, P>(x, n, rows, j_low, kk, invert, dmask,
                                         stream);
       case 2:
-        return launch_cross<2, NCMP, P>(x, n, j_low, kk, invert, dmask,
+        return launch_cross<2, NCMP, P>(x, n, rows, j_low, kk, invert, dmask,
                                         stream);
       case 3:
-        return launch_cross<3, NCMP, P>(x, n, j_low, kk, invert, dmask,
+        return launch_cross<3, NCMP, P>(x, n, rows, j_low, kk, invert, dmask,
                                         stream);
       default:
-        return launch_cross<4, NCMP, P>(x, n, j_low, kk, invert, dmask,
+        return launch_cross<4, NCMP, P>(x, n, rows, j_low, kk, invert, dmask,
                                         stream);
     }
   }
   TilePlan plan;
   const int log_t = log_l + f;
   if (log_l < 0 || log_l > j_low || log_t > 15 ||
-      !make_plan<P>(codes, phases, log_t, &plan) ||
+      !make_plan<max_fusion(P)>(codes, phases, log_t, &plan) ||
       decode_phase(plan.code[0]).kk_a != kk ||
       decode_phase(plan.code[0]).hi != log_t - 1 ||
       decode_phase(plan.code[plan.n - 1]).lo != log_l) {
     return cudaErrorInvalidValue;
   }
   return launch_tile<P>(cross_stage_kernel<0, NCMP, P>, x, x, n, log_t, plan,
-                        stream, x, n, j_low, kk, f, log_l, invert, dmask);
+                        stream, x, n, n, j_low, kk, f, log_l, invert, dmask);
 }
 
 // The three launches as functors over the template instance (NCMP, P).
@@ -829,16 +958,18 @@ struct FinishLaunch {
   int64_t dmask;
   const int* plan;
   int64_t phases;
+  int top;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    return finish<NCMP, P>(x, n, log_t, invert, dmask, plan, phases, stream);
+    return finish<NCMP, P>(x, n, log_t, invert, dmask, plan, phases, top,
+                           stream);
   }
 };
 
 struct CrossLaunch {
   Planes x;
-  int64_t n;
+  int64_t n, rows;
   int j_low, f, kk, log_l, invert;
   int64_t dmask;
   const int* plan;
@@ -846,8 +977,8 @@ struct CrossLaunch {
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    return cross<NCMP, P>(x, n, j_low, f, kk, log_l, invert, dmask, plan,
-                          phases, stream);
+    return cross<NCMP, P>(x, n, rows, j_low, f, kk, log_l, invert, dmask,
+                          plan, phases, stream);
   }
 };
 
@@ -909,10 +1040,11 @@ int radx_chunk_sort(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
 }
 
 // log_span: directions from the index within blocks of 2^log_span keys; the
-// level is in the plan.
+// level is in the plan.  top: run it at compile time (a level at or above
+// the mode's finish tile; kernels/bitonic.py::finish_top).
 int radx_finish(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
                 int64_t log_t, int64_t invert, int64_t log_span,
-                const int* plan, int64_t phases, void* stream) {
+                const int* plan, int64_t phases, int64_t top, void* stream) {
   FinishLaunch launch;
   if (!make_planes(planes, np, &launch.x)) return cudaErrorInvalidValue;
   launch.n = n;
@@ -921,6 +1053,7 @@ int radx_finish(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
   launch.dmask = span_mask(log_span);
   launch.plan = plan;
   launch.phases = phases;
+  launch.top = static_cast<int>(top != 0);
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }
@@ -928,14 +1061,18 @@ int radx_finish(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
 // Distances 2^(j_low+f-1) .. 2^j_low of level kk.  Above R =
 // max_fusion(np) distances, over tiles of 2^f segments of 2^log_l rows by
 // the plan tile_plan(log_l + f, kk, kk, R, log_l); at most R, in registers
-// (log_l and the plan unused: null and 0).
+// (log_l and the plan unused: null and 0).  rows: the planes hold the
+// first `rows` rows of the n: n itself, or the valley merge's overhang (f =
+// 1, n = 2^(j_low+1), rows > n / 2: only the pairs with both rows present
+// are exchanged).
 int radx_cross_stage(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
-                     int64_t j_low, int64_t f, int64_t kk, int64_t log_l,
-                     int64_t invert, int64_t log_span, const int* plan,
-                     int64_t phases, void* stream) {
+                     int64_t rows, int64_t j_low, int64_t f, int64_t kk,
+                     int64_t log_l, int64_t invert, int64_t log_span,
+                     const int* plan, int64_t phases, void* stream) {
   CrossLaunch launch;
   if (!make_planes(planes, np, &launch.x)) return cudaErrorInvalidValue;
   launch.n = n;
+  launch.rows = rows;
   launch.j_low = static_cast<int>(j_low);
   launch.f = static_cast<int>(f);
   launch.kk = static_cast<int>(kk);

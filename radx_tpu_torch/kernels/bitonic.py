@@ -34,6 +34,8 @@ Five kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
     segments of contiguous rows 2^j_low apart);
   * ``finish``      — every distance of a level below the finish tile T,
     inside each tile of T rows (``_finishw_kernel``), on the same engine;
+    a level at or above the mode's finish tile on its plan laid out at
+    compile time (``finish_top``);
   * ``chunk_sort_cyclic`` — the radix sort's phase 1: stages 1..log2(tile)
     of an ascending sort of every radix chunk, whose 1024-row tiles are
     taken block-cyclically (``_chunk_sort_cyclic_kernel``), on the same
@@ -43,6 +45,10 @@ Five kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
     the same engine, the odd slots read backwards by the first load (an
     empty plan, a copy through that load, when the slot is at least the
     tile).
+
+``_overhang`` is the valley merge's top half-cleaner
+(``merge_valley_ascending``): one ``cross_stage<1>`` launch over the rows
+present of a virtual power-of-two array.
 
 A radix chunk is larger than a block's shared memory, so its levels above
 the tile run as cross / finish passes with a direction ``span``: the
@@ -58,7 +64,7 @@ the current stream, without synchronising, and raises if the launch fails;
 on a CPU tensor it runs the kernel's plain PyTorch version, which computes
 the same network one compare-exchange substage at a time.  ``LAUNCHES``
 counts kernel launches by name and ``PLAIN_CALLS`` counts calls of the
-plain versions.
+plain versions (``_cx_directed``, the overhang's on the CPU, among them).
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ import functools
 
 import torch
 
-from radx_tpu_torch.config import MAX_SMEM_BYTES
+from radx_tpu_torch.config import MAX_SMEM_BYTES, SortConfig
 from radx_tpu_torch.kernels import _build
 
 MAX_PLANES = 8
@@ -141,7 +147,8 @@ RADIX_KERNELS = tuple(k for m in MODES for k in radix_kernels(*m))
 KERNELS = KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS + RADIX_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(("chunk_sort_ref", "cross_stage_ref", "finish_ref",
-                             "chunk_sort_cyclic_ref", "slot_merge_ref"), 0)
+                             "chunk_sort_cyclic_ref", "slot_merge_ref",
+                             "_cx_directed"), 0)
 
 
 def reset_counts() -> None:
@@ -302,9 +309,10 @@ def slot_merge_ref(planes, ncmp, chunk, slot, tile):
 
 def _on_cuda(planes, block, tile=False):
     """Validate the planes for a pass over blocks of ``block`` rows (a
-    power of two dividing their length); True for CUDA tensors (launch the
-    kernel), False for CPU ones (run the plain version).  ``tile``: the
-    block of every plane is held in one block's shared memory."""
+    power of two dividing their length; None: any length); True for CUDA
+    tensors (launch the kernel), False for CPU ones (run the plain
+    version).  ``tile``: the block of every plane is held in one block's
+    shared memory."""
     x = planes[0]
     if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
         raise ValueError("expected a contiguous 1-D int32 tensor")
@@ -314,8 +322,7 @@ def _on_cuda(planes, block, tile=False):
             raise ValueError("every rider / lex plane must be a contiguous "
                              "int32 tensor of the keys' shape on their device")
     n = x.numel()
-    _log2(block)
-    if block < 2 or n % block:
+    if block is not None and (_log2(block) < 1 or n % block):
         raise ValueError(f"{n} rows are not whole blocks of {block} (>= 2)")
     if x.device.type == "cpu":
         return False
@@ -349,10 +356,13 @@ def _ptrs(planes):
     return (ctypes.c_void_p * len(planes))(*[p.data_ptr() for p in planes])
 
 
-def _launch(name, fn_name, planes, ncmp, *args):
+def _launch(name, fn_name, planes, ncmp, *args, n=None):
+    """Launch over the planes' rows (``n``: the virtual array of the
+    overhang pass)."""
     x = planes[0]
     _build.launch(LAUNCHES, name + _suffix(ncmp, len(planes)), fn_name,
-                  x.device, _ptrs(planes), len(planes), ncmp, x.numel(), *args)
+                  x.device, _ptrs(planes), len(planes), ncmp,
+                  x.numel() if n is None else n, *args)
 
 
 # --- the phase plan of the register tile engine -----------------------------
@@ -469,14 +479,57 @@ def cross_stage(x, j_low, f, kk, invert=False, rider=None, lex=None,
     r = max_fusion(p)
     log_l = cross_segment(p, j_low, f)
     plan = (None, 0) if f <= r else _plan_arg(log_l + f, kk, kk, r, log_l)
-    _launch(f"cross_stage<{f}>", "radx_cross_stage", planes, ncmp, j_low, f,
-            kk, log_l, int(invert), log_span, *plan)
+    _launch(f"cross_stage<{f}>", "radx_cross_stage", planes, ncmp,
+            x.numel(), j_low, f, kk, log_l, int(invert), log_span, *plan)
     return x
+
+
+# --- finish's compile-time plan (csrc/bitonic.cu finish_kernel, LOG_T > 0) --
+
+
+def top_tile(planes):
+    """The finish tile whose levels at or above it the kernel runs on a
+    plan known at compile time (csrc/bitonic.cu top_log_t): the default
+    ``SortConfig`` finish tile of the plane count (keys, then (key, rider)
+    and lex2 alike, then lex3..lex8)."""
+    return SortConfig().mode_tiles(planes, 1 if planes <= 2 else 2)[1]
+
+
+def top_plan(log_t, r):
+    """The plan of a level at or above a tile of 2^log_t rows as the kernel
+    lays it out at compile time (csrc/bitonic.cu TopPhase): (hi, lo, wlo)
+    of each phase, the bits of ``tile_plan(log_t, kk, kk, r)`` for every kk
+    >= log_t."""
+    phases, hi = [], log_t - 1
+    while hi >= 0:
+        lo = max(hi - r + 1, 0)
+        phases.append((hi, lo, min(lo, log_t - r)))
+        hi = lo - 1
+    return tuple(phases)
+
+
+def finish_top(planes, tile, kk):
+    """The rule that picks finish's kernel: its compile-time plan for a
+    level at or above the mode's finish tile (every finish pass of a
+    sort's merge levels above the chunk), faster than the run-time plan in
+    every mode measured (PERF.md); the run-time plan for any other tile or
+    a level below the tile."""
+    return tile == top_tile(planes) and kk >= _log2(tile)
+
+
+def _launch_finish(planes, ncmp, tile, kk, invert, log_span, top):
+    """One finish launch on the compile-time plan (``top``) or the run-time
+    one."""
+    log_t = _log2(tile)
+    _launch("finish", "radx_finish", planes, ncmp, log_t, int(invert),
+            log_span, *_plan_arg(log_t, kk, kk, max_fusion(len(planes))),
+            int(top))
 
 
 def finish(x, tile, kk, invert=False, rider=None, lex=None, span=None):
     """Every distance of level kk below ``tile``, inside each tile, in place;
-    directions from the index within blocks of ``span`` rows."""
+    directions from the index within blocks of ``span`` rows; the plan at
+    compile time where ``finish_top`` says so."""
     log_t = _log2(tile)
     planes, ncmp = _planes(x, rider, lex)
     log_span = _log_span(x, span)
@@ -485,8 +538,8 @@ def finish(x, tile, kk, invert=False, rider=None, lex=None, span=None):
     if not _on_cuda(planes, tile, tile=True):
         return _plain(planes, finish_ref(x, tile, kk, invert, rider, lex,
                                           span))
-    _launch("finish", "radx_finish", planes, ncmp, log_t, int(invert),
-            log_span, *_plan_arg(log_t, kk, kk, max_fusion(len(planes))))
+    _launch_finish(planes, ncmp, tile, kk, invert, log_span,
+                   finish_top(len(planes), tile, kk))
     return x
 
 
@@ -691,7 +744,9 @@ def _cx_directed(lo, hi, ncmp, descending):
     """Elementwise compare-exchange of two equal-length lists of plane views,
     in place: ascending puts the smaller row on the low side, descending the
     larger.  With more than one plane, every plane swaps where the pair is
-    strictly out of order."""
+    strictly out of order.  The plain version of the valley merge's overhang
+    pass (``_overhang``), which it runs on CPU planes."""
+    PLAIN_CALLS["_cx_directed"] += 1
     if len(lo) == 1:
         mn, mx = torch.minimum(lo[0], hi[0]), torch.maximum(lo[0], hi[0])
         if descending:
@@ -706,6 +761,32 @@ def _cx_directed(lo, hi, ncmp, descending):
         a_new, b_new = torch.where(swap, b, a), torch.where(swap, a, b)
         a.copy_(a_new)
         b.copy_(b_new)
+
+
+def _virtual_rows(rows):
+    """The virtual size of a valley merge of ``rows`` rows: the least power
+    of two that holds them."""
+    return 1 << (rows - 1).bit_length()
+
+
+def _overhang(planes, ncmp, descending):
+    """The top half-cleaner of a valley merge of r rows (2 <= r) on its
+    virtual network of v = 2^ceil(log2 r) wires: rows i and i + v/2 for
+    i < r - v/2, in place.  On the card one ``cross_stage<1>`` launch at
+    distance v/2 over the r rows present (level log2 v, where every pair
+    ascends; ``invert`` descends): one read and one write of the rows that
+    move.  On the CPU its plain version ``_cx_directed``."""
+    r = planes[0].numel()
+    half = _virtual_rows(r) // 2
+    if r < 2:
+        raise ValueError(f"no overhang in {r} rows")
+    if not _on_cuda(planes, None):
+        _cx_directed([p[: r - half] for p in planes],
+                     [p[half:] for p in planes], ncmp, descending)
+        return
+    j = _log2(half)
+    _launch("cross_stage<1>", "radx_cross_stage", planes, ncmp, r, j, 1,
+            j + 1, 0, int(descending), j + 1, None, 0, n=2 * half)
 
 
 def merge_valley_ascending(x, chunk_elems, finish_elems, descending=False,
@@ -725,15 +806,14 @@ def merge_valley_ascending(x, chunk_elems, finish_elems, descending=False,
     cur = planes
     while cur[0].numel() > 1:
         r = cur[0].numel()
-        v = 1 << (r - 1).bit_length()  # tight virtual size
+        v = _virtual_rows(r)
         if r == v:
             k, rd, lx = split(cur)
             merge_bitonic_ascending(k, chunk_elems, finish_elems, descending,
                                     rd, lx)
             break
         half = v // 2
-        _cx_directed([p[: r - half] for p in cur], [p[half:] for p in cur],
-                     ncmp, descending)
+        _overhang(cur, ncmp, descending)
         k, rd, lx = split([p[:half] for p in cur])
         merge_bitonic_ascending(k, chunk_elems, finish_elems, descending, rd,
                                 lx)
