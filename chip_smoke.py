@@ -18,12 +18,14 @@ Phases, one line each (any failure raises and exits nonzero):
      pass above, ascending and descending, under a span in the keys, rider
      and lex2 modes, and at 2^28 keys), ``finish`` on both of its kernels
      (the run-time plan and, at levels at or above the mode's finish tile,
-     the compile-time plan: ``finish_forced``), also at 2^28 keys and 2^28
-     lex2, ``chunk_sort`` / ``finish`` on the
-     register tile engine in every mode at 2^20 rows
+     the compile-time plan: ``forced``), also at 2^28 keys and 2^28
+     lex2, ``chunk_sort`` / the strided cross pass / ``finish`` on the
+     register tile engine in every mode at 2^20 rows, each on both of its
+     plans wherever the compile-time plan applies
      (``tile_engine_checks``: the paths' tiles and the tiny tiles 2..32,
      invert, ascending, finish below, at and above the tile's level and as
-     a span pass, tied lex planes), and
+     a span pass, every strided pass of the mode's cap over its cross tile,
+     tied lex planes), and
      on the same engine ``chunk_sort_cyclic`` / ``slot_merge`` in every
      mode (radix chunks of one and of several tiles, slots below, at and
      above the tile, planes not 16-byte aligned), the single-pass
@@ -54,7 +56,9 @@ Phases, one line each (any failure raises and exits nonzero):
   4. the paths through the public entry points, each in a window of its
      own (``window``): the launch counts are set to 0 just before the path
      and read just after it, and every kernel the path runs must show >= 1
-     launch, with 0 plain-version calls:
+     launch, with 0 plain-version calls (the sort windows of slices 1-3
+     also >= 1 launch of chunk_sort, finish and each strided pass on its
+     compile-time plan: ``compile_time_plan_launches``):
        a. ``sort`` / ``sort_any`` (slice 1), bit-equal to ``torch.sort``;
        b. the sort-based config-3 query at 2^28 rows and the other group-by
           / unique inputs (slice 2), against plain torch references;
@@ -130,7 +134,9 @@ Phases, one line each (any failure raises and exits nonzero):
           pairs at 2^22); ``utils.debug.interpret_parity`` of ``sort`` at
           2^20 (card against CPU) and ``checked(sort)`` at 2^26;
   5. timings (CUDA events): every kernel beside its plain version, its bound
-     (bytes over 3.35 TB/s or operations over 67 T/s, the larger) and, where
+     (bytes over 3.35 TB/s or 32-bit integer operations over the card's
+     rate, SMs x 64 a clock x its maximum SM clock: 16.7 T/s on an H100
+     SXM; the larger) and, where
      one PyTorch call computes the same function, that call (the tile
      engine's kernels with their shared-memory round trips per tile;
      ``gather_planes`` at config 2's, ``sort_multi``'s and the join's
@@ -145,7 +151,11 @@ Phases, one line each (any failure raises and exits nonzero):
      ``cross_stage<1>`` at the last merge level and ``finish`` on bitonic
      tiles, each first held equal to ``torch.sort`` of its view; ``finish``
      at 2^28 keys and 2^28 lex2, and its two plans in turns at 2^26 and
-     2^28 keys and 2^28 lex2; the valley merge's overhang (the
+     2^28 keys and 2^28 lex2; ``chunk_sort``'s two plans in turns at 2^23,
+     2^26 and 2^28 keys, rider 2^26, lex2 2^28 and lex3 2^26, and the
+     strided cross pass's at F = 5..10 for 2^28 keys and F = 5..9 for 2^28
+     lex2 (``in_turns``: ``... in turns`` context lines); the valley
+     merge's overhang (the
      row-limited ``cross_stage<1>``) at q3's and the join's shapes held
      bit-equal to its plain version ``_cx_directed``, ascending and
      descending, and timed beside it;
@@ -178,7 +188,9 @@ import torch
 SIGN = -(1 << 31)
 PAD = 0x7FFFFFFF
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
-OPS_PER_S = 67e12  # H100 SXM peak non-tensor float32 rate
+# 32-bit integer operations a second (tools/finish_bench.py int_ops_per_s:
+# SMs x 64 a clock x the maximum SM clock), set in main before any timing
+OPS_PER_S = None
 
 
 def _line(tag, **fields):
@@ -197,11 +209,14 @@ def _suffix(ncmp, planes):
 def _ptxas_name(kernel, args):
     """Readable name of a compiled kernel from its template arguments."""
     a = [int(x) for x in re.findall(r"L[ib](\d+)E", args or "")]
+    from radx_tpu_torch.kernels import bitonic as B
+
     if kernel == "cross_stage":  # F = 0: the strided tile pass
+        top = "/top" if a[0] > B.max_fusion(a[2]) else ""  # compile-time
         return (f"cross_stage<{a[0] or 'strided'}>"
-                + _suffix(a[1], a[2]))
-    if kernel == "finish" and a[2]:  # the compile-time plan of its tile
-        return f"finish{_suffix(a[0], a[1])}/top"
+                + _suffix(a[1], a[2]) + top)
+    if kernel in ("chunk_sort", "finish") and a[2]:  # compile-time plan
+        return f"{kernel}{_suffix(a[0], a[1])}/top"
     if kernel in ("chunk_sort", "finish", "chunk_sort_cyclic", "slot_merge",
                   "radix_pack", "radix_concat"):
         return kernel + _suffix(a[0], a[1])
@@ -303,7 +318,7 @@ def _kernel_modules():
 
 def bound(bytes_, ops=0):
     """(ms, "bytes" | "operations"): the least time the card could take for
-    this many bytes moved and 32-bit operations done."""
+    this many bytes moved and 32-bit integer operations done."""
     tb, to = bytes_ / HBM_BYTES_PER_S, ops / OPS_PER_S
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
@@ -375,27 +390,37 @@ def _mode_planes(dev, mode, n, gen):
     return planes
 
 
-def finish_forced(top):
-    """``bitonic.finish`` with its kernel forced: the compile-time plan
-    (``top``, a level at or above the mode's finish tile) or the run-time
-    plan, whatever the rule (``finish_top``) would pick."""
+def forced(kernel, top):
+    """``bitonic.<kernel>`` ("chunk_sort", "cross_stage" or "finish", with
+    that wrapper's positional arguments after the keys) with its plan
+    forced: the compile-time plan (``top``) or the run-time plan, whatever
+    the rule (``compile_time_plan``) would pick."""
     from radx_tpu_torch.kernels import bitonic as B
 
-    def run(x, tile, kk, invert=False, rider=None, lex=None, span=None):
+    def run(x, *args, invert=False, ascending=False, rider=None, lex=None,
+            span=None):
         planes, ncmp = B._planes(x, rider, lex)
-        B._launch_finish(planes, ncmp, tile, kk, invert,
-                         B._log_span(x, span), top)
+        if kernel == "chunk_sort":
+            B._launch_chunk(planes, ncmp, *args, invert, ascending, top)
+        elif kernel == "cross_stage":
+            B._launch_cross(planes, ncmp, *args, invert, B._log_span(x, span),
+                            top)
+        else:
+            B._launch_finish(planes, ncmp, *args, invert,
+                             B._log_span(x, span), top)
         return x
 
     return run
 
 
-def finish_plans(planes, tile, kk):
-    """finish's kernels a pass can take: the run-time plan, and the
-    compile-time plan where it applies."""
+def plans(kernel, planes, log_t, kk, lo_bit=0):
+    """The plans a tile pass of ``kernel`` can take: the run-time plan, and
+    the compile-time plan where it applies (``compile_time_plan``)."""
     from radx_tpu_torch.kernels import bitonic as B
 
-    return (False, True) if B.finish_top(planes, tile, kk) else (False,)
+    return ((False, True) if B.compile_time_plan(kernel, planes, log_t, kk,
+                                                 lo_bit) else (False,))
+
 
 
 def _max_err(got, want):
@@ -405,20 +430,25 @@ def _max_err(got, want):
 
 def tile_engine_checks(dev, cfg):
     """Phase 3 for the kernels on the register tile engine, ``chunk_sort``
-    (K1), ``finish`` (K3), ``chunk_sort_cyclic`` (K4) and ``slot_merge``
-    (K5), in every mode (keys, rider, lex2..lex8), at 2^20 rows: the tiles
-    the paths use (``cfg.mode_tiles``) and the tiny tiles 2..32 (below and
-    around one thread's 2^R rows); chunk_sort with ``invert`` and
-    ``ascending``; finish at kk below, at and above log2(tile) and as a
-    span pass (2^19); K4 with radix chunks of one tile (or 1024 rows) and
-    of 2^17 rows (several tiles); K5 in chunks of 2^17 rows with slots a
-    quarter and half of the tile (one level), the tile and twice it (the
-    empty plan: a copy), and the radix geometries' slots of 1024 and 4096
-    at the paths' tiles; K4 and K5 again on planes offset by one row (not
-    16-byte aligned: no int4 rows).  Keys in [0, 16); in the lex modes
-    plane 1 in [0, 4), so (plane 0, plane 1) ties too; random riders.
-    Every plane of every case bit-equal to the plain version; one line per
-    kernel instance."""
+    (K1), the strided cross pass (K2, f > R), ``finish`` (K3),
+    ``chunk_sort_cyclic`` (K4) and ``slot_merge`` (K5), in every mode (keys,
+    rider, lex2..lex8), at 2^20 rows: the tiles the paths use
+    (``cfg.mode_tiles``) and the tiny tiles 2..32 (below and around one
+    thread's 2^R rows); chunk_sort with ``invert`` and ``ascending``;
+    finish at kk below, at and above log2(tile) and as a span pass (2^19);
+    every strided pass of the mode's cap over its cross tile (the lowest
+    distance just above the segment) at the level just above the pass and
+    at the top level, inverted, and as a span pass; each of chunk_sort,
+    the strided pass and finish on both of its plans wherever the
+    compile-time plan applies (``forced``); K4 with radix chunks of one
+    tile (or 1024 rows) and of 2^17 rows (several tiles); K5 in chunks of
+    2^17 rows with slots a quarter and half of the tile (one level), the
+    tile and twice it (the empty plan: a copy), and the radix geometries'
+    slots of 1024 and 4096 at the paths' tiles; K4 and K5 again on planes
+    offset by one row (not 16-byte aligned: no int4 rows).  Keys in [0,
+    16); in the lex modes plane 1 in [0, 4), so (plane 0, plane 1) ties
+    too; random riders.  Every plane of every case bit-equal to the plain
+    version; one line per kernel instance and plan."""
     from radx_tpu_torch.kernels import bitonic as B
 
     n, span = 1 << 20, 1 << 19
@@ -433,41 +463,58 @@ def tile_engine_checks(dev, cfg):
         while len(planes) < p:
             planes.append(rand(-(2**31), 2**31))
         k, rider, lex = B._keywords(planes, ncmp)
+        r = B.max_fusion(p)
         tiles = sorted({2, 4, 8, 16, 32, *cfg.mode_tiles(p, ncmp)})
-        cases = {"chunk_sort": [], "finish": []}  # finish: both plans
+        # (op, args after the keys, keywords, the plans)
+        cases = []
         for tile in tiles:
             lt = tile.bit_length() - 1
             for inv, asc in ((False, False), (True, False), (False, True)):
-                cases["chunk_sort"].append(
-                    (tile, dict(invert=inv, ascending=asc)))
+                cases.append(("chunk_sort", (tile,),
+                              dict(invert=inv, ascending=asc),
+                              plans("chunk_sort", p, lt, lt)))
             for kk, inv, sp in ((max(1, lt - 2), False, None),
                                 (lt, True, None), (lt + 3, False, None),
                                 (19, True, span)):
-                for top in finish_plans(p, tile, kk):
-                    cases["finish"].append((tile, dict(kk=kk, invert=inv,
-                                                       span=sp), top))
-        for op, todo in cases.items():
+                cases.append(("finish", (tile, kk),
+                              dict(invert=inv, span=sp),
+                              plans("finish", p, lt, kk)))
+        ct = B.cross_tile(p).bit_length() - 1
+        for f in range(r + 1, B.cross_fusion(p) + 1):
+            j = ct - f + 1
+            for kk, inv, sp in ((j + f, False, None), (20, True, None),
+                                (19, False, span)):
+                cases.append(("cross_stage", (j, f, kk),
+                              dict(invert=inv, span=sp),
+                              plans("cross_stage", p, ct, kk, ct - f)))
+        for op in ("chunk_sort", "cross_stage", "finish"):
             ref = getattr(B, op + "_ref")
-            worst = 0
-            for tile, kw, *top in todo:
-                kernel = finish_forced(*top) if top else getattr(B, op)
-                got = [q.clone() for q in planes]
-                gk, grd, glx = B._keywords(got, ncmp)
-                kernel(gk, tile, rider=grd, lex=glx, **kw)
-                want = ref(k, tile, rider=rider, lex=lex, **kw)
+            worst, count = {}, {}
+            for name, args, kw, tops in cases:
+                if name != op:
+                    continue
+                want = ref(k, *args, rider=rider, lex=lex, **kw)
                 want = want if isinstance(want, tuple) else (want,)
-                torch.cuda.synchronize()
-                e = _max_err(got, want)
-                if e:
-                    record([op + _suffix(ncmp, p)], e, False, n=n, tile=tile,
-                           compile_time_plan=bool(top and top[0]), **kw)
-                worst = max(worst, e)
-            record([op + _suffix(ncmp, p)], worst, worst == 0, n=n,
-                   tiles=tiles, cases=len(todo),
-                   round_trips={t: B.round_trips(
-                       t.bit_length() - 1, 1, t.bit_length() - 1, p)
-                       if op == "chunk_sort" else B.round_trips(
-                           t.bit_length() - 1, 30, 30, p) for t in tiles})
+                for top in tops:
+                    got = [q.clone() for q in planes]
+                    gk, grd, glx = B._keywords(got, ncmp)
+                    forced(op, top)(gk, *args, rider=grd, lex=glx, **kw)
+                    torch.cuda.synchronize()
+                    e = _max_err(got, want)
+                    if e:
+                        record([op + _suffix(ncmp, p)], e, False, n=n,
+                               args=args, compile_time_plan=top, **kw)
+                    worst[top] = max(worst.get(top, 0), e)
+                    count[top] = count.get(top, 0) + 1
+            for top, e in worst.items():
+                trips = {t: B.round_trips(t.bit_length() - 1, 1,
+                                          t.bit_length() - 1, p)
+                         if op == "chunk_sort" else B.round_trips(
+                             t.bit_length() - 1, 30, 30, p) for t in tiles}
+                record([op + _suffix(ncmp, p)], e, e == 0, n=n,
+                       compile_time_plan=top, cases=count[top],
+                       **({} if op == "cross_stage" else
+                          {"tiles": tiles, "round_trips": trips}))
         _radix_tile_checks(planes, ncmp, cfg)
 
 
@@ -1185,10 +1232,11 @@ def merge_checks(dev):
 
 
 @contextlib.contextmanager
-def window(name, required):
+def window(name, required, top=()):
     """Drive one path inside the block: every launch count is set to 0 just
     before it and read just after it.  Fails unless every kernel of
-    ``required`` launched at least once and no plain version ran."""
+    ``required`` launched at least once, every kernel of ``top`` at least
+    once on its compile-time plan, and no plain version ran."""
     mods = _kernel_modules()
     torch.cuda.synchronize()
     for m in mods:
@@ -1201,12 +1249,30 @@ def window(name, required):
         plain.update(m.PLAIN_CALLS)
     for k, v in launches.items():
         TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + v
+    from radx_tpu_torch.kernels import bitonic as B
+
+    tops = {k: v for k, v in B.TOP_LAUNCHES.items() if v}
     _line("counts", path=name, launches={k: v for k, v in launches.items() if v},
-          plain_calls=plain)
+          compile_time_plan_launches=tops, plain_calls=plain)
     missing = [k for k in required if launches[k] < 1]
+    missing += [f"{k} (compile-time plan)" for k in top if k not in tops]
     if missing or any(plain.values()):
         _fail(f"kernels not launched by the {name} path: {missing}; "
               f"plain calls {plain}")
+
+
+def top_kernels(ncmp, planes, distances):
+    """The launch names that a sort of one mode runs on compile-time plans:
+    its chunk sort, finish, and the strided cross passes (more than
+    max_fusion(P) distances) that ``distances`` a level reach, in the modes
+    where they have one (``bitonic.TOP_MODES``)."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    r = B.max_fusion(planes)
+    strided = planes in B.TOP_MODES["cross_stage"]
+    return tuple(k for k in B.mode_kernels(ncmp, planes, distances)
+                 if not k.startswith("cross_stage<") or strided
+                 and int(k[len("cross_stage<"):].split(">")[0]) > r)
 
 
 @contextlib.contextmanager
@@ -1402,7 +1468,8 @@ def join_path(dev):
     want = bench.torch_join_ref(build.column("k"), build.column("w"),
                                 probe.column("k"), probe.column("v"))
     pieces, overhangs = [], []
-    with window("config4_join_inner_1e8", join_kernels), peak_memory(
+    with window("config4_join_inner_1e8", join_kernels,
+                top_kernels(2, 2, 14)), peak_memory(
             "config4_join_inner_1e8", 8.95094,
             *(t.column(c) for t, c in ((build, "k"), (build, "w"),
                                        (probe, "k"), (probe, "v")))), \
@@ -1518,7 +1585,8 @@ def sort_path(dev):
     n28 = 1 << 28
     keys, payload = bench.pairs_data(n28)
     required = (*_lex(2), *gather_routes("index", "partitioned"))
-    with window("config2_sort_pairs_stable_2e28", required), peak_memory(
+    with window("config2_sort_pairs_stable_2e28", required,
+                top_kernels(2, 2, 15)), peak_memory(
             "config2_sort_pairs_stable_2e28", 6.0, keys, payload):
         got = sort_pairs(keys, payload)
     want = bench.torch_sort_pairs(keys, payload)
@@ -1655,7 +1723,8 @@ def rider_arbn_path(dev):
                        device=dev)
     overhangs = []
     with window("groupby_rider_arbn_1e8",
-                (*B.RIDER_KERNELS, *SG.KERNELS, *CP.KERNELS)), \
+                (*B.RIDER_KERNELS, *SG.KERNELS, *CP.KERNELS),
+                top_kernels(1, 2, 13)), \
             overhang_passes(overhangs):
         res = {agg: groupby(ids.view(torch.uint32), v1.view(torch.uint32),
                             agg, cfg) for agg in ("sum", "count")}
@@ -2171,12 +2240,15 @@ def main():
     from radx_tpu_torch.kernels import radix_sort as RS
     from radx_tpu_torch.kernels import segscan as SG
     from radx_tpu_torch.ops import sort as S
+    from radx_tpu_torch.tools.finish_bench import int_ops_per_s
     from radx_tpu_torch.utils import timing
 
+    global OPS_PER_S
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = timing.nvidia_smi()
+    OPS_PER_S = int_ops_per_s()
     card = {"card": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     cfg = SortConfig()
     C, T = cfg.chunk_elems, cfg.finish_elems
@@ -2195,7 +2267,8 @@ def main():
     # -- 1. the card ---------------------------------------------------------
     _line("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda, nvidia_smi=smi, config=repr(cfg))
+          cuda=torch.version.cuda, nvidia_smi=smi, config=repr(cfg),
+          int_ops_per_s=OPS_PER_S)
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2272,13 +2345,15 @@ def main():
                     j_low=rj, kk=rj + f, invert=inv)
     # finish: the run-time plan, and the compile-time plan where it applies
     for kk, inv in ((log_t + 1, False), (23, True), (5, False)):
-        for top in finish_plans(1, T, kk):
-            check("finish", lambda x: finish_forced(top)(x, T, kk, inv),
+        for top in plans("finish", 1, T.bit_length() - 1, kk):
+            check("finish", lambda x: forced("finish", top)(x, T, kk,
+                                                           invert=inv),
                   lambda x: B.finish_ref(x, T, kk, inv), tile=T, kk=kk,
                   invert=inv, compile_time_plan=top)
-        for top in finish_plans(2, RT, kk):
+        for top in plans("finish", 2, RT.bit_length() - 1, kk):
             check_rider("finish",
-                        lambda x, r: finish_forced(top)(x, RT, kk, inv, r),
+                        lambda x, r: forced("finish", top)(
+                            x, RT, kk, invert=inv, rider=r),
                         lambda x, r: B.finish_ref(x, RT, kk, inv, r),
                         tile=RT, kk=kk, invert=inv, compile_time_plan=top)
     # the radix sort's span passes: directions from the index within 2^19
@@ -2299,8 +2374,9 @@ def main():
                     lambda x, r: B.cross_stage_ref(x, j, f, 19, True, r,
                                                    span=span),
                     j_low=j, kk=19, invert=True, span=span)
-    for top in finish_plans(1, T, 19):
-        check("finish", lambda x: finish_forced(top)(x, T, 19, span=span),
+    for top in plans("finish", 1, T.bit_length() - 1, 19):
+        check("finish", lambda x: forced("finish", top)(x, T, 19,
+                                                       span=span),
               lambda x: B.finish_ref(x, T, 19, span=span), tile=T, kk=19,
               span=span, compile_time_plan=top)
 
@@ -2356,10 +2432,10 @@ def main():
                                                           lex=lx, span=span),
                           j_low=j, kk=19, span=span)
         for kk, inv in ((ll + 1, True), (23, False), (ll - 2, False)):
-            for top in finish_plans(p, lf, kk):
+            for top in plans("finish", p, lf.bit_length() - 1, kk):
                 check_lex(p, "finish",
-                          lambda x, lx: finish_forced(top)(x, lf, kk, inv,
-                                                           lex=lx),
+                          lambda x, lx: forced("finish", top)(
+                              x, lf, kk, invert=inv, lex=lx),
                           lambda x, lx: B.finish_ref(x, lf, kk, inv, lex=lx),
                           tile=lf, kk=kk, invert=inv, compile_time_plan=top)
     del tie_plane, riders
@@ -2373,9 +2449,10 @@ def main():
         for kk, inv in ((28, False), (20, True)):
             want = B.finish_ref(big[0], tile, kk, inv, lex=big[1:] or None)
             want = want if isinstance(want, tuple) else (want,)
-            for top in finish_plans(p, tile, kk):
+            for top in plans("finish", p, tile.bit_length() - 1, kk):
                 got = [q.clone() for q in big]
-                finish_forced(top)(got[0], tile, kk, inv, lex=got[1:] or None)
+                forced("finish", top)(got[0], tile, kk, invert=inv,
+                                      lex=got[1:] or None)
                 torch.cuda.synchronize()
                 e = _max_err(got, want)
                 record(["finish" + ("/lex2" if p == 2 else "")], e, e == 0,
@@ -2469,7 +2546,7 @@ def main():
     }
     torch.cuda.synchronize()
 
-    with window("sort", B.KEY_KERNELS):
+    with window("sort", B.KEY_KERNELS, top_kernels(1, 1, 9)):
         outs = {k: sort(v) for k, v in dev_inputs.items()}
         any_outs = {k: sort_any(x, descending=d)
                     for k, (x, d) in any_inputs.items()}
@@ -2542,7 +2619,8 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     with window("filter_groupby_unique",
-                (*B.KEY_KERNELS, *B.RIDER_KERNELS, *CP.KERNELS, *SG.KERNELS)):
+                (*B.KEY_KERNELS, *B.RIDER_KERNELS, *CP.KERNELS, *SG.KERNELS),
+                top_kernels(1, 2, 9)):
         mask = _i32(pred) >= 0  # pred < 2^31
         (qk, qv), qcount = filter_columns(mask, [key, value])
         qc = int(qcount)
@@ -2661,24 +2739,33 @@ def main():
     # -- 5. timings ------------------------------------------------------------
     rows = {}
 
-    def finish_in_turns(planes, ncmp, tile, log_n, lib):
-        """finish at the top level on the run-time plan (the kernel before
-        its compile-time plan) and on the compile-time plan, in turns (old,
-        new, new, old), each beside the bound and the library call."""
-        bound_ms = bound(4 * 2 * len(planes) << log_n)[0]
+    def in_turns(kernel, planes, ncmp, args, ops, lib=None, top=True):
+        """A tile-engine kernel (chunk_sort, a strided cross pass, finish)
+        on the run-time plan (the kernel before its compile-time plan) and
+        on the compile-time plan, in turns (old, new, new, old), each beside
+        the bound and the library call; with ``top`` false (a mode whose
+        compile-time plan lost and has no kernel) the run-time plan twice."""
+        n = planes[0].numel()
+        bound_ms, bound_by = bound(8 * len(planes) * n, ops)
+        k, rd, lx = B._keywords(planes, ncmp)
         ms = {}
-        for top in (False, True, True, False):
+        for top in (False, True, True, False) if top else (False, False):
             t = timing.time_cuda(
-                lambda: finish_forced(top)(planes[0], tile, log_n,
-                                           lex=planes[1:] or None),
+                lambda: forced(kernel, top)(k, *args, rider=rd, lex=lx),
                 iters=10, repeats=5)
             ms.setdefault("compile_time_plan" if top else "runtime_plan",
                           []).append(t.seconds * 1e3)
         lib_ms = (None if lib is None else
                   timing.time_cuda(lib, iters=10, repeats=5).seconds * 1e3)
-        _line("context", what=f"finish{_suffix(ncmp, len(planes))} in "
-              f"turns, n=2^{log_n}", **ms, bound_ms=bound_ms,
-              library_ms=lib_ms, **card)
+        name = (f"cross_stage<{args[1]}>" if kernel == "cross_stage"
+                else kernel)
+        _line("context", what=f"{name}{_suffix(ncmp, len(planes))} in "
+              f"turns, n=2^{n.bit_length() - 1}", **ms, bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=lib_ms, **card)
+
+    def chunk_ops(n, chunk, planes):
+        lc = chunk.bit_length() - 1
+        return _cx_ops(n, lc * (lc + 1) // 2, planes)
 
     def time_pair(name, log_n, kern, ref, bytes_, ops=0, lib=None, iters=10,
                   n=None, **extra):
@@ -2726,6 +2813,8 @@ def main():
                   lambda: B.chunk_sort_ref(x, C), 8 * nx,
                   _cx_ops(nx, log_c * (log_c + 1) // 2, 1), tile_sort(x, C),
                   round_trips=B.round_trips(log_c, 1, log_c, 1))
+        in_turns("chunk_sort", [x], 1, (C,), chunk_ops(nx, C, 1),
+                 tile_sort(x, C))
         # cross_stage<F> at the distances 2^(F-1) T .. T of the last merge
         # level, where every block ascends, on columns that are bitonic
         # along the 2^F axis (an ascending half, a descending half): it
@@ -2766,7 +2855,8 @@ def main():
                   _cx_ops(nx, log_t, 1), tile_sort(xb, T),
                   round_trips=B.round_trips(log_t, log_n, log_n, 1))
         if log_n == 26:
-            finish_in_turns([xb], 1, T, log_n, tile_sort(xb, T))
+            in_turns("finish", [xb], 1, (T, log_n), _cx_ops(nx, log_t, 1),
+                     tile_sort(xb, T))
         del x, keys, y, xb, halves
     # the cross passes at 2^28 keys (the sort_u32_uniform_n2e28 cell's
     # size), each first held equal to the plain version
@@ -2787,6 +2877,13 @@ def main():
                   8 << 28, _cx_ops(1 << 28, f, 1),
                   lambda f=f: torch.sort(x.view(-1, 1 << f, T), dim=1),
                   round_trips=B.cross_round_trips(1, log_t, f, kk))
+        if f > B.max_fusion(1):
+            in_turns("cross_stage", [x], 1, (log_t, f, kk),
+                     _cx_ops(1 << 28, f, 1),
+                     lambda f=f: torch.sort(x.view(-1, 1 << f, T), dim=1))
+    # chunk_sort at 2^28 keys (the cell's size) on both plans
+    in_turns("chunk_sort", [x], 1, (C,), chunk_ops(1 << 28, C, 1),
+             tile_sort(x, C))
     del x
     torch.cuda.empty_cache()
     # finish at 2^28 keys and 2^28 (key, index) pairs on bitonic tiles (the
@@ -2802,7 +2899,8 @@ def main():
               lambda: B.finish_ref(xb, T, 28), 8 << 28,
               _cx_ops(1 << 28, log_t, 1), tile_sort(xb, T),
               round_trips=B.round_trips(log_t, 28, 28, 1))
-    finish_in_turns([xb], 1, T, 28, tile_sort(xb, T))
+    in_turns("finish", [xb], 1, (T, 28), _cx_ops(1 << 28, log_t, 1),
+             tile_sort(xb, T))
     del xb
     lf2 = cfg.lex_tiles(2)[1]
     lex2 = [torch.randint(0, 1 << 20, (1 << 28,), dtype=i32, generator=gen,
@@ -2813,7 +2911,18 @@ def main():
               lambda: B.finish_ref(lex2[0], lf2, 28, lex=lex2[1:]), 16 << 28,
               _cx_ops(1 << 28, lf2.bit_length() - 1, 2),
               round_trips=B.round_trips(lf2.bit_length() - 1, 28, 28, 2))
-    finish_in_turns(lex2, 2, lf2, 28, None)
+    in_turns("finish", lex2, 2, (lf2, 28),
+             _cx_ops(1 << 28, lf2.bit_length() - 1, 2))
+    # chunk_sort and the strided cross passes of the pairs cell (2^28 lex2)
+    # on both plans
+    in_turns("chunk_sort", lex2, 2, (lf2,), chunk_ops(1 << 28, lf2, 2))
+    ll2 = lf2.bit_length() - 1
+    lct = B.cross_tile(2).bit_length() - 1
+    for f in range(B.max_fusion(2) + 1, B.cross_fusion(2) + 1):
+        in_turns("cross_stage", lex2, 2, (ll2, f, ll2 + f),
+                 _cx_ops(1 << 28, f, 2),
+                 top=B.compile_time_plan("cross_stage", 2, lct, ll2 + f,
+                                         lct - f))
     del lex2
     torch.cuda.empty_cache()
     # the valley merge's overhang at q3's (3 * 2^25 rider rows) and the
@@ -2861,6 +2970,7 @@ def main():
               lambda: B.chunk_sort_ref(x, RC, rider=r), 16 * n26,
               _cx_ops(n26, log_rc * (log_rc + 1) // 2, 2),
               round_trips=B.round_trips(log_rc, 1, log_rc, 2))
+    in_turns("chunk_sort", [x, r], 1, (RC,), chunk_ops(n26, RC, 2))
     for f in range(1, B.cross_fusion(2) + 1):
         kk = r_log_t + f
         time_pair(f"cross_stage<{f}>/rider", log_n,
@@ -2902,6 +3012,16 @@ def main():
                   lambda: B.finish_ref(x, lf, 23, lex=lx), 8 * p * n,
                   _cx_ops(n, ll, p), round_trips=B.round_trips(ll, 23, 23, p))
     del x, lex
+    # chunk_sort/lex3 at 2^26 (LazyTable's sorts carry a third plane) on
+    # both plans
+    lex3 = [torch.randint(0, 1 << 20, (n26,), dtype=i32, generator=gen,
+                          device=dev),
+            torch.randperm(n26, generator=gen, device=dev).to(i32),
+            torch.randint(-(2**31), 2**31, (n26,), dtype=i32, generator=gen,
+                          device=dev)]
+    lc3 = cfg.lex_tiles(3)[0]
+    in_turns("chunk_sort", lex3, 2, (lc3,), chunk_ops(n26, lc3, 3))
+    del lex3
 
     # compact on the filter's shape (int32 mask, density 0.5, one plane);
     # beside it a bool mask, and the group-by's two planes by its run ends

@@ -31,12 +31,16 @@
 //   cross_stage <- _cross_stage_kernel / _cross_stage2/3/4_kernel (:465,
 //                  :352, :374, :398).  F consecutive distances >= the
 //                  finish tile in one pass over device memory: up to R in
-//                  registers, more (up to 8 at one to three planes, where
-//                  the TPU fused at most 4) on the register tile engine
-//                  over strided tiles.
+//                  registers, more (up to 10 keys only, where the TPU
+//                  fused at most 4) on the register tile engine over
+//                  strided tiles.
 //   finish      <- _finishw_kernel (:427).  Every distance of one level that
 //                  is below the finish tile T, inside each tile of T keys,
 //                  on the register tile engine.
+//
+// At a mode's own tiles the three run their plans laid out at compile time
+// (top_pass): the chunk sort of the chunk tile, every finish level at or
+// above the finish tile, and (keys) the strided pass over the cross tile.
 //
 // Two more kernels carry the radix distribution sort (kernels/radix_sort.py),
 // on the same register tile engine.  Each reads its tile out of place
@@ -111,8 +115,9 @@ __device__ __forceinline__ bool must_swap(int a0, int a1, int b0, int b1,
 // A tile pass runs merge levels over one tile of 2^log_t rows in one block.
 // Each thread holds W = 2^R rows of every plane in registers, R =
 // max_fusion(P) (2^R * P <= 48 values), and the pass is cut into phases by
-// a plan the host computes (kernels/bitonic.py::tile_plan; this file only
-// reads it).  In a phase a thread holds the rows whose tile indices differ
+// a plan the host computes (kernels/bitonic.py::tile_plan; tile_pass reads
+// it, top_pass lays the plans of the modes' own tiles out at compile
+// time).  In a phase a thread holds the rows whose tile indices differ
 // only in bits wlo .. wlo+R-1 and runs there, without synchronisation,
 // every substage of the phase (index bits lo..hi of levels kk_a..kk_b);
 // between two phases the tile goes once through shared memory: store,
@@ -476,24 +481,260 @@ __device__ __forceinline__ void tile_pass(const Planes& in, const Planes& out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Plans laid out at compile time.  A tile pass at its mode's own tile runs a
+// plan that depends only on the plane count: a chunk sort of the mode's
+// chunk tile, a finish pass at a level at or above the mode's finish tile,
+// a strided cross pass of f > R distances over the mode's cross tile.
+// top_pass unrolls such a plan: no plan decoding, constant register windows
+// and substage ranges, and each level's direction rule chosen at compile
+// time (top_levels).  The network is the same bit for bit, in fewer
+// instructions: the tile passes are bound by those instructions more than
+// by device memory (tools/finish_bench.py, PERF.md).  The host entry points
+// take these kernels only for a plan equal to the layout (is_top_plan);
+// the run-time kernels (tile_pass) keep every other plan.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int plan_code(int kk_a, int kk_b, int hi,
+                                            int lo, int wlo) {
+  return kk_a | kk_b << 6 | hi << 12 | lo << 16 | wlo << 20;
+}
+
+// Phase ph of a compile-time plan, packed as the host packs tile_plan's
+// phases, or 0 past the last phase (kernels/bitonic.py::top_plan mirrors
+// it and holds it equal to tile_plan):
+//   kk > 0, a level at or above the tile: tile_plan(log_t, kk, kk, r,
+//     lo_bit), bits log_t-1 .. lo_bit in phases of r, highest first;
+//   kk = 0, a chunk sort: tile_plan(log_t, 1, log_t, r), levels 1..r at
+//     bits r-1..0 in one phase, then each level k > r at bits k-1 .. 0 in
+//     ceil(k / r) phases.
+// A phase's register window starts at its lowest bit, clamped into the
+// tile.
+__host__ __device__ constexpr int top_code(int log_t, int kk, int r,
+                                           int lo_bit, int ph) {
+  if (kk > 0) {
+    const int hi = log_t - 1 - ph * r;
+    if (hi < lo_bit) return 0;
+    const int lo = hi - r + 1 > lo_bit ? hi - r + 1 : lo_bit;
+    return plan_code(kk, kk, hi, lo, lo < log_t - r ? lo : log_t - r);
+  }
+  if (ph == 0) return plan_code(1, r, r - 1, 0, 0);
+  for (int k = r + 1; k <= log_t; ++k) {
+    const int phases = (k + r - 1) / r;
+    if (ph <= phases) {
+      const int hi = k - 1 - (ph - 1) * r;
+      const int lo = hi - r + 1 > 0 ? hi - r + 1 : 0;
+      return plan_code(k, k, hi, lo, lo < log_t - r ? lo : log_t - r);
+    }
+    ph -= phases;
+  }
+  return 0;
+}
+
+__host__ __device__ constexpr int top_phases(int log_t, int kk, int r,
+                                             int lo_bit) {
+  int n = 0;
+  while (top_code(log_t, kk, r, lo_bit, n) != 0) ++n;
+  return n;
+}
+
+// The mode's chunk and finish tile (config.py; kernels/bitonic.py
+// top_tile) and its cross tile (kernels/bitonic.py cross_tile: P planes in
+// 64 KB), log2.
+__host__ __device__ constexpr int top_log_t(int np) {
+  return np == 1 ? 14 : np <= 3 ? 13 : np <= 6 ? 12 : 11;
+}
+
+__host__ __device__ constexpr int cross_log_t(int np) {
+  return np == 1 ? 14 : np == 2 ? 13 : np <= 4 ? 12 : 11;
+}
+
+// Most distances a cross pass runs (kernels/bitonic.py cross_fusion).
+__host__ __device__ constexpr int cross_fusion(int np) {
+  return np == 1 ? 10 : np == 2 ? 9 : 2 * max_fusion(np);
+}
+
+// The modes whose strided cross pass has a compile-time plan: those where
+// it measured faster than the run-time plan (keys only; at two planes and
+// more the two were within 2% of each other either way, PERF.md;
+// kernels/bitonic.py TOP_MODES).
+__host__ __device__ constexpr bool cross_top(int np) { return np == 1; }
+
+// Phase PH of the compile-time plan of a tile of 2^LOG_T rows at P planes;
+// KK: 0 for a chunk sort, LOG_T for every level at or above the tile (their
+// bits are the same; the level only picks the tile's direction).
+template <int P, int LOG_T, int KK, int LO_BIT, int PH>
+struct TopPhase {
+  static constexpr int kCode = top_code(LOG_T, KK, max_fusion(P), LO_BIT, PH);
+  static constexpr int kKkA = kCode & 63;
+  static constexpr int kKkB = (kCode >> 6) & 63;
+  static constexpr int kHi = (kCode >> 12) & 15;
+  static constexpr int kLo = (kCode >> 16) & 15;
+  static constexpr int kWlo = (kCode >> 20) & 15;
+  static constexpr bool kLast =
+      top_code(LOG_T, KK, max_fusion(P), LO_BIT, PH + 1) == 0;
+};
+
+// The substages sb_hi .. sb_lo of one level whose direction is one for all
+// of a thread's registers but differs across a warp's lanes (up), in one
+// body, without a branch.  Keys only, with two substages or more: the rows
+// of a descending thread are complemented (~x reverses the signed order),
+// the ascending body runs, and they are complemented back: 2^(R+1) XORs
+// against the two selects a pair that a min and a max in a run-time
+// direction take (PERF.md: the SASS and the times of both).  With one
+// substage a pair takes those selects; with more planes a pair compares in
+// its direction and swaps by selects.
+template <int NCMP, int P, int R, int SB_HI, int SB_LO>
+__device__ __forceinline__ void level_lanes(int (&v)[P][1 << R], bool up) {
+  constexpr int W = 1 << R;
+  if constexpr (P == 1 && SB_HI > SB_LO) {
+    const int m = up ? 0 : -1;
+#pragma unroll
+    for (int u = 0; u < W; ++u) v[0][u] ^= m;
+    level_fixed<NCMP, P, R, R, 0>(v, SB_HI, SB_LO);
+#pragma unroll
+    for (int u = 0; u < W; ++u) v[0][u] ^= m;
+    return;
+  }
+#pragma unroll
+  for (int sb = SB_HI; sb >= SB_LO; --sb) {
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      if (u & (1 << sb)) continue;
+      const int o = u | (1 << sb);
+      if constexpr (P == 1) {
+        compare_exchange(v[0][u], v[0][o], up);
+      } else {
+        const bool swap = must_swap<NCMP>(v[0][u], NCMP == 2 ? v[1][u] : 0,
+                                          v[0][o], NCMP == 2 ? v[1][o] : 0,
+                                          up);
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const int a = v[j][u];
+          const int b = v[j][o];
+          v[j][u] = swap ? b : a;
+          v[j][o] = swap ? a : b;
+        }
+      }
+    }
+  }
+}
+
+// Levels KK..KK_B of one phase of a compile-time plan (tile bits HI..LO in
+// registers WLO..WLO+R-1).  Register u holds tile row gb | (u << WLO).  Each
+// level's direction bit is chosen at compile time from where it lies:
+//   KK >= LOG_T: bit KK of the tile's base: flip_top, one for the tile;
+//   KK - WLO < R: bit KK - WLO of the register index (`invert` is uniform);
+//   else bit KK of gb, which is bit KK - R of the group index g: one for a
+//     warp when that bit lies above its 32 lanes (KK - R >= 5), so the
+//     branch between two bodies never splits a warp; below (a chunk sort's
+//     levels R .. R + 4) the lanes differ and level_lanes runs the level
+//     without a branch.
+template <int NCMP, int P, int LOG_T, int HI, int LO, int WLO, int KK,
+          int KK_B>
+__device__ __forceinline__ void top_levels(int (&v)[P][1 << max_fusion(P)],
+                                           int gb, int flip_top, int invert) {
+  constexpr int R = max_fusion(P);
+  constexpr int SB_HI = (HI < KK - 1 ? HI : KK - 1) - WLO;
+  constexpr int SB_LO = LO - WLO;
+  if constexpr (KK < LOG_T && KK - WLO < R) {
+    if (invert) {
+      level_fixed<NCMP, P, R, KK - WLO, 1>(v, SB_HI, SB_LO);
+    } else {
+      level_fixed<NCMP, P, R, KK - WLO, 0>(v, SB_HI, SB_LO);
+    }
+  } else if constexpr (KK < LOG_T && KK - R < 5) {
+    level_lanes<NCMP, P, R, SB_HI, SB_LO>(v, ((gb >> KK) & 1) == invert);
+  } else {
+    const int flip = KK >= LOG_T ? flip_top : invert ^ ((gb >> KK) & 1);
+    if (flip) {
+      level_fixed<NCMP, P, R, R, 1>(v, SB_HI, SB_LO);
+    } else {
+      level_fixed<NCMP, P, R, R, 0>(v, SB_HI, SB_LO);
+    }
+  }
+  if constexpr (KK < KK_B) {
+    top_levels<NCMP, P, LOG_T, HI, LO, WLO, KK + 1, KK_B>(v, gb, flip_top,
+                                                          invert);
+  }
+}
+
+// Phases PH.. of a compile-time plan over the tile of block blockIdx.x:
+// phase 0 loads the tile's rows from device memory through `map`, the last
+// stores them through it (in place), the phases between go through the
+// swizzled shared memory s, one __syncthreads() after each.  flip_top: the
+// direction of a level at or above the tile (bit kk of the tile's span-
+// masked base, XOR invert).
+template <int NCMP, int P, int LOG_T, int KK, int LO_BIT, int PH,
+          typename Map>
+__device__ __forceinline__ void top_pass(const Planes& x, int* s,
+                                         const Map& map, int flip_top,
+                                         int invert, bool vec) {
+  constexpr int R = max_fusion(P);
+  constexpr int W = 1 << R;
+  constexpr int T = 1 << LOG_T;
+  using F = TopPhase<P, LOG_T, KK, LO_BIT, PH>;
+  static_assert(F::kCode != 0, "a phase of the plan");
+  for (int g = threadIdx.x; g < (T >> R); g += blockDim.x) {
+    const int gb =
+        ((g >> F::kWlo) << (F::kWlo + R)) | (g & ((1 << F::kWlo) - 1));
+    int v[P][W];
+    int at[W];
+    if constexpr (PH == 0) {
+      rows_from_global<P, W>(v, x, map, gb, F::kWlo, T, vec);
+    } else {
+      shared_places<R>(at, gb, F::kWlo);
+      rows_from_shared<P, R>(v, s, at, T);
+    }
+    top_levels<NCMP, P, LOG_T, F::kHi, F::kLo, F::kWlo, F::kKkA, F::kKkB>(
+        v, gb, flip_top, invert);
+    if constexpr (F::kLast) {
+      rows_to_global<P, W>(x, map, v, gb, F::kWlo, T, vec);
+    } else {
+      if constexpr (PH == 0 || !kKeepPlaces<P>) {
+        shared_places<R>(at, gb, F::kWlo);
+      }
+      rows_to_shared<P, R>(s, v, at, T);
+    }
+  }
+  if constexpr (!F::kLast) {
+    __syncthreads();
+    top_pass<NCMP, P, LOG_T, KK, LO_BIT, PH + 1>(x, s, map, flip_top, invert,
+                                                 vec);
+  }
+}
+
 // chunk_sort — replaces radx_tpu/kernels/bitonic.py::_chunk_sort_kernel.
-// Bound on the card: shared-memory round trips, then device memory.  A
-// chunk of C rows costs one read and one write of device memory but
-// log2(C)(log2(C)+1)/2 substages (105 at C = 2^14).  Design: one block per
-// chunk on the register tile engine above: stages 1..R in registers at
-// load time, then ceil(kk / R) phases for stage kk, one shared-memory
-// round trip between two phases (28 at C = 2^14, R = 4; 105 substage round
-// trips before).  The direction index is the global flat index (chunks
-// alternate direction, as the cross-chunk merge expects); `ascending` uses
-// the index within the chunk, so every chunk sorts ascending on its own.
-// The tile holds every plane, so the host shrinks the chunk as P grows.
-template <int NCMP, int P>
+// Bound on the card: 32-bit integer operations (105 substages at C = 2^14:
+// 1.69 ms of min / max at 2^28 keys against 0.64 ms of device memory),
+// then the instructions of its shared-memory round trips.  Design: one
+// block per chunk on the register tile engine above: stages 1..R in
+// registers at load time, then ceil(kk / R) phases for stage kk, one
+// shared-memory round trip between two phases (28 at C = 2^14, R = 4; 105
+// substage round trips before).  The direction index is the global flat
+// index (chunks alternate direction, as the cross-chunk merge expects);
+// `ascending` uses the index within the chunk, so every chunk sorts
+// ascending on its own.  The tile holds every plane, so the host shrinks
+// the chunk as P grows.
+//
+// LOG_T = 0 reads the plan (any chunk) as tile_pass does; LOG_T = the
+// mode's chunk tile runs it on the plan laid out at compile time
+// (top_pass), where no level's direction branch splits a warp.
+template <int NCMP, int P, int LOG_T>
 __global__ void __launch_bounds__(kTileThreads, 1)
     chunk_sort_kernel(Planes x, int log_c, int invert, int ascending,
                       TilePlan plan, int vec) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) << log_c;
-  tile_pass<NCMP, P>(x, x, Contiguous{base}, Contiguous{base}, log_c, plan,
-                     ascending ? 0 : base, invert, vec != 0);
+  const int64_t dbase = ascending ? 0 : base;
+  if constexpr (LOG_T == 0) {
+    tile_pass<NCMP, P>(x, x, Contiguous{base}, Contiguous{base}, log_c, plan,
+                       dbase, invert, vec != 0);
+  } else {
+    extern __shared__ int top_smem[];
+    top_pass<NCMP, P, LOG_T, 0, 0, 0>(
+        x, top_smem, Contiguous{base},
+        invert ^ static_cast<int>((dbase >> LOG_T) & 1), invert, vec != 0);
+  }
 }
 
 // chunk_sort_cyclic — replaces radx_tpu/kernels/bitonic.py::
@@ -577,76 +818,11 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 // of a low level (kk < log_t: min(log_t, kk) distances).
 //
 // LOG_T = 0 reads the plan (any tile, any level) as tile_pass does.  Every
-// finish pass of a sort's merge levels is a level at or above the tile of
-// the mode's finish tile; LOG_T = that tile runs it on its plan at compile
-// time (top_pass: no plan decoding, constant register windows and substage
-// ranges, one direction a tile), the same network bit for bit in fewer
-// instructions: the pass is bound by them more than by device memory (at
-// 2^28 keys a copy of the same bytes takes 0.71 ms, the pass cut to one
-// round trip 0.78, the run-time plan 0.97, the compile-time one 0.85;
-// tools/finish_bench.py, PERF.md).
-//
-// The TopPhase list of a level at or above the tile, as
-// kernels/bitonic.py::tile_plan(log_t, kk, kk, R) makes it: phase PH runs
-// tile bits kHi..kLo in registers kWlo..kWlo+R-1.
-template <int LOG_T, int R, int PH>
-struct TopPhase {
-  static constexpr int kHi = LOG_T - 1 - PH * R;
-  static constexpr int kLo = kHi - R + 1 > 0 ? kHi - R + 1 : 0;
-  static constexpr int kWlo = kLo < LOG_T - R ? kLo : LOG_T - R;
-  static constexpr bool kLast = kLo == 0;
-};
-
-// The finish tile of each mode (config.py, kernels/bitonic.py top_tile):
-// the tile whose levels at or above it have a compile-time plan.
-__host__ __device__ constexpr int top_log_t(int np) {
-  return np == 1 ? 14 : np <= 3 ? 13 : np <= 6 ? 12 : 11;
-}
-
-// Phases PH.. of the tile pass of block blockIdx.x at a level at or above
-// the tile: phase 0 loads the tile's rows from device memory, the last
-// stores them, the phases between go through the swizzled shared memory s,
-// one __syncthreads() after each.  flip: bit kk of the tile's (span-
-// masked) base, XOR invert, the direction of every pair of the tile.
-template <int NCMP, int P, int LOG_T, int PH>
-__device__ __forceinline__ void top_pass(const Planes& x, int* s,
-                                         const Contiguous& tile, int flip,
-                                         bool vec) {
-  constexpr int R = max_fusion(P);
-  constexpr int W = 1 << R;
-  constexpr int T = 1 << LOG_T;
-  using F = TopPhase<LOG_T, R, PH>;
-  for (int g = threadIdx.x; g < (T >> R); g += blockDim.x) {
-    const int gb =
-        ((g >> F::kWlo) << (F::kWlo + R)) | (g & ((1 << F::kWlo) - 1));
-    int v[P][W];
-    int at[W];
-    if constexpr (PH == 0) {
-      rows_from_global<P, W>(v, x, tile, gb, F::kWlo, T, vec);
-    } else {
-      shared_places<R>(at, gb, F::kWlo);
-      rows_from_shared<P, R>(v, s, at, T);
-    }
-    if (flip) {
-      level_fixed<NCMP, P, R, R, 1>(v, F::kHi - F::kWlo, F::kLo - F::kWlo);
-    } else {
-      level_fixed<NCMP, P, R, R, 0>(v, F::kHi - F::kWlo, F::kLo - F::kWlo);
-    }
-    if constexpr (F::kLast) {
-      rows_to_global<P, W>(x, tile, v, gb, F::kWlo, T, vec);
-    } else {
-      if constexpr (PH == 0 || !kKeepPlaces<P>) {
-        shared_places<R>(at, gb, F::kWlo);
-      }
-      rows_to_shared<P, R>(s, v, at, T);
-    }
-  }
-  if constexpr (!F::kLast) {
-    __syncthreads();
-    top_pass<NCMP, P, LOG_T, PH + 1>(x, s, tile, flip, vec);
-  }
-}
-
+// finish pass of a sort's merge levels is a level at or above the mode's
+// finish tile; LOG_T = that tile runs it on its plan laid out at compile
+// time (top_pass, one direction a tile): at 2^28 keys a copy of the same
+// bytes takes 0.71 ms, the pass cut to one round trip 0.78, the run-time
+// plan 0.97, the compile-time one 0.85 (tools/finish_bench.py, PERF.md).
 template <int NCMP, int P, int LOG_T>
 __global__ void __launch_bounds__(kTileThreads, 1)
     finish_kernel(Planes x, int log_t, int invert, int64_t dmask,
@@ -660,8 +836,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     const int64_t base = static_cast<int64_t>(blockIdx.x) << LOG_T;
     const int kk = decode_phase(plan.code[0]).kk_a;
     const int flip = invert ^ static_cast<int>(((base & dmask) >> kk) & 1);
-    top_pass<NCMP, P, LOG_T, 0>(x, top_smem, Contiguous{base}, flip,
-                                vec != 0);
+    top_pass<NCMP, P, LOG_T, LOG_T, 0, 0>(x, top_smem, Contiguous{base}, flip,
+                                          invert, vec != 0);
   }
 }
 
@@ -691,20 +867,39 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 // (span-masked) base, as in finish.  The last phase stores through the
 // same map, in place.  At f <= R the register pass is faster (3-8% a pass
 // out of cache, 30% in L2; PERF.md), so it keeps those passes.
+//
+// F > R: the strided tile pass of F distances on the plan laid out at
+// compile time (top_pass), keys only (cross_top).  Every sort path's wide
+// pass runs over the mode's cross tile (j_low is at least the finish tile,
+// at least the cross tile), so its plan depends only on (P, F): segments
+// of 2^(log2 of the cross tile - F) rows, bits log_l+F-1 .. log_l, one
+// direction a tile (5-10% faster than F = 0 at 2^28 keys, PERF.md).  F = 0
+// keeps any other geometry and the other modes on the plan read at run
+// time.
 template <int F, int NCMP, int P>
 __global__ void __launch_bounds__(kTileThreads, 1)
     cross_stage_kernel(Planes x, int64_t n, int64_t rows, int j_low, int kk,
                        int f, int log_l, int invert, int64_t dmask,
                        TilePlan plan, int vec) {
-  if constexpr (F == 0) {
+  if constexpr (F == 0 || F > max_fusion(P)) {
+    constexpr int kLogL = F == 0 ? 0 : cross_log_t(P) - F;
+    const int seg = F == 0 ? log_l : kLogL;
+    const int pass = F == 0 ? f : F;
     const int64_t b = blockIdx.x;
-    const int low = j_low - log_l;  // base bits between segment and j_low
+    const int low = j_low - seg;  // base bits between segment and j_low
     const int64_t base =
-        ((b >> low) << (j_low + f)) |
-        ((b & ((static_cast<int64_t>(1) << low) - 1)) << log_l);
-    const Strided map{base, log_l, j_low};
-    tile_pass<NCMP, P>(x, x, map, map, log_l + f, plan, base & dmask, invert,
-                       vec != 0);
+        ((b >> low) << (j_low + pass)) |
+        ((b & ((static_cast<int64_t>(1) << low) - 1)) << seg);
+    const Strided map{base, seg, j_low};
+    if constexpr (F == 0) {
+      tile_pass<NCMP, P>(x, x, map, map, log_l + f, plan, base & dmask,
+                         invert, vec != 0);
+    } else {
+      extern __shared__ int top_smem[];
+      const int flip = invert ^ static_cast<int>(((base & dmask) >> kk) & 1);
+      top_pass<NCMP, P, cross_log_t(P), cross_log_t(P), kLogL, 0>(
+          x, top_smem, map, flip, invert, vec != 0);
+    }
   } else {
     const int64_t t =
         static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -812,47 +1007,53 @@ cudaError_t launch_tile(Kernel kernel, const Planes& in, const Planes& out,
   return cudaGetLastError();
 }
 
-template <int NCMP, int P>
-cudaError_t chunk_sort(const Planes& x, int64_t n, int log_c, int invert,
-                       int ascending, const int* codes, int64_t phases,
-                       cudaStream_t stream) {
-  TilePlan plan;
-  if (!make_plan<max_fusion(P)>(codes, phases, log_c, &plan)) {
-    return cudaErrorInvalidValue;
-  }
-  return launch_tile<P>(chunk_sort_kernel<NCMP, P>, x, x, n, log_c, plan,
-                        stream, x, log_c, invert, ascending);
-}
-
-// Is the plan that of a level at or above the mode's finish tile
-// (TopPhase)?
+// Is the plan the one a kernel lays out at compile time (top_code) for a
+// tile of 2^log_t rows: a chunk sort (kk = 0) or level kk >= log_t, down to
+// bit lo_bit?
 template <int P>
-bool top_plan(const TilePlan& plan, int log_t) {
+bool is_top_plan(const TilePlan& plan, int log_t, int kk, int lo_bit) {
   constexpr int R = max_fusion(P);
-  constexpr int kLogT = top_log_t(P);
-  if (log_t != kLogT || plan.n != (kLogT + R - 1) / R) return false;
-  const int kk = decode_phase(plan.code[0]).kk_a;
+  if ((kk != 0 && kk < log_t) || plan.n != top_phases(log_t, kk, R, lo_bit)) {
+    return false;
+  }
   for (int i = 0; i < plan.n; ++i) {
-    const Phase f = decode_phase(plan.code[i]);
-    const int hi = kLogT - 1 - i * R;
-    const int lo = std::max(hi - R + 1, 0);
-    if (f.kk_a != kk || f.kk_b != kk || kk < kLogT || f.hi != hi ||
-        f.lo != lo || f.wlo != std::min(lo, kLogT - R)) {
-      return false;
-    }
+    if (plan.code[i] != top_code(log_t, kk, R, lo_bit, i)) return false;
   }
   return true;
 }
 
-// top: run the plan at compile time (kernels/bitonic.py::finish_top; the
-// plan must be that of a level at or above the mode's finish tile).
+// In chunk_sort, cross and finish, `top` runs the plan on the kernel that
+// lays it out at compile time (kernels/bitonic.py::compile_time_plan picks
+// it); the plan must be that layout at the mode's tile, else the launch is
+// refused.
+
+template <int NCMP, int P>
+cudaError_t chunk_sort(const Planes& x, int64_t n, int log_c, int invert,
+                       int ascending, const int* codes, int64_t phases,
+                       int top, cudaStream_t stream) {
+  constexpr int kLogT = top_log_t(P);
+  TilePlan plan;
+  if (!make_plan<max_fusion(P)>(codes, phases, log_c, &plan) ||
+      (top && (log_c != kLogT || !is_top_plan<P>(plan, kLogT, 0, 0)))) {
+    return cudaErrorInvalidValue;
+  }
+  if (top) {
+    return launch_tile<P>(chunk_sort_kernel<NCMP, P, kLogT>, x, x, n, log_c,
+                          plan, stream, x, log_c, invert, ascending);
+  }
+  return launch_tile<P>(chunk_sort_kernel<NCMP, P, 0>, x, x, n, log_c, plan,
+                        stream, x, log_c, invert, ascending);
+}
+
 template <int NCMP, int P>
 cudaError_t finish(const Planes& x, int64_t n, int log_t, int invert,
                    int64_t dmask, const int* codes, int64_t phases, int top,
                    cudaStream_t stream) {
   TilePlan plan;
   if (!make_plan<max_fusion(P)>(codes, phases, log_t, &plan) ||
-      (top && !top_plan<P>(plan, log_t))) {
+      (top && (log_t != top_log_t(P) ||
+               !is_top_plan<P>(plan, log_t, decode_phase(plan.code[0]).kk_a,
+                               0)))) {
     return cudaErrorInvalidValue;
   }
   if (top) {
@@ -894,13 +1095,31 @@ cudaError_t slot_merge(const Planes& in, const Planes& out, int64_t n,
                         (static_cast<int64_t>(1) << log_c) - 1);
 }
 
+// The strided tile pass of F distances on its compile-time plan; only F in
+// R < F <= cross_fusion(P) of a mode with cross_top has a kernel.
+template <int F, int NCMP, int P>
+cudaError_t launch_cross_top(const Planes& x, int64_t n, int j_low, int kk,
+                             int invert, int64_t dmask, const TilePlan& plan,
+                             cudaStream_t stream) {
+  if constexpr (!cross_top(P) || F <= max_fusion(P) || F > cross_fusion(P)) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr int kLogT = cross_log_t(P);
+    return launch_tile<P>(cross_stage_kernel<F, NCMP, P>, x, x, n, kLogT,
+                          plan, stream, x, n, n, j_low, kk, F, kLogT - F,
+                          invert, dmask);
+  }
+}
+
 // A pass of f distances from 2^j_low: the register pass for f <= R, else
 // the strided tile pass over tiles of 2^f segments of 2^log_l rows, whose
-// plan runs exactly the tile's bits log_l+f-1 .. log_l.
+// plan runs exactly the tile's bits log_l+f-1 .. log_l (`top`: on its
+// compile-time plan, over the mode's cross tile).
 template <int NCMP, int P>
 cudaError_t cross(const Planes& x, int64_t n, int64_t rows, int j_low, int f,
                   int kk, int log_l, int invert, int64_t dmask,
-                  const int* codes, int64_t phases, cudaStream_t stream) {
+                  const int* codes, int64_t phases, int top,
+                  cudaStream_t stream) {
   if (f < 1 || j_low + f > kk || kk > 62 ||
       (n >> (j_low + f)) << (j_low + f) != n || n < 1 || rows > n ||
       (rows != n && (f != 1 || n != static_cast<int64_t>(2) << j_low ||
@@ -908,6 +1127,7 @@ cudaError_t cross(const Planes& x, int64_t n, int64_t rows, int j_low, int f,
     return cudaErrorInvalidValue;
   }
   if (f <= max_fusion(P)) {
+    if (top) return cudaErrorInvalidValue;
     switch (f) {
       case 1:
         return launch_cross<1, NCMP, P>(x, n, rows, j_low, kk, invert, dmask,
@@ -929,11 +1149,44 @@ cudaError_t cross(const Planes& x, int64_t n, int64_t rows, int j_low, int f,
       !make_plan<max_fusion(P)>(codes, phases, log_t, &plan) ||
       decode_phase(plan.code[0]).kk_a != kk ||
       decode_phase(plan.code[0]).hi != log_t - 1 ||
-      decode_phase(plan.code[plan.n - 1]).lo != log_l) {
+      decode_phase(plan.code[plan.n - 1]).lo != log_l ||
+      (top && (log_t != cross_log_t(P) ||
+               !is_top_plan<P>(plan, log_t, kk, log_l)))) {
     return cudaErrorInvalidValue;
   }
-  return launch_tile<P>(cross_stage_kernel<0, NCMP, P>, x, x, n, log_t, plan,
-                        stream, x, n, n, j_low, kk, f, log_l, invert, dmask);
+  if (!top) {
+    return launch_tile<P>(cross_stage_kernel<0, NCMP, P>, x, x, n, log_t,
+                          plan, stream, x, n, n, j_low, kk, f, log_l, invert,
+                          dmask);
+  }
+  switch (f) {
+    case 3:
+      return launch_cross_top<3, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                          plan, stream);
+    case 4:
+      return launch_cross_top<4, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                          plan, stream);
+    case 5:
+      return launch_cross_top<5, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                          plan, stream);
+    case 6:
+      return launch_cross_top<6, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                          plan, stream);
+    case 7:
+      return launch_cross_top<7, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                          plan, stream);
+    case 8:
+      return launch_cross_top<8, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                          plan, stream);
+    case 9:
+      return launch_cross_top<9, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                          plan, stream);
+    case 10:
+      return launch_cross_top<10, NCMP, P>(x, n, j_low, kk, invert, dmask,
+                                           plan, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The three launches as functors over the template instance (NCMP, P).
@@ -943,11 +1196,12 @@ struct ChunkSortLaunch {
   int log_c, invert, ascending;
   const int* plan;
   int64_t phases;
+  int top;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
     return chunk_sort<NCMP, P>(x, n, log_c, invert, ascending, plan, phases,
-                               stream);
+                               top, stream);
   }
 };
 
@@ -974,11 +1228,12 @@ struct CrossLaunch {
   int64_t dmask;
   const int* plan;
   int64_t phases;
+  int top;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
     return cross<NCMP, P>(x, n, rows, j_low, f, kk, log_l, invert, dmask,
-                          plan, phases, stream);
+                          plan, phases, top, stream);
   }
 };
 
@@ -1023,10 +1278,15 @@ extern "C" {
 // keys), and ncmp is 1 (np = 1 or 2) or 2 (np = 2..8).
 
 // `plan` points to `phases` packed phases of the tile pass
-// (kernels/bitonic.py::tile_plan for R = max_fusion(np)).
+// (kernels/bitonic.py::tile_plan for R = max_fusion(np)).  In
+// radx_chunk_sort, radx_finish and radx_cross_stage, `top` runs the plan
+// on its compile-time layout (kernels/bitonic.py::compile_time_plan): the
+// mode's chunk tile, a level at or above the mode's finish tile, a strided
+// pass over the mode's cross tile; any other plan is then refused.
 int radx_chunk_sort(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
                     int64_t log_c, int64_t invert, int64_t ascending,
-                    const int* plan, int64_t phases, void* stream) {
+                    const int* plan, int64_t phases, int64_t top,
+                    void* stream) {
   ChunkSortLaunch launch;
   if (!make_planes(planes, np, &launch.x)) return cudaErrorInvalidValue;
   launch.n = n;
@@ -1035,13 +1295,13 @@ int radx_chunk_sort(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
   launch.ascending = static_cast<int>(ascending);
   launch.plan = plan;
   launch.phases = phases;
+  launch.top = static_cast<int>(top != 0);
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }
 
 // log_span: directions from the index within blocks of 2^log_span keys; the
-// level is in the plan.  top: run it at compile time (a level at or above
-// the mode's finish tile; kernels/bitonic.py::finish_top).
+// level is in the plan.
 int radx_finish(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
                 int64_t log_t, int64_t invert, int64_t log_span,
                 const int* plan, int64_t phases, int64_t top, void* stream) {
@@ -1061,14 +1321,15 @@ int radx_finish(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
 // Distances 2^(j_low+f-1) .. 2^j_low of level kk.  Above R =
 // max_fusion(np) distances, over tiles of 2^f segments of 2^log_l rows by
 // the plan tile_plan(log_l + f, kk, kk, R, log_l); at most R, in registers
-// (log_l and the plan unused: null and 0).  rows: the planes hold the
+// (log_l and the plan unused: null and 0; top 0).  rows: the planes hold the
 // first `rows` rows of the n: n itself, or the valley merge's overhang (f =
 // 1, n = 2^(j_low+1), rows > n / 2: only the pairs with both rows present
 // are exchanged).
 int radx_cross_stage(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
                      int64_t rows, int64_t j_low, int64_t f, int64_t kk,
                      int64_t log_l, int64_t invert, int64_t log_span,
-                     const int* plan, int64_t phases, void* stream) {
+                     const int* plan, int64_t phases, int64_t top,
+                     void* stream) {
   CrossLaunch launch;
   if (!make_planes(planes, np, &launch.x)) return cudaErrorInvalidValue;
   launch.n = n;
@@ -1081,6 +1342,7 @@ int radx_cross_stage(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
   launch.dmask = span_mask(log_span);
   launch.plan = plan;
   launch.phases = phases;
+  launch.top = static_cast<int>(top != 0);
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }

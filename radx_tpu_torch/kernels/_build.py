@@ -39,12 +39,13 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
-    # planes, np, ncmp, n, log_c, invert, ascending, plan, phases, stream
-    "radx_chunk_sort": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+    # planes, np, ncmp, n, log_c, invert, ascending, plan, phases, top,
+    # stream
+    "radx_chunk_sort": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P),
     # planes, np, ncmp, n, rows, j_low, f, kk, log_l, invert, log_span,
-    # plan, phases, stream
+    # plan, phases, top, stream
     "radx_cross_stage": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                         _I, _P),
+                         _I, _I, _P),
     # planes, np, ncmp, n, log_t, invert, log_span, plan, phases, top,
     # stream
     "radx_finish": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P),

@@ -34,8 +34,6 @@ Five kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
     segments of contiguous rows 2^j_low apart);
   * ``finish``      — every distance of a level below the finish tile T,
     inside each tile of T rows (``_finishw_kernel``), on the same engine;
-    a level at or above the mode's finish tile on its plan laid out at
-    compile time (``finish_top``);
   * ``chunk_sort_cyclic`` — the radix sort's phase 1: stages 1..log2(tile)
     of an ascending sort of every radix chunk, whose 1024-row tiles are
     taken block-cyclically (``_chunk_sort_cyclic_kernel``), on the same
@@ -45,6 +43,11 @@ Five kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
     the same engine, the odd slots read backwards by the first load (an
     empty plan, a copy through that load, when the slot is at least the
     tile).
+
+``chunk_sort``, ``finish`` and the strided cross pass run on a plan laid
+out at compile time (``top_plan``) where ``compile_time_plan`` says so: the
+mode's chunk tile, a finish level at or above the mode's finish tile, a
+keys-only strided pass over the cross tile.
 
 ``_overhang`` is the valley merge's top half-cleaner
 (``merge_valley_ascending``): one ``cross_stage<1>`` launch over the rows
@@ -63,7 +66,8 @@ another (out of place).  On a CUDA tensor a wrapper launches its kernel on
 the current stream, without synchronising, and raises if the launch fails;
 on a CPU tensor it runs the kernel's plain PyTorch version, which computes
 the same network one compare-exchange substage at a time.  ``LAUNCHES``
-counts kernel launches by name and ``PLAIN_CALLS`` counts calls of the
+counts kernel launches by name (``TOP_LAUNCHES`` those of them on a
+compile-time plan) and ``PLAIN_CALLS`` counts calls of the
 plain versions (``_cx_directed``, the overhang's on the CPU, among them).
 """
 
@@ -146,13 +150,15 @@ MODES = ((1, 1), (1, 2), *((2, p) for p in LEX_PLANES))
 RADIX_KERNELS = tuple(k for m in MODES for k in radix_kernels(*m))
 KERNELS = KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS + RADIX_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# the launches of LAUNCHES that ran a compile-time plan (compile_time_plan)
+TOP_LAUNCHES = dict.fromkeys(KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(("chunk_sort_ref", "cross_stage_ref", "finish_ref",
                              "chunk_sort_cyclic_ref", "slot_merge_ref",
                              "_cx_directed"), 0)
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, TOP_LAUNCHES, PLAIN_CALLS):
         for name in counts:
             counts[name] = 0
 
@@ -356,13 +362,17 @@ def _ptrs(planes):
     return (ctypes.c_void_p * len(planes))(*[p.data_ptr() for p in planes])
 
 
-def _launch(name, fn_name, planes, ncmp, *args, n=None):
+def _launch(name, fn_name, planes, ncmp, *args, n=None, top=False):
     """Launch over the planes' rows (``n``: the virtual array of the
-    overhang pass)."""
+    overhang pass); ``top``: the compile-time plan's flag, the entry
+    point's last argument, counted in TOP_LAUNCHES when set."""
     x = planes[0]
-    _build.launch(LAUNCHES, name + _suffix(ncmp, len(planes)), fn_name,
-                  x.device, _ptrs(planes), len(planes), ncmp,
-                  x.numel() if n is None else n, *args)
+    name += _suffix(ncmp, len(planes))
+    _build.launch(LAUNCHES, name, fn_name, x.device, _ptrs(planes),
+                  len(planes), ncmp, x.numel() if n is None else n, *args,
+                  int(top))
+    if top:
+        TOP_LAUNCHES[name] += 1
 
 
 # --- the phase plan of the register tile engine -----------------------------
@@ -438,19 +448,28 @@ def _plan_arg(log_t, kk_first, kk_last, r, lo_bit=0):
     return (ctypes.c_int32 * len(codes))(*codes), len(codes)
 
 
+def _launch_chunk(planes, ncmp, chunk, invert, ascending, top):
+    """One chunk_sort launch on the compile-time plan (``top``) or the
+    run-time one."""
+    log_c = _log2(chunk)
+    _launch("chunk_sort", "radx_chunk_sort", planes, ncmp, log_c, int(invert),
+            int(ascending),
+            *_plan_arg(log_c, 1, log_c, max_fusion(len(planes))), top=top)
+
+
 def chunk_sort(x, chunk, invert=False, ascending=False, rider=None, lex=None):
     """Bitonic stages 1..log2(chunk) inside every chunk of ``chunk`` rows, in
     place.  Directions follow the global index, so chunks alternate;
-    ``ascending`` takes the index within the chunk."""
+    ``ascending`` takes the index within the chunk; the plan at compile
+    time where ``compile_time_plan`` says so."""
     log_c = _log2(chunk)
     planes, ncmp = _planes(x, rider, lex)
     _log2(x.numel())  # the network's directions span the whole array
     if not _on_cuda(planes, chunk, tile=True):
         return _plain(planes, chunk_sort_ref(
             x, chunk, invert=invert, ascending=ascending, rider=rider, lex=lex))
-    _launch("chunk_sort", "radx_chunk_sort", planes, ncmp, log_c, int(invert),
-            int(ascending), *_plan_arg(log_c, 1, log_c,
-                                       max_fusion(len(planes))))
+    _launch_chunk(planes, ncmp, chunk, invert, ascending,
+                  compile_time_plan("chunk_sort", len(planes), log_c, log_c))
     return x
 
 
@@ -461,11 +480,24 @@ def cross_segment(planes, j_low, f):
     return min(j_low, _log2(cross_tile(planes)) - f)
 
 
+def _launch_cross(planes, ncmp, j_low, f, kk, invert, log_span, top):
+    """One cross pass launch; a strided pass (f > max_fusion(P)) on the
+    compile-time plan (``top``) or the run-time one."""
+    p = len(planes)
+    r = max_fusion(p)
+    log_l = cross_segment(p, j_low, f)
+    plan = (None, 0) if f <= r else _plan_arg(log_l + f, kk, kk, r, log_l)
+    _launch(f"cross_stage<{f}>", "radx_cross_stage", planes, ncmp,
+            planes[0].numel(), j_low, f, kk, log_l, int(invert), log_span,
+            *plan, top=top)
+
+
 def cross_stage(x, j_low, f, kk, invert=False, rider=None, lex=None,
                 span=None):
     """Compare-exchange at the f consecutive distances 2^(j_low+f-1) ..
     2^j_low of level kk in one pass, in place; directions from the index
-    within blocks of ``span`` rows (default: the whole array)."""
+    within blocks of ``span`` rows (default: the whole array); a strided
+    pass on its compile-time plan where ``compile_time_plan`` says so."""
     planes, ncmp = _planes(x, rider, lex)
     log_span = _log_span(x, span)
     p = len(planes)
@@ -476,45 +508,70 @@ def cross_stage(x, j_low, f, kk, invert=False, rider=None, lex=None,
     if not _on_cuda(planes, 1 << (j_low + f)):
         return _plain(planes, cross_stage_ref(x, j_low, f, kk, invert, rider,
                                                lex, span))
-    r = max_fusion(p)
     log_l = cross_segment(p, j_low, f)
-    plan = (None, 0) if f <= r else _plan_arg(log_l + f, kk, kk, r, log_l)
-    _launch(f"cross_stage<{f}>", "radx_cross_stage", planes, ncmp,
-            x.numel(), j_low, f, kk, log_l, int(invert), log_span, *plan)
+    _launch_cross(planes, ncmp, j_low, f, kk, invert, log_span,
+                  compile_time_plan("cross_stage", p, log_l + f, kk, log_l))
     return x
 
 
-# --- finish's compile-time plan (csrc/bitonic.cu finish_kernel, LOG_T > 0) --
+# --- the compile-time plans (csrc/bitonic.cu top_code, top_pass) -------------
+
+# Plane counts whose kernel takes its compile-time plan where it applies:
+# the modes where it measured faster than the run-time plan, in turns on
+# one card (tools/finish_bench.py, PERF.md §6).  The strided cross pass at
+# two planes and more measured within 2% of its run-time plan either way,
+# so those modes have no compile-time kernel (csrc/bitonic.cu cross_top).
+TOP_MODES = {"chunk_sort": frozenset(range(1, MAX_PLANES + 1)),
+             "cross_stage": frozenset({1}),
+             "finish": frozenset(range(1, MAX_PLANES + 1))}
 
 
 def top_tile(planes):
-    """The finish tile whose levels at or above it the kernel runs on a
-    plan known at compile time (csrc/bitonic.cu top_log_t): the default
-    ``SortConfig`` finish tile of the plane count (keys, then (key, rider)
-    and lex2 alike, then lex3..lex8)."""
+    """The chunk and finish tile whose plans the kernels lay out at compile
+    time (csrc/bitonic.cu top_log_t): the default ``SortConfig`` tiles of
+    the plane count (keys, then (key, rider) and lex2 alike, then
+    lex3..lex8), which are one tile in every mode."""
     return SortConfig().mode_tiles(planes, 1 if planes <= 2 else 2)[1]
 
 
-def top_plan(log_t, r):
-    """The plan of a level at or above a tile of 2^log_t rows as the kernel
-    lays it out at compile time (csrc/bitonic.cu TopPhase): (hi, lo, wlo)
-    of each phase, the bits of ``tile_plan(log_t, kk, kk, r)`` for every kk
-    >= log_t."""
-    phases, hi = [], log_t - 1
-    while hi >= 0:
-        lo = max(hi - r + 1, 0)
-        phases.append((hi, lo, min(lo, log_t - r)))
-        hi = lo - 1
-    return tuple(phases)
+def top_plan(log_t, kk, r, lo_bit=0):
+    """The phases of a plan as the kernels lay it out at compile time
+    (csrc/bitonic.cu top_code), in ``tile_plan``'s form: for kk >= log_t a
+    level at or above a tile of 2^log_t rows, bits log_t-1 .. lo_bit in
+    phases of r, highest first (``tile_plan(log_t, kk, kk, r, lo_bit)``);
+    for kk = 0 a chunk sort (``tile_plan(log_t, 1, log_t, r)``): levels
+    1..r at bits r-1..0 in one phase, then each level k > r at bits k-1 ..
+    0 in ceil(k / r) phases.  A phase's window starts at its lowest bit,
+    clamped into the tile."""
+    def phase(k, hi, floor):
+        lo = max(hi - r + 1, floor)
+        return (k, k, hi, lo, min(lo, log_t - r))
+
+    if kk > 0:
+        return tuple(phase(kk, hi, lo_bit)
+                     for hi in range(log_t - 1, lo_bit - 1, -r))
+    return ((1, r, r - 1, 0, 0),
+            *(phase(k, hi, 0) for k in range(r + 1, log_t + 1)
+              for hi in range(k - 1, -1, -r)))
 
 
-def finish_top(planes, tile, kk):
-    """The rule that picks finish's kernel: its compile-time plan for a
-    level at or above the mode's finish tile (every finish pass of a
-    sort's merge levels above the chunk), faster than the run-time plan in
-    every mode measured (PERF.md); the run-time plan for any other tile or
-    a level below the tile."""
-    return tile == top_tile(planes) and kk >= _log2(tile)
+def compile_time_plan(kernel, planes, log_t, kk, lo_bit=0):
+    """The one rule that picks a tile-engine kernel's compile-time plan
+    (``kernel``: "chunk_sort", "cross_stage" or "finish") for a tile pass
+    over 2^log_t rows at levels up to kk, down to bit ``lo_bit``: where the
+    pass is the one the kernel lays out, in a mode of ``TOP_MODES``.  That is
+    a chunk sort of the mode's chunk tile (kk = log_t), a finish pass at a
+    level kk >= log_t of the mode's finish tile (every finish pass of a
+    sort's merge levels above the chunk), and a strided cross pass (more
+    than max_fusion(P) distances, lowest bit ``lo_bit``) over the mode's
+    cross tile (every sort path's wide pass); the run-time plan anywhere
+    else (other tiles, a level below the tile, other segments)."""
+    if planes not in TOP_MODES[kernel] or kk < log_t:
+        return False
+    if kernel == "cross_stage":
+        return (1 << log_t == cross_tile(planes)
+                and log_t - lo_bit > max_fusion(planes))
+    return 1 << log_t == top_tile(planes)
 
 
 def _launch_finish(planes, ncmp, tile, kk, invert, log_span, top):
@@ -523,13 +580,13 @@ def _launch_finish(planes, ncmp, tile, kk, invert, log_span, top):
     log_t = _log2(tile)
     _launch("finish", "radx_finish", planes, ncmp, log_t, int(invert),
             log_span, *_plan_arg(log_t, kk, kk, max_fusion(len(planes))),
-            int(top))
+            top=top)
 
 
 def finish(x, tile, kk, invert=False, rider=None, lex=None, span=None):
     """Every distance of level kk below ``tile``, inside each tile, in place;
     directions from the index within blocks of ``span`` rows; the plan at
-    compile time where ``finish_top`` says so."""
+    compile time where ``compile_time_plan`` says so."""
     log_t = _log2(tile)
     planes, ncmp = _planes(x, rider, lex)
     log_span = _log_span(x, span)
@@ -539,7 +596,7 @@ def finish(x, tile, kk, invert=False, rider=None, lex=None, span=None):
         return _plain(planes, finish_ref(x, tile, kk, invert, rider, lex,
                                           span))
     _launch_finish(planes, ncmp, tile, kk, invert, log_span,
-                   finish_top(len(planes), tile, kk))
+                   compile_time_plan("finish", len(planes), log_t, kk))
     return x
 
 

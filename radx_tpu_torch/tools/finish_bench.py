@@ -1,41 +1,60 @@
-"""finish (K3) on one card: the pass at the top merge level beside its bound
-and the library call, in the modes and sizes of the paths.
+"""The tile engine's kernels on one card: ``finish`` (K3), ``chunk_sort``
+(K1) and K2's strided tile pass, each on the plan read at run time and on
+the plan laid out at compile time, in turns, beside its bound and the
+library call, in the modes and sizes of the paths.
 
-    python -m radx_tpu_torch.tools.finish_bench [--tag NAME]
+    python -m radx_tpu_torch.tools.finish_bench [--tag NAME] [--probe]
+        [--sass] [--kernels finish,chunk_sort,cross_stage]
     PYTHONPATH=<checkout> python <this file> --tag parent   # another checkout
 
-Keys at 2^23, 2^26 and 2^28 rows, rider at 2^26, lex2 at 2^28, lex3 at
-2^26 and lex4..lex8 at 2^24, each on the mode's finish tile, on tiles
-whose keys are bitonic (an ascending half, a descending half), where the
-pass sorts every tile:
+Cases (least ms of 5 repeats of 10 calls by CUDA events, in turns: the
+rule's pass, the run-time plan, the compile-time plan, then the three
+again):
 
-  * ``finish``: the pass the wrapper's rule picks;
-  * where the checkout has both of the kernel's plans (``finish_top``),
-    each forced: ``runtime_plan`` (the plan read at run time) and
-    ``compile_time_plan``, in turns with ``finish`` (the three, then the
-    three again);
-  * ``first_last``: the pass cut to its first and last phases (one
-    shared-memory round trip instead of ceil(log2 T / R) - 1): what the
-    round trips cost;
-  * ``copy``: ``copy_`` of every plane, the card's practical rate for the
-    same bytes;
-  * ``bound_ms``: each plane read once and written once at 3.35 TB/s;
-  * ``library_ms``: ``torch.sort`` of the (n / T, T) view, which computes
-    the same function on these inputs (keys only; none for the riders).
+  * ``finish``: keys at 2^23, 2^26 and 2^28 rows, rider at 2^26, lex2 at
+    2^28, lex3 at 2^26 and lex4..lex8 at 2^24, each on the mode's finish
+    tile at the top level, on tiles whose keys are bitonic (an ascending
+    half, a descending half), where the pass sorts every tile; beside it
+    ``first_last`` (the pass cut to its first and last phases: what the
+    round trips cost) and ``copy`` (``copy_`` of every plane, the card's
+    practical rate for the same bytes);
+  * ``chunk_sort``: the same modes and sizes on the mode's chunk tile, on
+    random keys with ties (a unique index plane in lex mode);
+  * ``cross_stage``: every strided pass (f > max_fusion(P)) at the
+    paths' geometry (the lowest distance at the finish tile, the level
+    just above the pass): keys F = 5..10 and lex2 F = 5..9 at 2^28, rider
+    F = 5..9 and lex3 F = 5..8 at 2^26, lex4..lex8 at 2^24.
 
-Least ms of 5 repeats of 10 calls by CUDA events.  It reads only
-``finish``, ``tile_plan``, ``max_fusion`` and the launch path of
-``radx_tpu_torch.kernels.bitonic``, so it times any checkout: run this
-file by its path with ``PYTHONPATH=<checkout>`` to time that checkout in
-the same call.  One JSON line a case, then the nvidia-smi line.  Needs a
-card.
+Each row has ``bound_ms``, the larger of each plane read and written once
+at 3.35 TB/s and the pass's 32-bit integer operations (a min and a max a
+pair with one plane; a compare and two selects a plane with more) at
+``int_ops_per_s``, with ``bound_by``; ``library_ms``:
+``torch.sort`` of the tile view (keys only; none for the riders).
+
+``--probe`` first times ``tools/int_rate.cu`` (its min / max
+instructions counted in the compiled code) and prints the card's 32-bit integer
+min / max rate beside SMs x 64 x the maximum SM clock.  ``--sass`` prints
+the opcode counts of every ``chunk_sort_kernel`` instance of the built
+library (``cuobjdump -sass``) beside what the compile-time plan predicts:
+the substages whose direction is a lane bit run once, without a branch.
+
+It reads only the wrappers, ``tile_plan``, ``max_fusion`` and the launch
+path of ``radx_tpu_torch.kernels.bitonic``, so it times any checkout: run
+this file by its path with ``PYTHONPATH=<checkout>`` to time that checkout
+in the same call (a checkout without a compile-time plan of a kernel
+prints its rule's pass only).  One JSON line a case, then the nvidia-smi
+line.  Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
+import pathlib
+import re
+import subprocess
 
 import torch
 
@@ -45,14 +64,46 @@ from radx_tpu_torch.kernels import bitonic as B
 from radx_tpu_torch.utils import timing
 
 HBM_BYTES_PER_S = 3.35e12
-CASES = (("keys", 23), ("keys", 26), ("keys", 28), ("rider", 26),
+# 32-bit integer min / max (and compare, select) a clock an SM at compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instructions);
+# --probe measures it on the card
+INT_OPS_PER_CLOCK_SM = 64
+SIZES = (("keys", 23), ("keys", 26), ("keys", 28), ("rider", 26),
          ("lex2", 28), ("lex3", 26), *((f"lex{p}", 24) for p in range(4, 9)))
+CROSS_SIZES = {"keys": 28, "rider": 26, "lex2": 28, "lex3": 26,
+               **{f"lex{p}": 24 for p in range(4, 9)}}
 MODES = {"keys": (1, 1), "rider": (1, 2),
          **{f"lex{p}": (2, p) for p in range(2, 9)}}
+KERNELS = ("finish", "chunk_sort", "cross_stage")
+
+
+def int_ops_per_s(device=0):
+    """32-bit integer operations a second of a card: its SMs x
+    INT_OPS_PER_CLOCK_SM x its maximum SM clock (nvidia-smi clocks.max.sm):
+    the rate of the compare-exchange kernels' operations bound."""
+    proc = subprocess.run(
+        ["nvidia-smi", f"--id={device}", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * INT_OPS_PER_CLOCK_SM * float(proc.stdout.split()[0]) * 1e6
 
 
 def _ms(fn):
     return timing.time_cuda(fn, iters=10, repeats=5).seconds * 1e3
+
+
+def _ops(n, substages, planes):
+    """32-bit operations of ``substages`` compare-exchange substages over n
+    rows (chip_smoke.py ``_cx_ops``)."""
+    return n // 2 * substages * (2 if planes == 1 else 1 + 2 * planes)
+
+
+def _bound(n, planes, substages, ops_per_s):
+    by_bytes = 8 * planes * n / HBM_BYTES_PER_S * 1e3
+    by_ops = _ops(n, substages, planes) / ops_per_s * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
 
 
 def _bitonic_tiles(n, tile, planes, gen):
@@ -68,6 +119,39 @@ def _bitonic_tiles(n, tile, planes, gen):
     return [halves.view(-1), *rest]
 
 
+def _random_planes(n, planes, gen):
+    """Keys with ties, then a unique plane (lex: the index plane; rider:
+    a rider), then random riders."""
+    x = torch.randint(0, 1 << 20, (n,), dtype=torch.int32, generator=gen,
+                      device="cuda")
+    rest = [torch.randperm(n, generator=gen, device="cuda").to(torch.int32)
+            for _ in range(planes - 1)]
+    return [x, *rest]
+
+
+def _designs(kernel, planes, log_t, kk, lo_bit=0):
+    """The plans the checkout can force for this pass of ``kernel`` ({}
+    where it has the run-time plan only: a mode without a compile-time
+    kernel, ``finish`` before its compile-time plan, the other two before
+    theirs)."""
+    if hasattr(B, "compile_time_plan"):
+        both = B.compile_time_plan(kernel, planes, log_t, kk, lo_bit)
+    else:
+        both = kernel == "finish" and hasattr(B, "_launch_finish")
+    return {"runtime_plan": False, "compile_time_plan": True} if both else {}
+
+
+def _launch_forced(kernel, planes, ncmp, args, top):
+    if kernel == "chunk_sort":
+        B._launch_chunk(planes, ncmp, *args, False, False, top)
+    elif kernel == "cross_stage":
+        B._launch_cross(planes, ncmp, *args, False,
+                        planes[0].numel().bit_length() - 1, top)
+    else:
+        B._launch_finish(planes, ncmp, *args, False,
+                         planes[0].numel().bit_length() - 1, top)
+
+
 def _launch_plan(planes, ncmp, tile, phases):
     """One finish launch of the given phases (a cut plan) on the run-time
     plan's kernel."""
@@ -76,50 +160,189 @@ def _launch_plan(planes, ncmp, tile, phases):
     codes = [a | b << 6 | hi << 12 | lo << 16 | w << 20
              for a, b, hi, lo, w in phases]
     arg = (ctypes.c_int32 * len(codes))(*codes)
-    extra = (0,) if hasattr(B, "finish_top") else ()
     _build.launch(B.LAUNCHES, "finish" + B._suffix(ncmp, len(planes)),
                   "radx_finish", x.device, B._ptrs(planes), len(planes), ncmp,
                   x.numel(), log_t, 0, x.numel().bit_length() - 1, arg,
-                  len(codes), *extra)
+                  len(codes), 0)
 
 
-def case(mode, log_n, tag, gen):
+def case(kernel, mode, log_n, tag, gen, ops_per_s, f=None):
     ncmp, p = MODES[mode]
     n = 1 << log_n
-    tile = SortConfig().mode_tiles(p, ncmp)[1]
-    planes = _bitonic_tiles(n, tile, p, gen)
+    chunk, fin = SortConfig().mode_tiles(p, ncmp)
+    r = B.max_fusion(p)
+    lf = fin.bit_length() - 1
+    if kernel == "finish":
+        planes = _bitonic_tiles(n, fin, p, gen)
+        args, subs, lib_view = (fin, log_n), lf, fin
+        designs = _designs(kernel, p, lf, log_n)
+    elif kernel == "chunk_sort":
+        planes = _random_planes(n, p, gen)
+        lc = chunk.bit_length() - 1
+        args, subs, lib_view = (chunk,), lc * (lc + 1) // 2, chunk
+        designs = _designs(kernel, p, lc, lc)
+    else:
+        planes = _random_planes(n, p, gen)
+        args, subs, lib_view = (lf, f, lf + f), f, None
+        lct = B.cross_tile(p).bit_length() - 1
+        designs = _designs(kernel, p, lct, lf + f, lct - f)
     k, rider, lex = B._keywords(planes, ncmp)
-    row = {"tag": tag, "mode": mode, "n": n, "tile": tile,
-           "bound_ms": 8 * p * n / HBM_BYTES_PER_S * 1e3}
-    designs = ({"runtime_plan": False, "compile_time_plan": True}
-               if hasattr(B, "finish_top") else {})
+    bound_ms, bound_by = _bound(n, p, subs, ops_per_s)
+    row = {"tag": tag, "kernel": kernel, "mode": mode, "n": n,
+           **({"f": f, "round_trips": -(-f // r) - 1} if f else
+              {"tile": args[0]}),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    rule = {"finish": lambda: B.finish(k, *args, rider=rider, lex=lex),
+            "chunk_sort": lambda: B.chunk_sort(k, *args, rider=rider,
+                                               lex=lex),
+            "cross_stage": lambda: B.cross_stage(k, *args, rider=rider,
+                                                 lex=lex)}[kernel]
     for _ in range(2):
-        row.setdefault("finish", []).append(
-            _ms(lambda: B.finish(k, tile, log_n, rider=rider, lex=lex)))
+        row.setdefault("rule", []).append(_ms(rule))
         for name, top in designs.items():
-            row.setdefault(name, []).append(_ms(lambda: B._launch_finish(
-                planes, ncmp, tile, log_n, False, log_n, top)))
-    plan = B.tile_plan(tile.bit_length() - 1, log_n, log_n, B.max_fusion(p))
-    row["phases"] = len(plan)
-    row["first_last"] = _ms(lambda: _launch_plan(
-        planes, ncmp, tile, (plan[0], plan[-1])))
-    outs = [torch.empty_like(q) for q in planes]
-    row["copy"] = _ms(lambda: [o.copy_(q) for o, q in zip(outs, planes)])
-    row["library_ms"] = (_ms(lambda: torch.sort(k.view(-1, tile), dim=1))
-                         if p == 1 else None)
+            row.setdefault(name, []).append(_ms(
+                lambda: _launch_forced(kernel, planes, ncmp, args, top)))
+    if kernel == "finish":
+        plan = B.tile_plan(lf, log_n, log_n, r)
+        row["phases"] = len(plan)
+        row["first_last"] = _ms(lambda: _launch_plan(
+            planes, ncmp, fin, (plan[0], plan[-1])))
+        outs = [torch.empty_like(q) for q in planes]
+        row["copy"] = _ms(lambda: [o.copy_(q) for o, q in zip(outs, planes)])
+    if p == 1:
+        view = (k.view(-1, lib_view) if lib_view else
+                k.view(-1, 1 << f, 1 << args[0]))
+        row["library_ms"] = _ms(lambda: torch.sort(view, dim=1))
+    else:
+        row["library_ms"] = None
     print(json.dumps(row), flush=True)
+
+
+def _sass(so):
+    """{function name: Counter of opcodes} of the library's SASS."""
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                          capture_output=True, text=True, check=True)
+    funcs, name = {}, None
+    for ln in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            funcs[name] = collections.Counter()
+        elif name:
+            m = re.search(
+                r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+            if m:
+                op = m.group(2).split(".")[0]
+                funcs[name][op] += 1
+                if m.group(1) and op == "BRA":
+                    funcs[name]["BRA_conditional"] += 1
+    return funcs
+
+
+def _plan_rules(p, log_t):
+    """Substages of the mode's compile-time chunk plan by the rule of their
+    level's direction (top_levels): tile, register, warp (a branch one
+    for a warp), lanes (no branch)."""
+    r = B.max_fusion(p)
+    counts = collections.Counter()
+    for ph in B.top_plan(log_t, 0, r):
+        kk_a, kk_b, hi, lo, wlo = ph
+        for kk in range(kk_a, kk_b + 1):
+            how = ("tile" if kk >= log_t else "register" if kk - wlo < r
+                   else "warp" if kk - r >= 5 else "lanes")
+            counts[how] += min(hi, kk - 1) - lo + 1
+    return dict(counts)
+
+
+def sass_report():
+    so = _build.build()
+    for name, ops in sorted(_sass(so).items()):
+        m = re.search(r"chunk_sort_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if not m:
+            continue
+        ncmp, p, log_t = map(int, m.groups())
+        keep = ("IMNMX", "VIMNMX", "ISETP", "SEL", "LOP3", "BRA",
+                "BRA_conditional", "BSSY", "BSYNC", "WARPSYNC", "LDS", "STS",
+                "BAR")
+        print(json.dumps({
+            "sass": f"chunk_sort{B._suffix(ncmp, p)}",
+            "compile_time_plan": log_t > 0,
+            "instructions": sum(v for k, v in ops.items()
+                                if k != "BRA_conditional"),
+            **{k: ops.get(k, 0) for k in keep},
+            **({"plan_substages_by_rule": _plan_rules(p, log_t)}
+               if log_t else {})}), flush=True)
+
+
+def run_probe(ops_per_s):
+    """The card's 32-bit integer min / max rate: tools/int_rate.cu built
+    here, its IMNMX instructions counted in the compiled code, times the
+    loop's iterations and the threads, over the time of a launch."""
+    src = pathlib.Path(__file__).with_name("int_rate.cu")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / "int_rate_probe.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(so), str(src)], capture_output=True, text=True,
+                   check=True)
+    (ops,) = _sass(so).values()
+    per_iter = ops.get("IMNMX", 0) + ops.get("VIMNMX", 0)  # all in the loop
+    lib = ctypes.CDLL(str(so))
+    lib.int_minmax_launch.argtypes = (ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p)
+    lib.int_minmax_launch.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, iters = sms * 8, 256, 1 << 14
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+
+    def launch():
+        code = lib.int_minmax_launch(
+            out.data_ptr(), 12345, iters, blocks,
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"int_minmax launch failed: {code}")
+
+    seconds = timing.time_cuda(launch, iters=3, repeats=5).seconds
+    clocks = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    measured = per_iter * iters * blocks * threads / seconds
+    return {"probe": "int32 min/max", "imnmx_per_iteration": per_iter,
+            "sass_opcodes": dict(ops), "ms": seconds * 1e3,
+            "measured_ops_per_s": measured, "assumed_ops_per_s": ops_per_s,
+            "measured_over_assumed": measured / ops_per_s,
+            "per_clock_sm_at_max_clock":
+                measured / ops_per_s * INT_OPS_PER_CLOCK_SM,
+            "sms": sms, "clocks_sm_after": clocks.strip()}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tag", default="this checkout")
+    ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
     args = ap.parse_args(argv)
     timing.require_cuda()
     _build.load()
+    ops_per_s = int_ops_per_s()
+    if args.probe:
+        print(json.dumps(run_probe(ops_per_s)), flush=True)
+    if args.sass:
+        sass_report()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for mode, log_n in CASES:
-        case(mode, log_n, args.tag, gen)
-        torch.cuda.empty_cache()
+    for kernel in args.kernels.split(","):
+        if kernel == "cross_stage":
+            todo = [(mode, CROSS_SIZES[mode], f) for mode, (_, p) in
+                    MODES.items()
+                    for f in range(B.max_fusion(p) + 1,
+                                   B.cross_fusion(p) + 1)]
+        else:
+            todo = [(mode, log_n, None) for mode, log_n in SIZES]
+        for mode, log_n, f in todo:
+            case(kernel, mode, log_n, args.tag, gen, ops_per_s, f)
+            torch.cuda.empty_cache()
     print(timing.nvidia_smi(), flush=True)
     return 0
 

@@ -4,7 +4,7 @@ CPU, without JAX.
 
 Every finish pass of a sort's merge levels is a level at or above the
 mode's finish tile; the kernel runs those on a plan laid out at compile
-time (``kernels/bitonic.py::top_plan``, the kernel's TopPhase) with one
+time (``kernels/bitonic.py::top_plan``, the kernel's top_code) with one
 direction for the whole tile.  Over keys, rider and lex2..lex8 at tiles of
 2^11..2^14 rows: that plan must be ``tile_plan``'s for every such level
 (the kernel refuses any other), its first phase must read every row of
@@ -61,9 +61,10 @@ def _planes(rng, ncmp, p, n):
 def test_top_plan_is_the_plan_of_every_level_above_the_tile(mode, log_t):
     _, p = MODES[mode]
     r = tb.max_fusion(p)
-    top = tb.top_plan(log_t, r)
+    top = tuple(ph[2:] for ph in tb.top_plan(log_t, log_t, r))
     for kk in (log_t, log_t + 1, log_t + 9, 40):
         plan = tb.tile_plan(log_t, kk, kk, r)
+        assert plan == tb.top_plan(log_t, kk, r)
         assert tuple(ph[2:] for ph in plan) == top
         assert all(ph[:2] == (kk, kk) for ph in plan)
     # below the tile the plan is another (the run-time kernel takes it)
@@ -77,7 +78,7 @@ def test_every_row_is_read_once_and_written_once(mode, log_t):
     _, p = MODES[mode]
     r = tb.max_fusion(p)
     t = 1 << log_t
-    phases = [(log_t + 1, log_t + 1, *ph) for ph in tb.top_plan(log_t, r)]
+    phases = tb.top_plan(log_t, log_t + 1, r)
     for i, ph in enumerate(phases):
         rows = tb.phase_rows(ph, log_t, r).reshape(-1)
         # each phase holds every row of the tile once, in registers
@@ -120,7 +121,7 @@ def _top_network(planes, ncmp, log_t, r, kk, invert, span):
     if span is not None:
         base &= span - 1
     up = ((((base >> kk) & 1) ^ int(invert)) == 0)[:, None, None, None]
-    for hi, lo, wlo in tb.top_plan(log_t, r):
+    for _, _, hi, lo, wlo in tb.top_plan(log_t, kk, r):
         rows = tb.phase_rows((kk, kk, hi, lo, wlo), log_t, r)
         v = [x[:, rows] for x in views]
         for sb in range(hi - wlo, lo - wlo - 1, -1):
@@ -164,10 +165,11 @@ def test_rule_takes_the_compile_time_plan_above_the_mode_tile():
         tile = cfg.mode_tiles(p, ncmp)[1]
         assert tb.top_tile(p) == tile, mode
         lt = tile.bit_length() - 1
-        assert tb.finish_top(p, tile, lt) and tb.finish_top(p, tile, 40)
-        assert not tb.finish_top(p, tile, lt - 1)  # below the tile
-        assert not tb.finish_top(p, tile // 2, lt + 3)  # another tile
-        assert not tb.finish_top(p, tile * 2, lt + 3)
+        rule = tb.compile_time_plan
+        assert rule("finish", p, lt, lt) and rule("finish", p, lt, 40)
+        assert not rule("finish", p, lt, lt - 1)  # below the tile
+        assert not rule("finish", p, lt - 1, lt + 3)  # another tile
+        assert not rule("finish", p, lt + 1, lt + 3)
 
 
 def _overhang_launch(planes, ncmp, descending, threads=256):
