@@ -27,8 +27,10 @@ Phases, one line each (any failure raises and exits nonzero):
      a span pass, every strided pass of the mode's cap over its cross tile,
      tied lex planes), and
      on the same engine ``chunk_sort_cyclic`` / ``slot_merge`` in every
-     mode (radix chunks of one and of several tiles, slots below, at and
-     above the tile, planes not 16-byte aligned), the single-pass
+     mode, each on both of its plans wherever the compile-time plan
+     applies (radix chunks of one and of several tiles and the radix
+     geometries' C = 2^19, slots below, at and above the tile and of 1024
+     and 4096, planes not 16-byte aligned), the single-pass
      ``compact`` and ``segscan`` (``single_pass_checks``: bool and int32
      masks, 0-4 planes (0: the count), densities 0, 0.5 and 1, offset
      planes, every op x value dtype and fill with 1-4 planes on 5000 / 7 /
@@ -58,7 +60,9 @@ Phases, one line each (any failure raises and exits nonzero):
      and read just after it, and every kernel the path runs must show >= 1
      launch, with 0 plain-version calls (the sort windows of slices 1-3
      also >= 1 launch of chunk_sort, finish and each strided pass on its
-     compile-time plan: ``compile_time_plan_launches``):
+     compile-time plan: ``compile_time_plan_launches``; the radix windows
+     of ``chunk_sort_cyclic`` and, where no bucket overflows,
+     ``slot_merge`` on theirs: ``radix_top``):
        a. ``sort`` / ``sort_any`` (slice 1), bit-equal to ``torch.sort``;
        b. the sort-based config-3 query at 2^28 rows and the other group-by
           / unique inputs (slice 2), against plain torch references;
@@ -152,9 +156,12 @@ Phases, one line each (any failure raises and exits nonzero):
      tiles, each first held equal to ``torch.sort`` of its view; ``finish``
      at 2^28 keys and 2^28 lex2, and its two plans in turns at 2^26 and
      2^28 keys and 2^28 lex2; ``chunk_sort``'s two plans in turns at 2^23,
-     2^26 and 2^28 keys, rider 2^26, lex2 2^28 and lex3 2^26, and the
+     2^26 and 2^28 keys, rider 2^26, lex2 2^28 and lex3 2^26, the
      strided cross pass's at F = 5..10 for 2^28 keys and F = 5..9 for 2^28
-     lex2 (``in_turns``: ``... in turns`` context lines); the valley
+     lex2, and ``chunk_sort_cyclic``'s and ``slot_merge``'s at the radix
+     cells' shapes, keys and lex2 at 2^28 (slots of 1024) and rider at
+     2^26 (slots of 4096) (``in_turns``: ``... in turns`` context lines);
+     the valley
      merge's overhang (the
      row-limited ``cross_stage<1>``) at q3's and the join's shapes held
      bit-equal to its plain version ``_cx_directed``, ascending and
@@ -215,8 +222,11 @@ def _ptxas_name(kernel, args):
         top = "/top" if a[0] > B.max_fusion(a[2]) else ""  # compile-time
         return (f"cross_stage<{a[0] or 'strided'}>"
                 + _suffix(a[1], a[2]) + top)
-    if kernel in ("chunk_sort", "finish") and a[2]:  # compile-time plan
+    if kernel in ("chunk_sort", "finish", "chunk_sort_cyclic") and a[2:3] \
+            and a[2]:  # compile-time plan
         return f"{kernel}{_suffix(a[0], a[1])}/top"
+    if kernel == "slot_merge" and a[2]:  # compile-time plan of one slot
+        return f"slot_merge{_suffix(a[0], a[1])}/top<slot {1 << a[3]}>"
     if kernel in ("chunk_sort", "finish", "chunk_sort_cyclic", "slot_merge",
                   "radix_pack", "radix_concat"):
         return kernel + _suffix(a[0], a[1])
@@ -356,6 +366,19 @@ def radix_required(ncmp, planes):
             "chunk_sort")
 
 
+def radix_top(ncmp, planes, merge=True):
+    """The radix tile passes that a radix sort of one mode runs on their
+    compile-time plans (``bitonic.TOP_MODES``): K4, and K5 where no bucket
+    overflows (``merge``); every slot of the paths' geometries has a K5
+    instance."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    names = zip(B.radix_kernels(ncmp, planes),
+                ("chunk_sort_cyclic", "slot_merge"))
+    return tuple(k for k, kernel in names if planes in B.TOP_MODES[kernel]
+                 and (merge or kernel == "chunk_sort_cyclic"))
+
+
 def radix_overflows(ncmp, planes):
     """(radix sorts, overflowed ones) of the last window: every sort ranks
     its splitters once and packs only when no slot overflowed."""
@@ -392,10 +415,21 @@ def _mode_planes(dev, mode, n, gen):
 
 def forced(kernel, top):
     """``bitonic.<kernel>`` ("chunk_sort", "cross_stage" or "finish", with
-    that wrapper's positional arguments after the keys) with its plan
-    forced: the compile-time plan (``top``) or the run-time plan, whatever
-    the rule (``compile_time_plan``) would pick."""
+    that wrapper's positional arguments after the keys; "chunk_sort_cyclic"
+    or "slot_merge", with that wrapper's arguments) with its plan forced:
+    the compile-time plan (``top``) or the run-time plan, whatever the rule
+    (``compile_time_plan``) would pick."""
     from radx_tpu_torch.kernels import bitonic as B
+
+    if kernel in ("chunk_sort_cyclic", "slot_merge"):
+        launch = (B._launch_cyclic if kernel == "chunk_sort_cyclic"
+                  else B._launch_slot)
+
+        def run_io(src, dst, ncmp, *args):
+            launch(src, dst, ncmp, *args, top)
+            return dst
+
+        return run_io
 
     def run(x, *args, invert=False, ascending=False, rider=None, lex=None,
             span=None):
@@ -413,13 +447,14 @@ def forced(kernel, top):
     return run
 
 
-def plans(kernel, planes, log_t, kk, lo_bit=0):
+def plans(kernel, planes, log_t, kk, lo_bit=0, **kw):
     """The plans a tile pass of ``kernel`` can take: the run-time plan, and
-    the compile-time plan where it applies (``compile_time_plan``)."""
+    the compile-time plan where it applies (``compile_time_plan``; a slot
+    merge's ``log_s`` in ``kw``)."""
     from radx_tpu_torch.kernels import bitonic as B
 
     return ((False, True) if B.compile_time_plan(kernel, planes, log_t, kk,
-                                                 lo_bit) else (False,))
+                                                 lo_bit, **kw) else (False,))
 
 
 
@@ -438,14 +473,15 @@ def tile_engine_checks(dev, cfg):
     finish at kk below, at and above log2(tile) and as a span pass (2^19);
     every strided pass of the mode's cap over its cross tile (the lowest
     distance just above the segment) at the level just above the pass and
-    at the top level, inverted, and as a span pass; each of chunk_sort,
-    the strided pass and finish on both of its plans wherever the
-    compile-time plan applies (``forced``); K4 with radix chunks of one
-    tile (or 1024 rows) and of 2^17 rows (several tiles); K5 in chunks of
-    2^17 rows with slots a quarter and half of the tile (one level), the
-    tile and twice it (the empty plan: a copy), and the radix geometries'
-    slots of 1024 and 4096 at the paths' tiles; K4 and K5 again on planes
-    offset by one row (not 16-byte aligned: no int4 rows).  Keys in [0,
+    at the top level, inverted, and as a span pass; each of the five on
+    both of its plans wherever the compile-time plan applies (``forced``);
+    K4 with radix chunks of one tile (or 1024 rows), of 2^17 rows (several
+    tiles) and of 2^19 (the radix geometries' C); K5 in chunks of 2^17 rows
+    with slots a quarter and half of the tile (one level), the tile and
+    twice it (the empty plan: a copy), and the radix geometries' slots of
+    1024 and 4096 at the paths' tiles, in chunks of 2^17 and of 2^19; K4
+    and K5 again on planes offset by one row (not 16-byte aligned: no int4
+    rows).  Keys in [0,
     16); in the lex modes plane 1 in [0, 4), so (plane 0, plane 1) ties
     too; random riders.  Every plane of every case bit-equal to the plain
     version; one line per kernel instance and plan."""
@@ -529,53 +565,94 @@ def _offset(planes):
 
 
 def _radix_tile_checks(planes, ncmp, cfg):
-    """K4 and K5 of one mode on ``planes`` (``tile_engine_checks``): every
-    case's output bit-equal to the plain version, one line per kernel."""
+    """K4 and K5 of one mode on ``planes`` (``tile_engine_checks``), each
+    case on both plans wherever the compile-time plan applies (``forced``),
+    at the radix geometries' C = 2^19 too (slots of 1024: 2^28 keys; 4096:
+    2^26): every case's output bit-equal to the plain version, one line per
+    kernel and plan."""
     from radx_tpu_torch.kernels import bitonic as B
 
-    n, p, big = planes[0].numel(), len(planes), 1 << 17
+    n, p, big, geo = planes[0].numel(), len(planes), 1 << 17, 1 << 19
     c, f = cfg.mode_tiles(p, ncmp)
     cyc, merge = B.radix_kernels(ncmp, p)
+    # (tile, chunk, offset) and (tile, slot, chunk, offset)
     k4 = [(tile, chunk, False) for tile in (2, 4, 8, 16, 32, c)
           for chunk in sorted({max(B.CYCLIC_TILE, tile), big})]
-    k4.append((c, big, True))
+    k4 += [(c, big, True), (c, geo, False)]
     k5 = []
     for tile in sorted({2, 4, 8, 16, 32, c, max(c, f)}):
         slots = {tile // 4, tile // 2, tile, 2 * tile}
         if tile >= c:  # the radix geometries' slots (2^28 and 2^26)
             slots |= {1024, 4096}
-        k5 += [(tile, slot, False) for slot in sorted(slots)
+        k5 += [(tile, slot, big, False) for slot in sorted(slots)
                if 1 <= slot < big]
     t = max(c, f)
-    k5 += [(t, t // 4, True), (t, 2 * t, True)]
+    k5 += [(t, t // 4, big, True), (t, 2 * t, big, True),
+           (t, 1024, geo, False), (t, 4096, geo, False)]
 
-    def run(name, todo, kernel, ref, trips):
-        worst = 0
-        for tile, arg, offset in todo:
+    def kernel_args(case):
+        """The wrapper's arguments after (src, dst, ncmp) of a K4 case
+        (tile, chunk) or a K5 case (tile, slot, chunk), offset dropped."""
+        return ((case[1], case[0]) if len(case) == 3
+                else (case[2], case[1], case[0]))
+
+    def run(name, todo, kernel, ref, trips, tops):
+        worst, count = {}, {}
+        for case in todo:
+            offset = case[-1]
             src = _offset(planes) if offset else planes
-            out = _offset(planes) if offset else [
-                torch.empty_like(q) for q in planes]
-            kernel(src, out, tile, arg)
-            want = ref(src, tile, arg)
-            torch.cuda.synchronize()
-            e = _max_err(out, want)
-            if e:
-                record([name], e, False, n=n, tile=tile, arg=arg,
-                       offset=offset)
-            worst = max(worst, e)
-        record([name], worst, worst == 0, n=n, cases=len(todo),
-               round_trips={f"{tile}/{arg}": trips(tile, arg)
-                            for tile, arg, _ in todo})
+            want = ref(src, *case[:-1])
+            for top in tops(*case[:-1]):
+                out = _offset(planes) if offset else [
+                    torch.empty_like(q) for q in planes]
+                forced(kernel, top)(src, out, ncmp, *kernel_args(case))
+                torch.cuda.synchronize()
+                e = _max_err(out, want)
+                if e:
+                    record([name], e, False, n=n, case=case[:-1],
+                           offset=offset, compile_time_plan=top)
+                worst[top] = max(worst.get(top, 0), e)
+                count[top] = count.get(top, 0) + 1
+                del out
+        for top, e in worst.items():
+            record([name], e, e == 0, n=n, compile_time_plan=top,
+                   cases=count[top],
+                   round_trips={"/".join(map(str, case[:-1])):
+                                trips(*case[:-1]) for case in todo})
 
     lg = lambda x: x.bit_length() - 1  # noqa: E731
-    run(cyc, k4,
-        lambda s, o, tile, chunk: B.chunk_sort_cyclic(s, o, ncmp, chunk, tile),
+    run(cyc, k4, "chunk_sort_cyclic",
         lambda s, tile, chunk: B.chunk_sort_cyclic_ref(s, ncmp, chunk, tile),
-        lambda tile, chunk: B.round_trips(lg(tile), 1, lg(tile), p))
-    run(merge, k5,
-        lambda s, o, tile, slot: B.slot_merge(s, o, ncmp, big, slot, tile),
-        lambda s, tile, slot: B.slot_merge_ref(s, ncmp, big, slot, tile),
-        lambda tile, slot: B.round_trips(lg(tile), lg(slot) + 1, lg(tile), p))
+        lambda tile, chunk: B.round_trips(lg(tile), 1, lg(tile), p),
+        lambda tile, chunk: plans("chunk_sort_cyclic", p, lg(tile), lg(tile)))
+    run(merge, k5, "slot_merge",
+        lambda s, tile, slot, chunk: B.slot_merge_ref(s, ncmp, chunk, slot,
+                                                      tile),
+        lambda tile, slot, chunk: B.round_trips(lg(tile), lg(slot) + 1,
+                                                lg(tile), p),
+        lambda tile, slot, chunk: plans("slot_merge", p, lg(tile), lg(tile),
+                                        log_s=lg(slot)))
+    # a launch on the compile-time plan of a pass that is not its layout
+    # (another tile, a slot below 2^10, a mode without the kernel) is
+    # refused, and the wrapper raises
+    out = [torch.empty_like(q) for q in planes]
+    bad = {"tile/2": lambda: forced("chunk_sort_cyclic", True)(
+               planes, out, ncmp, big, c // 2),
+           "slot 512": lambda: forced("slot_merge", True)(
+               planes, out, ncmp, big, 512, t)}
+    if p not in B.TOP_MODES["chunk_sort_cyclic"]:
+        bad["mode"] = lambda: forced("chunk_sort_cyclic", True)(
+            planes, out, ncmp, big, c)
+    refused = {}
+    for what, launch in bad.items():
+        try:
+            launch()
+            refused[what] = False
+        except RuntimeError:
+            refused[what] = True
+    _line("refused", kernels=[cyc, merge], **refused)
+    if not all(refused.values()):
+        _fail(f"{cyc} / {merge}: a compile-time launch of another plan ran")
 
 
 def radix_checks(dev):
@@ -746,7 +823,8 @@ def radix_path(dev):
     n26, n28 = RADIX_N, RADIX_N_BIG
     for n in (n26, n28):
         keys = u32(n)
-        with window(f"radix_sort_2e{n.bit_length() - 1}", radix_required(1, 1)):
+        with window(f"radix_sort_2e{n.bit_length() - 1}",
+                    radix_required(1, 1), radix_top(1, 1)):
             got = sort(keys, cfg)
         ok = torch.equal(_i32(got), _i32(bench.torch_sort_u32(keys)))
         flag_line(f"radix_sort_n{n}", "keys", equal_torch_sort=ok)
@@ -769,7 +847,8 @@ def radix_path(dev):
         required = (radix_required(1, 1) if name != "lowcard" else
                     ("radix_hist", "radix_rank", "chunk_sort_cyclic",
                      *B.KEY_KERNELS))
-        with window(f"radix_sort_{name}_2e26", required):
+        with window(f"radix_sort_{name}_2e26", required,
+                    radix_top(1, 1, merge=name != "lowcard")):
             got = sort(keys, cfg)
         ok = torch.equal(_i32(got), _i32(bench.torch_sort_u32(keys)))
         flag_line(f"radix_sort_{name}_n{n26}", "keys", equal_torch_sort=ok)
@@ -783,7 +862,7 @@ def radix_path(dev):
     # gather
     with window("radix_sort_pairs_stable_2e28",
                 (*radix_required(2, 2),
-                 *gather_routes("index", "partitioned"))):
+                 *gather_routes("index", "partitioned")), radix_top(2, 2)):
         got = sort_pairs(keys, payload, cfg)
     want = bench.torch_sort_pairs(keys, payload)
     ok = all(torch.equal(_i32(a), _i32(b)) for a, b in zip(got, want))
@@ -794,7 +873,8 @@ def radix_path(dev):
     torch.cuda.empty_cache()
 
     k26 = u32(n26, 0, 1 << 20)
-    with window("radix_argsort_2e26", radix_required(2, 2)):
+    with window("radix_argsort_2e26", radix_required(2, 2),
+                radix_top(2, 2)):
         got = argsort(k26, cfg)
     ok = torch.equal(got.long(), _biased_order(_i32(k26) ^ SIGN))
     flag_line(f"radix_argsort_n{n26}", "lex2", equal_reference=ok)
@@ -808,7 +888,8 @@ def radix_path(dev):
     if S._use_decomposition(n_g, cfg) or S._pad_len(n_g) != n26:
         _fail(f"n = {n_g} does not keep the power-of-two rider sort")
     keys, vals = bench.groupby_data(n_g)
-    with window("radix_groupby_sum_15x2e22", radix_required(1, 2)):
+    with window("radix_groupby_sum_15x2e22", radix_required(1, 2),
+                radix_top(1, 2)):
         res = groupby(keys, vals, "sum", cfg)
     g = bench._check_groups(*res, keys, vals)
     flag_line(f"radix_groupby_sum_n{n_g}", "rider", groups=g,
@@ -820,7 +901,8 @@ def radix_path(dev):
     if S._decompose_blocks(n_g, cfg.rider_chunk_elems)[1] != [4096, 2048]:
         _fail(f"n = {n_g} does not take the arbitrary-N rider sort")
     keys, vals = bench.groupby_data(n_g)
-    with window("radix_groupby_sum_arbn_3x2e24", radix_required(1, 2)):
+    with window("radix_groupby_sum_arbn_3x2e24", radix_required(1, 2),
+                radix_top(1, 2)):
         res = groupby(keys, vals, "sum", cfg)
     g = bench._check_groups(*res, keys, vals)
     flag_line(f"radix_groupby_sum_arbn_n{n_g}", "rider", groups=g,
@@ -832,7 +914,7 @@ def radix_path(dev):
     # the network's sort of 2^23 keys: levels of up to 9 cross distances
     with window("radix_sort_all_equal_2e23",
                 ("radix_hist", "radix_rank", "chunk_sort_cyclic",
-                 *B.mode_kernels(1, 1, 9))):
+                 *B.mode_kernels(1, 1, 9)), radix_top(1, 1, merge=False)):
         got = sort(same, cfg)
     ok = torch.equal(_i32(got), _i32(same))
     if flag_line(f"radix_sort_all_equal_n{RADIX_N_EQUAL}", "keys",
@@ -2739,19 +2821,25 @@ def main():
     # -- 5. timings ------------------------------------------------------------
     rows = {}
 
-    def in_turns(kernel, planes, ncmp, args, ops, lib=None, top=True):
-        """A tile-engine kernel (chunk_sort, a strided cross pass, finish)
-        on the run-time plan (the kernel before its compile-time plan) and
-        on the compile-time plan, in turns (old, new, new, old), each beside
-        the bound and the library call; with ``top`` false (a mode whose
-        compile-time plan lost and has no kernel) the run-time plan twice."""
+    def in_turns(kernel, planes, ncmp, args, ops, lib=None, top=True,
+                 **extra):
+        """A tile-engine kernel (chunk_sort, a strided cross pass, finish;
+        chunk_sort_cyclic / slot_merge, ``args`` their wrapper's after the
+        planes and ncmp, the output planes first) on the run-time plan (the
+        kernel before its compile-time plan) and on the compile-time plan,
+        in turns (old, new, new, old), each beside the bound and the library
+        call; with ``top`` false (a mode whose compile-time plan lost and
+        has no kernel) the run-time plan twice."""
         n = planes[0].numel()
         bound_ms, bound_by = bound(8 * len(planes) * n, ops)
         k, rd, lx = B._keywords(planes, ncmp)
+        io = kernel in ("chunk_sort_cyclic", "slot_merge")
         ms = {}
         for top in (False, True, True, False) if top else (False, False):
+            run = forced(kernel, top)
             t = timing.time_cuda(
-                lambda: forced(kernel, top)(k, *args, rider=rd, lex=lx),
+                (lambda: run(planes, args[0], ncmp, *args[1:])) if io else
+                (lambda: run(k, *args, rider=rd, lex=lx)),
                 iters=10, repeats=5)
             ms.setdefault("compile_time_plan" if top else "runtime_plan",
                           []).append(t.seconds * 1e3)
@@ -2759,9 +2847,11 @@ def main():
                   timing.time_cuda(lib, iters=10, repeats=5).seconds * 1e3)
         name = (f"cross_stage<{args[1]}>" if kernel == "cross_stage"
                 else kernel)
+        size = (f"n=2^{n.bit_length() - 1}" if n & (n - 1) == 0
+                else f"rows={n}")
         _line("context", what=f"{name}{_suffix(ncmp, len(planes))} in "
-              f"turns, n=2^{n.bit_length() - 1}", **ms, bound_ms=bound_ms,
-              bound_by=bound_by, library_ms=lib_ms, **card)
+              f"turns, {size}", **ms, bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=lib_ms, **extra, **card)
 
     def chunk_ops(n, chunk, planes):
         lc = chunk.bit_length() - 1
@@ -3234,6 +3324,7 @@ def main():
 
     # the radix kernels at the radix geometry of 2^26 keys, on the inputs
     # the sort's own stages give them
+    log_n = n26.bit_length() - 1
     rcfg = SortConfig(strategy="radix")
     rp = RS.plan(n26, RS.pick_chunk(n26, rcfg.chunk_elems))
     hx = torch.randint(-(2**31), 2**31, (n26,), dtype=i32, generator=gen,
@@ -3317,6 +3408,40 @@ def main():
                                        n26, ncmp),
                   8 * np_ * n26 + 16 * b.src.numel())
         del planes, out, sorted_, merged, cout, args, b, src
+        torch.cuda.empty_cache()
+    # K4 and K5 at the radix cells' shapes on both plans, in turns: keys and
+    # lex2 at 2^28 (C = 2^19, slots of 1024), rider at 2^26 (slots of
+    # 4096); K5 over the packed slots (nb_pad x C rows) of random keys (a
+    # compare-exchange network's work does not depend on them)
+    for mode, log_r in (("keys", 28), ("lex2", 28), ("rider", 26)):
+        ncmp, np_ = MODES[mode]
+        nr = 1 << log_r
+        geo = RS.plan(nr, RS.pick_chunk(nr, rcfg.chunk_elems))
+        c, f = rcfg.mode_tiles(np_, ncmp)
+        t = min(max(f, c), geo.C)
+        lc, lt, ls = (c.bit_length() - 1, t.bit_length() - 1,
+                      geo.slot.bit_length() - 1)
+        planes = _mode_planes(dev, mode, nr, gen_r)
+        out = [torch.empty_like(q) for q in planes]
+        in_turns("chunk_sort_cyclic", planes, ncmp, (out, geo.C, c),
+                 chunk_ops(nr, c, np_),
+                 tile_sort(planes[0], c) if np_ == 1 else None,
+                 top=B.compile_time_plan("chunk_sort_cyclic", np_, lc, lc),
+                 C=geo.C, tile=c, round_trips=B.round_trips(lc, 1, lc, np_))
+        del planes, out
+        slot_rows = geo.nb_pad * geo.C
+        packed = [torch.randint(-(2**31), 2**31, (slot_rows,), dtype=i32,
+                                generator=gen_r, device=dev)
+                  for _ in range(np_)]
+        mout = [torch.empty_like(q) for q in packed]
+        in_turns("slot_merge", packed, ncmp, (mout, geo.C, geo.slot, t),
+                 _cx_ops(slot_rows, sum(range(ls + 1, lt + 1)), np_),
+                 tile_sort(packed[0], t) if np_ == 1 else None,
+                 top=B.compile_time_plan("slot_merge", np_, lt, lt,
+                                         log_s=ls),
+                 n_keys=nr, C=geo.C, slot=geo.slot, tile=t,
+                 round_trips=B.round_trips(lt, ls + 1, lt, np_))
+        del packed, mout
         torch.cuda.empty_cache()
 
     _line("elapsed", seconds=time.perf_counter() - t_start)

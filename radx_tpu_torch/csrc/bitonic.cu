@@ -44,7 +44,10 @@
 //
 // Two more kernels carry the radix distribution sort (kernels/radix_sort.py),
 // on the same register tile engine.  Each reads its tile out of place
-// through a row -> address map and writes it contiguously to other planes:
+// through a row -> address map and writes it contiguously to other planes;
+// at the mode's tile (keys, rider, lex2: radix_top) each runs its plan laid
+// out at compile time too, chunk_sort_cyclic the chunk sort's, slot_merge
+// the levels above the slot for every slot of 2^10 up to half the tile:
 //
 //   chunk_sort_cyclic <- _chunk_sort_cyclic_kernel (:217).  Stages
 //                  1..log2(T) of an ascending sort of every radix chunk,
@@ -483,16 +486,18 @@ __device__ __forceinline__ void tile_pass(const Planes& in, const Planes& out,
 
 // ---------------------------------------------------------------------------
 // Plans laid out at compile time.  A tile pass at its mode's own tile runs a
-// plan that depends only on the plane count: a chunk sort of the mode's
-// chunk tile, a finish pass at a level at or above the mode's finish tile,
-// a strided cross pass of f > R distances over the mode's cross tile.
-// top_pass unrolls such a plan: no plan decoding, constant register windows
-// and substage ranges, and each level's direction rule chosen at compile
-// time (top_levels).  The network is the same bit for bit, in fewer
-// instructions: the tile passes are bound by those instructions more than
-// by device memory (tools/finish_bench.py, PERF.md).  The host entry points
-// take these kernels only for a plan equal to the layout (is_top_plan);
-// the run-time kernels (tile_pass) keep every other plan.
+// plan that depends only on the plane count (and a slot merge's slot): a
+// chunk sort of the mode's chunk tile (chunk_sort, chunk_sort_cyclic), the
+// levels above a slot (slot_merge), a finish pass at a level at or above
+// the mode's finish tile, a strided cross pass of f > R distances over the
+// mode's cross tile.  top_pass unrolls such a plan: no plan decoding,
+// constant register windows and substage ranges, and each level's
+// direction rule chosen at compile time (top_levels).  The network is the
+// same bit for bit, in fewer instructions: the tile passes are bound by
+// those instructions more than by device memory (tools/finish_bench.py,
+// PERF.md).  The host entry points take these kernels only for a plan
+// equal to the layout (is_top_plan); the run-time kernels (tile_pass) keep
+// every other plan.
 // ---------------------------------------------------------------------------
 
 __host__ __device__ constexpr int plan_code(int kk_a, int kk_b, int hi,
@@ -503,26 +508,32 @@ __host__ __device__ constexpr int plan_code(int kk_a, int kk_b, int hi,
 // Phase ph of a compile-time plan, packed as the host packs tile_plan's
 // phases, or 0 past the last phase (kernels/bitonic.py::top_plan mirrors
 // it and holds it equal to tile_plan):
-//   kk > 0, a level at or above the tile: tile_plan(log_t, kk, kk, r,
+//   kk >= log_t, a level at or above the tile: tile_plan(log_t, kk, kk, r,
 //     lo_bit), bits log_t-1 .. lo_bit in phases of r, highest first;
-//   kk = 0, a chunk sort: tile_plan(log_t, 1, log_t, r), levels 1..r at
-//     bits r-1..0 in one phase, then each level k > r at bits k-1 .. 0 in
-//     ceil(k / r) phases.
+//   kk < log_t, the levels max(kk, 1) .. log_t of a chunk sort (kk = 0: the
+//     whole sort; a slot merge: kk = log_s + 1): tile_plan(log_t, max(kk,
+//     1), log_t, r), levels up to r at bits r-1..0 in one phase, then each
+//     level k > r at bits k-1 .. 0 in ceil(k / r) phases.
 // A phase's register window starts at its lowest bit, clamped into the
 // tile.
 __host__ __device__ constexpr int top_code(int log_t, int kk, int r,
                                            int lo_bit, int ph) {
-  if (kk > 0) {
+  if (kk >= log_t) {
     const int hi = log_t - 1 - ph * r;
     if (hi < lo_bit) return 0;
     const int lo = hi - r + 1 > lo_bit ? hi - r + 1 : lo_bit;
     return plan_code(kk, kk, hi, lo, lo < log_t - r ? lo : log_t - r);
   }
-  if (ph == 0) return plan_code(1, r, r - 1, 0, 0);
-  for (int k = r + 1; k <= log_t; ++k) {
+  int k = kk > 1 ? kk : 1;
+  if (k <= r) {
+    if (ph == 0) return plan_code(k, r, r - 1, 0, 0);
+    --ph;
+    k = r + 1;
+  }
+  for (; k <= log_t; ++k) {
     const int phases = (k + r - 1) / r;
-    if (ph <= phases) {
-      const int hi = k - 1 - (ph - 1) * r;
+    if (ph < phases) {
+      const int hi = k - 1 - ph * r;
       const int lo = hi - r + 1 > 0 ? hi - r + 1 : 0;
       return plan_code(k, k, hi, lo, lo < log_t - r ? lo : log_t - r);
     }
@@ -560,9 +571,18 @@ __host__ __device__ constexpr int cross_fusion(int np) {
 // kernels/bitonic.py TOP_MODES).
 __host__ __device__ constexpr bool cross_top(int np) { return np == 1; }
 
+// The modes whose radix tile passes (chunk_sort_cyclic, slot_merge) have
+// compile-time plans: keys, rider and lex2, the modes the radix sort runs
+// (kernels/bitonic.py TOP_MODES; lex3, which no path sends to radix, keeps
+// the run-time plan).  slot_merge has one for every slot of 2^kMinSlotLog
+// (the radix plan's least slot) up to half the tile.
+__host__ __device__ constexpr bool radix_top(int np) { return np <= 2; }
+constexpr int kMinSlotLog = 10;
+
 // Phase PH of the compile-time plan of a tile of 2^LOG_T rows at P planes;
-// KK: 0 for a chunk sort, LOG_T for every level at or above the tile (their
-// bits are the same; the level only picks the tile's direction).
+// KK: 0 for a chunk sort, log_s + 1 for the levels above a slot, LOG_T for
+// every level at or above the tile (their bits are the same; the level only
+// picks the tile's direction).
 template <int P, int LOG_T, int KK, int LO_BIT, int PH>
 struct TopPhase {
   static constexpr int kCode = top_code(LOG_T, KK, max_fusion(P), LO_BIT, PH);
@@ -660,15 +680,16 @@ __device__ __forceinline__ void top_levels(int (&v)[P][1 << max_fusion(P)],
 }
 
 // Phases PH.. of a compile-time plan over the tile of block blockIdx.x:
-// phase 0 loads the tile's rows from device memory through `map`, the last
-// stores them through it (in place), the phases between go through the
-// swizzled shared memory s, one __syncthreads() after each.  flip_top: the
-// direction of a level at or above the tile (bit kk of the tile's span-
-// masked base, XOR invert).
+// phase 0 loads the tile's rows from `in` through `map`, the last stores
+// them to `out` through `omap` (in place: the same planes and maps), the
+// phases between go through the swizzled shared memory s, one
+// __syncthreads() after each.  flip_top: the direction of a level at or
+// above the tile (bit kk of the tile's span-masked base, XOR invert).
 template <int NCMP, int P, int LOG_T, int KK, int LO_BIT, int PH,
-          typename Map>
-__device__ __forceinline__ void top_pass(const Planes& x, int* s,
-                                         const Map& map, int flip_top,
+          typename Map, typename OutMap>
+__device__ __forceinline__ void top_pass(const Planes& in, const Planes& out,
+                                         int* s, const Map& map,
+                                         const OutMap& omap, int flip_top,
                                          int invert, bool vec) {
   constexpr int R = max_fusion(P);
   constexpr int W = 1 << R;
@@ -681,7 +702,7 @@ __device__ __forceinline__ void top_pass(const Planes& x, int* s,
     int v[P][W];
     int at[W];
     if constexpr (PH == 0) {
-      rows_from_global<P, W>(v, x, map, gb, F::kWlo, T, vec);
+      rows_from_global<P, W>(v, in, map, gb, F::kWlo, T, vec);
     } else {
       shared_places<R>(at, gb, F::kWlo);
       rows_from_shared<P, R>(v, s, at, T);
@@ -689,7 +710,7 @@ __device__ __forceinline__ void top_pass(const Planes& x, int* s,
     top_levels<NCMP, P, LOG_T, F::kHi, F::kLo, F::kWlo, F::kKkA, F::kKkB>(
         v, gb, flip_top, invert);
     if constexpr (F::kLast) {
-      rows_to_global<P, W>(x, map, v, gb, F::kWlo, T, vec);
+      rows_to_global<P, W>(out, omap, v, gb, F::kWlo, T, vec);
     } else {
       if constexpr (PH == 0 || !kKeepPlaces<P>) {
         shared_places<R>(at, gb, F::kWlo);
@@ -699,8 +720,8 @@ __device__ __forceinline__ void top_pass(const Planes& x, int* s,
   }
   if constexpr (!F::kLast) {
     __syncthreads();
-    top_pass<NCMP, P, LOG_T, KK, LO_BIT, PH + 1>(x, s, map, flip_top, invert,
-                                                 vec);
+    top_pass<NCMP, P, LOG_T, KK, LO_BIT, PH + 1>(in, out, s, map, omap,
+                                                 flip_top, invert, vec);
   }
 }
 
@@ -731,76 +752,115 @@ __global__ void __launch_bounds__(kTileThreads, 1)
                        dbase, invert, vec != 0);
   } else {
     extern __shared__ int top_smem[];
+    const Contiguous map{base};
     top_pass<NCMP, P, LOG_T, 0, 0, 0>(
-        x, top_smem, Contiguous{base},
+        x, x, top_smem, map, map,
         invert ^ static_cast<int>((dbase >> LOG_T) & 1), invert, vec != 0);
   }
 }
 
 // chunk_sort_cyclic — replaces radx_tpu/kernels/bitonic.py::
 // _chunk_sort_cyclic_kernel (radix phase 1).
-// Bound on the card: shared-memory round trips, then device memory, as
-// chunk_sort: one read and one write of every plane, 105 substages at the
-// keys' 2^14 tile and 91 at the 2^13 tile of rider / lex2 / lex3.  Radix
-// chunk c (2^log_c keys) owns the tiles {g * n_chunks + c} of 1024 keys,
-// so locally ordered inputs spread evenly over the chunks.  Design: chunk
-// sort's plan on the register tile engine, one block per 2^log_t keys of a
-// chunk (tile b of the grid: chunk b >> (log_c - log_t), base lb in it):
-// the first phase holds 2^R <= 16 contiguous rows of one 1024-key tile per
-// thread, so it loads them as int4 from their cyclic place; stages 1..R
-// run at load time, stage kk > R in ceil(kk / R) phases (28 round trips at
-// 2^14, R = 4; 24 at 2^13, where the loop of one substage per round trip
-// made 105 and 91).  Directions come from the index within the radix
-// chunk (lb + row), so the tiles of a chunk alternate; the tile goes
-// contiguously to `out` at b << log_t (out of place: the cyclic input and
-// the contiguous output overlap across blocks).  With log_t == log_c the
-// chunk ends ascending, as in the JAX kernel; a larger chunk is finished by
-// cross_stage / finish with a span of 2^log_c.
-template <int NCMP, int P>
+// Bound on the card: 32-bit integer operations (105 substages at the keys'
+// 2^14 tile, 91 at the 2^13 tile of rider / lex2 / lex3), then the
+// instructions of its shared-memory round trips, as chunk_sort; one read
+// and one write of every plane.  Radix chunk c (2^log_c keys) owns the
+// tiles {g * n_chunks + c} of 1024 keys, so locally ordered inputs spread
+// evenly over the chunks.  Design: chunk sort's plan on the register tile
+// engine, one block per 2^log_t keys of a chunk (tile b of the grid: chunk
+// b >> (log_c - log_t), base lb in it): the first phase holds 2^R <= 16
+// contiguous rows of one 1024-key tile per thread, so it loads them as int4
+// from their cyclic place; stages 1..R run at load time, stage kk > R in
+// ceil(kk / R) phases (28 round trips at 2^14, R = 4; 24 at 2^13, where
+// the loop of one substage per round trip made 105 and 91).  Directions
+// come from the index within the radix chunk (lb + row), so the tiles of a
+// chunk alternate; the tile goes contiguously to `out` at b << log_t (out
+// of place: the cyclic input and the contiguous output overlap across
+// blocks).  With log_t == log_c the chunk ends ascending, as in the JAX
+// kernel; a larger chunk is finished by cross_stage / finish with a span of
+// 2^log_c.
+//
+// LOG_T = 0 reads the plan (any tile) as tile_pass does; LOG_T = the mode's
+// chunk tile (radix_top modes) runs chunk_sort's plan laid out at compile
+// time (top_pass), the top level's direction bit log_t of lb, the levels
+// whose direction is a lane bit in one body (top_levels): at 2^28 keys
+// 3.19 ms against the run-time plan's 6.00, as fast as chunk_sort (one
+// H100, tools/finish_bench.py, PERF.md).
+template <int NCMP, int P, int LOG_T>
 __global__ void __launch_bounds__(kTileThreads, 1)
     chunk_sort_cyclic_kernel(Planes in, Planes out, int log_t, int log_c,
                              int64_t n_chunks, TilePlan plan, int vec) {
+  const int lt = LOG_T == 0 ? log_t : LOG_T;
   const int64_t tile = blockIdx.x;
-  const int64_t lb = (tile << log_t) & ((static_cast<int64_t>(1) << log_c) - 1);
-  tile_pass<NCMP, P>(in, out, Cyclic{lb, tile >> (log_c - log_t), n_chunks},
-                     Contiguous{tile << log_t}, log_t, plan, lb, 0,
-                     vec != 0);
+  const int64_t lb = (tile << lt) & ((static_cast<int64_t>(1) << log_c) - 1);
+  const Cyclic map{lb, tile >> (log_c - lt), n_chunks};
+  const Contiguous omap{tile << lt};
+  if constexpr (LOG_T == 0) {
+    tile_pass<NCMP, P>(in, out, map, omap, log_t, plan, lb, 0, vec != 0);
+  } else {
+    extern __shared__ int top_smem[];
+    top_pass<NCMP, P, LOG_T, 0, 0, 0>(in, out, top_smem, map, omap,
+                                      static_cast<int>((lb >> LOG_T) & 1), 0,
+                                      vec != 0);
+  }
 }
 
 // slot_merge — replaces radx_tpu/kernels/bitonic.py::_slot_merge_kernel
 // (radix phase C).
-// Bound on the card: shared-memory round trips, then device memory.  Every
-// radix chunk of 2^log_c keys holds ascending slots of 2^log_s keys (the
-// packed runs with their fill tails).  Reversing the odd slots gives the
-// bitonic invariant of level log_s; the JAX kernel reverses with lane
-// gathers and rolls, here the first load reads x[i ^ (S - 1)] for odd
-// slots, at no extra pass.  Design: levels log_s + 1 .. log_t on the
-// register tile engine, directions from the index within the chunk; its
-// first phase holds the rows 2^wlo apart (wlo >= 7 for slots >= 1024), so
-// a warp reads 32 consecutive rows per register and the loads stay scalar,
-// and its last phase stores int4 vectors.  Round trips at the radix
-// sort's tiles: 7 for slots of 4096 in a 2^14 tile (the loop of one
-// substage per round trip made 27), 13 for slots of 1024 (50), 3 for
-// slots of 4096 in a 2^13 tile (13).  With S >= T the plan is empty and
-// the tile is a copy through the map.  The tile goes to `out` (out of
-// place: with S > T a tile reads another tile's keys).  Levels above the
-// tile run on cross_stage / finish with a span of 2^log_c.
-template <int NCMP, int P>
+// Bound on the card: the instructions of its shared-memory phases, then
+// device memory.  Every radix chunk of 2^log_c keys holds ascending slots
+// of 2^log_s keys (the packed runs with their fill tails).  Reversing the
+// odd slots gives the bitonic invariant of level log_s; the JAX kernel
+// reverses with lane gathers and rolls, here the first load reads x[i ^ (S
+// - 1)] for odd slots, at no extra pass.  Design: levels log_s + 1 ..
+// log_t on the register tile engine, directions from the index within the
+// chunk; its first phase holds the rows 2^wlo apart (wlo >= 7 for slots >=
+// 1024), so a warp reads 32 consecutive rows per register and the loads
+// stay scalar, and its last phase stores int4 vectors.  Round trips at the
+// radix sort's tiles: 7 for slots of 4096 in a 2^14 tile (the loop of one
+// substage per round trip made 27), 13 for slots of 1024 (50), 3 for slots
+// of 4096 in a 2^13 tile (13).  With S >= T the plan is empty and the tile
+// is a copy through the map.  The tile goes to `out` (out of place: with S
+// > T a tile reads another tile's keys).  Levels above the tile run on
+// cross_stage / finish with a span of 2^log_c.
+//
+// LOG_T = 0 reads the plan (any tile and slot, the copy included) as
+// tile_pass does; LOG_T = the mode's tile (radix_top modes) with LOG_S in
+// kMinSlotLog .. LOG_T - 1 runs the levels LOG_S + 1 .. LOG_T laid out at
+// compile time (top_pass): each level below the tile is >= 11 > R + 4, so
+// its direction is bit kk of the group index, one for a warp; the top
+// level's is bit log_t of the tile's base within the chunk.  At 2^28 keys
+// (slots of 1024, 13 round trips) 2.28 ms against the run-time plan's
+// 3.88: decoding many phases cost more than finish's four (one H100,
+// tools/finish_bench.py, PERF.md).
+template <int NCMP, int P, int LOG_T, int LOG_S>
 __global__ void __launch_bounds__(kTileThreads, 1)
     slot_merge_kernel(Planes in, Planes out, int log_t, int log_s,
                       int64_t cmask, TilePlan plan, int vec) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
-  const SlotReversed map{base, (static_cast<int64_t>(1) << log_s) - 1, log_s};
-  if (plan.n == 0) {  // no level below the tile: a row per thread in turn
-    for (int i = threadIdx.x; i < (1 << log_t); i += blockDim.x) {
-      const int64_t at = map(i);
+  if constexpr (LOG_T == 0) {
+    const int64_t base = static_cast<int64_t>(blockIdx.x) << log_t;
+    const SlotReversed map{base, (static_cast<int64_t>(1) << log_s) - 1,
+                           log_s};
+    if (plan.n == 0) {  // no level below the tile: a row per thread in turn
+      for (int i = threadIdx.x; i < (1 << log_t); i += blockDim.x) {
+        const int64_t at = map(i);
 #pragma unroll
-      for (int j = 0; j < P; ++j) out.p[j][base + i] = in.p[j][at];
+        for (int j = 0; j < P; ++j) out.p[j][base + i] = in.p[j][at];
+      }
+      return;
     }
-    return;
+    tile_pass<NCMP, P>(in, out, map, Contiguous{base}, log_t, plan,
+                       base & cmask, 0, vec != 0);
+  } else {
+    static_assert(kMinSlotLog <= LOG_S && LOG_S < LOG_T, "a slot merge");
+    extern __shared__ int top_smem[];
+    const int64_t base = static_cast<int64_t>(blockIdx.x) << LOG_T;
+    const SlotReversed map{base, (static_cast<int64_t>(1) << LOG_S) - 1,
+                           LOG_S};
+    top_pass<NCMP, P, LOG_T, LOG_S + 1, 0, 0>(
+        in, out, top_smem, map, Contiguous{base},
+        static_cast<int>(((base & cmask) >> LOG_T) & 1), 0, vec != 0);
   }
-  tile_pass<NCMP, P>(in, out, map, Contiguous{base}, log_t, plan, base & cmask,
-                     0, vec != 0);
 }
 
 // finish — replaces radx_tpu/kernels/bitonic.py::_finishw_kernel.
@@ -836,7 +896,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     const int64_t base = static_cast<int64_t>(blockIdx.x) << LOG_T;
     const int kk = decode_phase(plan.code[0]).kk_a;
     const int flip = invert ^ static_cast<int>(((base & dmask) >> kk) & 1);
-    top_pass<NCMP, P, LOG_T, LOG_T, 0, 0>(x, top_smem, Contiguous{base}, flip,
+    const Contiguous map{base};
+    top_pass<NCMP, P, LOG_T, LOG_T, 0, 0>(x, x, top_smem, map, map, flip,
                                           invert, vec != 0);
   }
 }
@@ -898,7 +959,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       extern __shared__ int top_smem[];
       const int flip = invert ^ static_cast<int>(((base & dmask) >> kk) & 1);
       top_pass<NCMP, P, cross_log_t(P), cross_log_t(P), kLogL, 0>(
-          x, top_smem, map, flip, invert, vec != 0);
+          x, x, top_smem, map, map, flip, invert, vec != 0);
     }
   } else {
     const int64_t t =
@@ -1008,12 +1069,14 @@ cudaError_t launch_tile(Kernel kernel, const Planes& in, const Planes& out,
 }
 
 // Is the plan the one a kernel lays out at compile time (top_code) for a
-// tile of 2^log_t rows: a chunk sort (kk = 0) or level kk >= log_t, down to
-// bit lo_bit?
+// tile of 2^log_t rows: a chunk sort's levels max(kk, 1) .. log_t (kk <
+// log_t; kk = log_s + 1 a slot merge's) or level kk >= log_t down to bit
+// lo_bit?
 template <int P>
 bool is_top_plan(const TilePlan& plan, int log_t, int kk, int lo_bit) {
   constexpr int R = max_fusion(P);
-  if ((kk != 0 && kk < log_t) || plan.n != top_phases(log_t, kk, R, lo_bit)) {
+  if ((kk < log_t && lo_bit != 0) ||
+      plan.n != top_phases(log_t, kk, R, lo_bit)) {
     return false;
   }
   for (int i = 0; i < plan.n; ++i) {
@@ -1022,10 +1085,10 @@ bool is_top_plan(const TilePlan& plan, int log_t, int kk, int lo_bit) {
   return true;
 }
 
-// In chunk_sort, cross and finish, `top` runs the plan on the kernel that
+// In every tile-engine entry point, `top` runs the plan on the kernel that
 // lays it out at compile time (kernels/bitonic.py::compile_time_plan picks
-// it); the plan must be that layout at the mode's tile, else the launch is
-// refused.
+// it); the plan must be that layout at the mode's tile, in a mode that has
+// the kernel, else the launch is refused.
 
 template <int NCMP, int P>
 cudaError_t chunk_sort(const Planes& x, int64_t n, int log_c, int invert,
@@ -1052,6 +1115,7 @@ cudaError_t finish(const Planes& x, int64_t n, int log_t, int invert,
   TilePlan plan;
   if (!make_plan<max_fusion(P)>(codes, phases, log_t, &plan) ||
       (top && (log_t != top_log_t(P) ||
+               decode_phase(plan.code[0]).kk_a < log_t ||
                !is_top_plan<P>(plan, log_t, decode_phase(plan.code[0]).kk_a,
                                0)))) {
     return cudaErrorInvalidValue;
@@ -1067,32 +1131,82 @@ cudaError_t finish(const Planes& x, int64_t n, int log_t, int invert,
 template <int NCMP, int P>
 cudaError_t chunk_sort_cyclic(const Planes& in, const Planes& out, int64_t n,
                               int log_t, int log_c, const int* codes,
-                              int64_t phases, cudaStream_t stream) {
+                              int64_t phases, int top, cudaStream_t stream) {
+  constexpr int kLogT = top_log_t(P);
   TilePlan plan;
   if (log_t > log_c || log_c < kCyclicLog || log_c > 62 ||
       (n >> log_c) << log_c != n ||
-      !make_plan<max_fusion(P)>(codes, phases, log_t, &plan)) {
+      !make_plan<max_fusion(P)>(codes, phases, log_t, &plan) ||
+      (top && (!radix_top(P) || log_t != kLogT ||
+               !is_top_plan<P>(plan, kLogT, 0, 0)))) {
     return cudaErrorInvalidValue;
   }
-  return launch_tile<P>(chunk_sort_cyclic_kernel<NCMP, P>, in, out, n, log_t,
-                        plan, stream, in, out, log_t, log_c, n >> log_c);
+  if constexpr (radix_top(P)) {
+    if (top) {
+      return launch_tile<P>(chunk_sort_cyclic_kernel<NCMP, P, kLogT>, in, out,
+                            n, log_t, plan, stream, in, out, log_t, log_c,
+                            n >> log_c);
+    }
+  }
+  return launch_tile<P>(chunk_sort_cyclic_kernel<NCMP, P, 0>, in, out, n,
+                        log_t, plan, stream, in, out, log_t, log_c,
+                        n >> log_c);
+}
+
+// The slot merge of slots of 2^LOG_S rows on its compile-time plan over
+// the mode's tile; only a radix_top mode and kMinSlotLog <= LOG_S < the
+// tile have a kernel.
+template <int LOG_S, int NCMP, int P>
+cudaError_t launch_slot_top(const Planes& in, const Planes& out, int64_t n,
+                            int64_t cmask, const TilePlan& plan,
+                            cudaStream_t stream) {
+  constexpr int kLogT = top_log_t(P);
+  if constexpr (!radix_top(P) || LOG_S >= kLogT) {
+    return cudaErrorInvalidValue;
+  } else {
+    return launch_tile<P>(slot_merge_kernel<NCMP, P, kLogT, LOG_S>, in, out,
+                          n, kLogT, plan, stream, in, out, kLogT, LOG_S,
+                          cmask);
+  }
 }
 
 // The plan is empty exactly when the slot is at least the tile.
 template <int NCMP, int P>
 cudaError_t slot_merge(const Planes& in, const Planes& out, int64_t n,
                        int log_t, int log_s, int log_c, const int* codes,
-                       int64_t phases, cudaStream_t stream) {
+                       int64_t phases, int top, cudaStream_t stream) {
   TilePlan plan;
   const bool copy = log_s >= log_t;
   if (log_t > log_c || log_s < 0 || log_s >= log_c || log_c > 62 ||
       (n >> log_c) << log_c != n || (copy && phases != 0) ||
-      !make_plan<max_fusion(P)>(codes, phases, log_t, &plan, copy ? 0 : 1)) {
+      !make_plan<max_fusion(P)>(codes, phases, log_t, &plan, copy ? 0 : 1) ||
+      (top && (!radix_top(P) || log_t != top_log_t(P) ||
+               log_s < kMinSlotLog || copy ||
+               !is_top_plan<P>(plan, log_t, log_s + 1, 0)))) {
     return cudaErrorInvalidValue;
   }
-  return launch_tile<P>(slot_merge_kernel<NCMP, P>, in, out, n, log_t, plan,
-                        stream, in, out, log_t, log_s,
-                        (static_cast<int64_t>(1) << log_c) - 1);
+  const int64_t cmask = (static_cast<int64_t>(1) << log_c) - 1;
+  if (!top) {
+    return launch_tile<P>(slot_merge_kernel<NCMP, P, 0, 0>, in, out, n, log_t,
+                          plan, stream, in, out, log_t, log_s, cmask);
+  }
+  static_assert(top_log_t(1) - 1 <= kMinSlotLog + 3, "a case a slot");
+  switch (log_s - kMinSlotLog) {
+    case 0:
+      return launch_slot_top<kMinSlotLog, NCMP, P>(in, out, n, cmask, plan,
+                                                   stream);
+    case 1:
+      return launch_slot_top<kMinSlotLog + 1, NCMP, P>(in, out, n, cmask,
+                                                       plan, stream);
+    case 2:
+      return launch_slot_top<kMinSlotLog + 2, NCMP, P>(in, out, n, cmask,
+                                                       plan, stream);
+    case 3:
+      return launch_slot_top<kMinSlotLog + 3, NCMP, P>(in, out, n, cmask,
+                                                       plan, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The strided tile pass of F distances on its compile-time plan; only F in
@@ -1189,7 +1303,7 @@ cudaError_t cross(const Planes& x, int64_t n, int64_t rows, int j_low, int f,
   }
 }
 
-// The three launches as functors over the template instance (NCMP, P).
+// The launches as functors over the template instance (NCMP, P).
 struct ChunkSortLaunch {
   Planes x;
   int64_t n;
@@ -1243,11 +1357,12 @@ struct CyclicLaunch {
   int log_t, log_c;
   const int* plan;
   int64_t phases;
+  int top;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
     return chunk_sort_cyclic<NCMP, P>(in, out, n, log_t, log_c, plan, phases,
-                                      stream);
+                                      top, stream);
   }
 };
 
@@ -1257,11 +1372,12 @@ struct SlotMergeLaunch {
   int log_t, log_s, log_c;
   const int* plan;
   int64_t phases;
+  int top;
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
     return slot_merge<NCMP, P>(in, out, n, log_t, log_s, log_c, plan, phases,
-                               stream);
+                               top, stream);
   }
 };
 
@@ -1278,11 +1394,12 @@ extern "C" {
 // keys), and ncmp is 1 (np = 1 or 2) or 2 (np = 2..8).
 
 // `plan` points to `phases` packed phases of the tile pass
-// (kernels/bitonic.py::tile_plan for R = max_fusion(np)).  In
-// radx_chunk_sort, radx_finish and radx_cross_stage, `top` runs the plan
-// on its compile-time layout (kernels/bitonic.py::compile_time_plan): the
-// mode's chunk tile, a level at or above the mode's finish tile, a strided
-// pass over the mode's cross tile; any other plan is then refused.
+// (kernels/bitonic.py::tile_plan for R = max_fusion(np)).  In every entry
+// point that takes it, `top` runs the plan on its compile-time layout
+// (kernels/bitonic.py::compile_time_plan): the mode's chunk tile (chunk
+// sort, cyclic chunk sort), a level at or above the mode's finish tile, a
+// strided pass over the mode's cross tile, the levels above a slot of
+// 2^10 .. half the mode's tile; any other plan is then refused.
 int radx_chunk_sort(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
                     int64_t log_c, int64_t invert, int64_t ascending,
                     const int* plan, int64_t phases, int64_t top,
@@ -1353,7 +1470,7 @@ int radx_cross_stage(void* const* planes, int64_t np, int64_t ncmp, int64_t n,
 int radx_chunk_sort_cyclic(void* const* in, void* const* out, int64_t np,
                            int64_t ncmp, int64_t n, int64_t log_t,
                            int64_t log_c, const int* plan, int64_t phases,
-                           void* stream) {
+                           int64_t top, void* stream) {
   CyclicLaunch launch;
   if (!make_planes(in, np, &launch.in) || !make_planes(out, np, &launch.out)) {
     return cudaErrorInvalidValue;
@@ -1363,6 +1480,7 @@ int radx_chunk_sort_cyclic(void* const* in, void* const* out, int64_t np,
   launch.log_c = static_cast<int>(log_c);
   launch.plan = plan;
   launch.phases = phases;
+  launch.top = static_cast<int>(top != 0);
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }
@@ -1372,7 +1490,7 @@ int radx_chunk_sort_cyclic(void* const* in, void* const* out, int64_t np,
 int radx_slot_merge(void* const* in, void* const* out, int64_t np,
                     int64_t ncmp, int64_t n, int64_t log_t, int64_t log_s,
                     int64_t log_c, const int* plan, int64_t phases,
-                    void* stream) {
+                    int64_t top, void* stream) {
   SlotMergeLaunch launch;
   if (!make_planes(in, np, &launch.in) || !make_planes(out, np, &launch.out)) {
     return cudaErrorInvalidValue;
@@ -1383,6 +1501,7 @@ int radx_slot_merge(void* const* in, void* const* out, int64_t np,
   launch.log_c = static_cast<int>(log_c);
   launch.plan = plan;
   launch.phases = phases;
+  launch.top = static_cast<int>(top != 0);
   launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }

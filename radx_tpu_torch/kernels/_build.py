@@ -49,10 +49,10 @@ _SIGNATURES = {
     # planes, np, ncmp, n, log_t, invert, log_span, plan, phases, top,
     # stream
     "radx_finish": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P),
-    # in, out, np, ncmp, n, log_t, log_c, plan, phases, stream
-    "radx_chunk_sort_cyclic": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
-    # in, out, np, ncmp, n, log_t, log_s, log_c, plan, phases, stream
-    "radx_slot_merge": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+    # in, out, np, ncmp, n, log_t, log_c, plan, phases, top, stream
+    "radx_chunk_sort_cyclic": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P),
+    # in, out, np, ncmp, n, log_t, log_s, log_c, plan, phases, top, stream
+    "radx_slot_merge": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P),
     # keys, n, rows, log_tile, shift, bias, out, totals, stream
     "radx_radix_hist": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
     # keys, n_chunks, log_c, heads, log_r, first, samples, n_samples,

@@ -44,10 +44,12 @@ Five kernels (CUDA C++ in ``radx_tpu_torch/csrc/bitonic.cu``):
     empty plan, a copy through that load, when the slot is at least the
     tile).
 
-``chunk_sort``, ``finish`` and the strided cross pass run on a plan laid
-out at compile time (``top_plan``) where ``compile_time_plan`` says so: the
-mode's chunk tile, a finish level at or above the mode's finish tile, a
-keys-only strided pass over the cross tile.
+Every tile-engine kernel runs on a plan laid out at compile time
+(``top_plan``) where ``compile_time_plan`` says so: ``chunk_sort`` of the
+mode's chunk tile, a ``finish`` level at or above the mode's finish tile, a
+keys-only strided cross pass over the cross tile, and in the modes the
+radix sort runs (keys, rider, lex2) ``chunk_sort_cyclic`` of the mode's
+tile and ``slot_merge`` of its tile for slots of 2^10 up to half of it.
 
 ``_overhang`` is the valley merge's top half-cleaner
 (``merge_valley_ascending``): one ``cross_stage<1>`` launch over the rows
@@ -151,7 +153,7 @@ RADIX_KERNELS = tuple(k for m in MODES for k in radix_kernels(*m))
 KERNELS = KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS + RADIX_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # the launches of LAUNCHES that ran a compile-time plan (compile_time_plan)
-TOP_LAUNCHES = dict.fromkeys(KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS, 0)
+TOP_LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(("chunk_sort_ref", "cross_stage_ref", "finish_ref",
                              "chunk_sort_cyclic_ref", "slot_merge_ref",
                              "_cx_directed"), 0)
@@ -521,9 +523,16 @@ def cross_stage(x, j_low, f, kk, invert=False, rider=None, lex=None,
 # one card (tools/finish_bench.py, PERF.md §6).  The strided cross pass at
 # two planes and more measured within 2% of its run-time plan either way,
 # so those modes have no compile-time kernel (csrc/bitonic.cu cross_top).
+# The radix tile passes have one in the modes the radix sort runs: keys,
+# rider and lex2 (csrc/bitonic.cu radix_top).
 TOP_MODES = {"chunk_sort": frozenset(range(1, MAX_PLANES + 1)),
              "cross_stage": frozenset({1}),
-             "finish": frozenset(range(1, MAX_PLANES + 1))}
+             "finish": frozenset(range(1, MAX_PLANES + 1)),
+             "chunk_sort_cyclic": frozenset({1, 2}),
+             "slot_merge": frozenset({1, 2})}
+# The least slot (log2) of a slot_merge kernel on a compile-time plan: the
+# radix plan's least slot (csrc/bitonic.cu kMinSlotLog).
+MIN_TOP_SLOT_LOG = 10
 
 
 def top_tile(planes):
@@ -539,38 +548,47 @@ def top_plan(log_t, kk, r, lo_bit=0):
     (csrc/bitonic.cu top_code), in ``tile_plan``'s form: for kk >= log_t a
     level at or above a tile of 2^log_t rows, bits log_t-1 .. lo_bit in
     phases of r, highest first (``tile_plan(log_t, kk, kk, r, lo_bit)``);
-    for kk = 0 a chunk sort (``tile_plan(log_t, 1, log_t, r)``): levels
-    1..r at bits r-1..0 in one phase, then each level k > r at bits k-1 ..
-    0 in ceil(k / r) phases.  A phase's window starts at its lowest bit,
-    clamped into the tile."""
+    for kk < log_t the levels max(kk, 1) .. log_t of a chunk sort
+    (``tile_plan(log_t, max(kk, 1), log_t, r)``; kk = 0 the whole sort,
+    kk = log_s + 1 a slot merge): the levels up to r at bits r-1..0 in one
+    phase, then each level k > r at bits k-1 .. 0 in ceil(k / r) phases.
+    A phase's window starts at its lowest bit, clamped into the tile."""
     def phase(k, hi, floor):
         lo = max(hi - r + 1, floor)
         return (k, k, hi, lo, min(lo, log_t - r))
 
-    if kk > 0:
+    if kk >= log_t:
         return tuple(phase(kk, hi, lo_bit)
                      for hi in range(log_t - 1, lo_bit - 1, -r))
-    return ((1, r, r - 1, 0, 0),
-            *(phase(k, hi, 0) for k in range(r + 1, log_t + 1)
-              for hi in range(k - 1, -1, -r)))
+    first = max(kk, 1)
+    head = ((first, r, r - 1, 0, 0),) if first <= r else ()
+    return (*head, *(phase(k, hi, 0) for k in range(max(first, r + 1),
+                                                    log_t + 1)
+                     for hi in range(k - 1, -1, -r)))
 
 
-def compile_time_plan(kernel, planes, log_t, kk, lo_bit=0):
+def compile_time_plan(kernel, planes, log_t, kk, lo_bit=0, log_s=None):
     """The one rule that picks a tile-engine kernel's compile-time plan
-    (``kernel``: "chunk_sort", "cross_stage" or "finish") for a tile pass
-    over 2^log_t rows at levels up to kk, down to bit ``lo_bit``: where the
-    pass is the one the kernel lays out, in a mode of ``TOP_MODES``.  That is
-    a chunk sort of the mode's chunk tile (kk = log_t), a finish pass at a
-    level kk >= log_t of the mode's finish tile (every finish pass of a
-    sort's merge levels above the chunk), and a strided cross pass (more
-    than max_fusion(P) distances, lowest bit ``lo_bit``) over the mode's
-    cross tile (every sort path's wide pass); the run-time plan anywhere
-    else (other tiles, a level below the tile, other segments)."""
+    (``kernel``: a key of ``TOP_MODES``) for a tile pass over 2^log_t rows
+    at levels up to kk, down to bit ``lo_bit`` (``slot_merge``: from level
+    ``log_s`` + 1): where the pass is the one the kernel lays out, in a mode
+    of ``TOP_MODES``.  That is a chunk sort of the mode's chunk tile (kk =
+    log_t; ``chunk_sort`` and the radix sort's ``chunk_sort_cyclic``), a
+    finish pass at a level kk >= log_t of the mode's finish tile (every
+    finish pass of a sort's merge levels above the chunk), a strided cross
+    pass (more than max_fusion(P) distances, lowest bit ``lo_bit``) over the
+    mode's cross tile (every sort path's wide pass), and a slot merge of the
+    mode's tile (kk = log_t) whose slot is 2^MIN_TOP_SLOT_LOG or more and
+    below the tile (every slot of the radix plan); the run-time plan
+    anywhere else (other tiles, a level below the tile, other segments, the
+    slot merge's copy)."""
     if planes not in TOP_MODES[kernel] or kk < log_t:
         return False
     if kernel == "cross_stage":
         return (1 << log_t == cross_tile(planes)
                 and log_t - lo_bit > max_fusion(planes))
+    if kernel == "slot_merge" and not MIN_TOP_SLOT_LOG <= log_s < log_t:
+        return False
     return 1 << log_t == top_tile(planes)
 
 
@@ -610,11 +628,16 @@ def _mode(planes, ncmp):
     raise ValueError(f"num_cmp={ncmp} does not take {len(planes)} planes")
 
 
-def _launch_io(name, fn_name, src, dst, ncmp, *args):
-    """Launch a kernel that reads the planes ``src`` and writes ``dst``."""
+def _launch_io(name, fn_name, src, dst, ncmp, *args, top):
+    """Launch a kernel that reads the planes ``src`` and writes ``dst``;
+    ``top``: the compile-time plan's flag, the entry point's last argument,
+    counted in TOP_LAUNCHES when set."""
     x = src[0]
-    _build.launch(LAUNCHES, name + _suffix(ncmp, len(src)), fn_name, x.device,
-                  _ptrs(src), _ptrs(dst), len(src), ncmp, x.numel(), *args)
+    name += _suffix(ncmp, len(src))
+    _build.launch(LAUNCHES, name, fn_name, x.device, _ptrs(src), _ptrs(dst),
+                  len(src), ncmp, x.numel(), *args, int(top))
+    if top:
+        TOP_LAUNCHES[name] += 1
 
 
 def _io_checks(src, dst, ncmp, chunk, tile):
@@ -634,6 +657,15 @@ def _io_checks(src, dst, ncmp, chunk, tile):
     return on_cuda
 
 
+def _launch_cyclic(src, dst, ncmp, chunk, tile, top):
+    """One chunk_sort_cyclic launch on the compile-time plan (``top``) or
+    the run-time one."""
+    log_t = _log2(tile)
+    _launch_io("chunk_sort_cyclic", "radx_chunk_sort_cyclic", src, dst, ncmp,
+               log_t, _log2(chunk),
+               *_plan_arg(log_t, 1, log_t, max_fusion(len(src))), top=top)
+
+
 def chunk_sort_cyclic(src, dst, ncmp, chunk, tile):
     """Radix phase 1: stages 1..log2(tile) of an ascending sort of every
     radix chunk of ``chunk`` rows, chunk c made of the CYCLIC_TILE-row tiles
@@ -646,10 +678,19 @@ def chunk_sort_cyclic(src, dst, ncmp, chunk, tile):
             d.copy_(o)
         return dst
     log_t = _log2(tile)
-    _launch_io("chunk_sort_cyclic", "radx_chunk_sort_cyclic", src, dst, ncmp,
-               log_t, _log2(chunk),
-               *_plan_arg(log_t, 1, log_t, max_fusion(len(src))))
+    _launch_cyclic(src, dst, ncmp, chunk, tile, compile_time_plan(
+        "chunk_sort_cyclic", len(src), log_t, log_t))
     return dst
+
+
+def _launch_slot(src, dst, ncmp, chunk, slot, tile, top):
+    """One slot_merge launch on the compile-time plan (``top``) or the
+    run-time one."""
+    log_t, log_s = _log2(tile), _log2(slot)
+    _launch_io("slot_merge", "radx_slot_merge", src, dst, ncmp, log_t, log_s,
+               _log2(chunk),
+               *_plan_arg(log_t, log_s + 1, log_t, max_fusion(len(src))),
+               top=top)
 
 
 def slot_merge(src, dst, ncmp, chunk, slot, tile):
@@ -662,10 +703,9 @@ def slot_merge(src, dst, ncmp, chunk, slot, tile):
         for d, o in zip(dst, slot_merge_ref(src, ncmp, chunk, slot, tile)):
             d.copy_(o)
         return dst
-    log_t, log_s = _log2(tile), _log2(slot)
-    _launch_io("slot_merge", "radx_slot_merge", src, dst, ncmp, log_t, log_s,
-               _log2(chunk),
-               *_plan_arg(log_t, log_s + 1, log_t, max_fusion(len(src))))
+    log_t = _log2(tile)
+    _launch_slot(src, dst, ncmp, chunk, slot, tile, compile_time_plan(
+        "slot_merge", len(src), log_t, log_t, log_s=_log2(slot)))
     return dst
 
 

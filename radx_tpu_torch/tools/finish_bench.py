@@ -1,10 +1,12 @@
 """The tile engine's kernels on one card: ``finish`` (K3), ``chunk_sort``
-(K1) and K2's strided tile pass, each on the plan read at run time and on
-the plan laid out at compile time, in turns, beside its bound and the
-library call, in the modes and sizes of the paths.
+(K1), K2's strided tile pass, and the radix sort's ``chunk_sort_cyclic``
+(K4) and ``slot_merge`` (K5), each on the plan read at run time and on the
+plan laid out at compile time, in turns, beside its bound and the library
+call, in the modes and sizes of the paths.
 
     python -m radx_tpu_torch.tools.finish_bench [--tag NAME] [--probe]
-        [--sass] [--kernels finish,chunk_sort,cross_stage]
+        [--sass] [--sass-against LIB]
+        [--kernels finish,chunk_sort,cross_stage,chunk_sort_cyclic,slot_merge]
     PYTHONPATH=<checkout> python <this file> --tag parent   # another checkout
 
 Cases (least ms of 5 repeats of 10 calls by CUDA events, in turns: the
@@ -23,20 +25,30 @@ again):
   * ``cross_stage``: every strided pass (f > max_fusion(P)) at the
     paths' geometry (the lowest distance at the finish tile, the level
     just above the pass): keys F = 5..10 and lex2 F = 5..9 at 2^28, rider
-    F = 5..9 and lex3 F = 5..8 at 2^26, lex4..lex8 at 2^24.
+    F = 5..9 and lex3 F = 5..8 at 2^26, lex4..lex8 at 2^24;
+  * ``chunk_sort_cyclic`` and ``slot_merge``: every mode at the radix
+    sort's geometries of 2^26 keys (radix chunks C = 2^19, slots of 4096)
+    and 2^28 (C = 2^19, slots of 1024), on the mode's tile; K4 over the n
+    rows, K5 over the packed slots (nb_pad x C rows), random keys with
+    ties; the two plans' outputs must be equal.
 
 Each row has ``bound_ms``, the larger of each plane read and written once
 at 3.35 TB/s and the pass's 32-bit integer operations (a min and a max a
 pair with one plane; a compare and two selects a plane with more) at
 ``int_ops_per_s``, with ``bound_by``; ``library_ms``:
-``torch.sort`` of the tile view (keys only; none for the riders).
+``torch.sort`` of the tile view (keys only; none for the riders); the
+tile passes' shared-memory round trips.
 
 ``--probe`` first times ``tools/int_rate.cu`` (its min / max
 instructions counted in the compiled code) and prints the card's 32-bit integer
 min / max rate beside SMs x 64 x the maximum SM clock.  ``--sass`` prints
-the opcode counts of every ``chunk_sort_kernel`` instance of the built
-library (``cuobjdump -sass``) beside what the compile-time plan predicts:
-the substages whose direction is a lane bit run once, without a branch.
+the opcode counts of every tile-engine kernel instance of the built
+library (``cuobjdump -sass``), those on a compile-time plan beside what the
+plan predicts: a keys-only substage is 2^R min / max a thread in each body
+its level runs, one body where the direction is a lane, register or tile
+bit, two where it is a warp's bit (a branch one way for a warp).
+``--sass-against LIB`` also compares every instance that LIB (another
+checkout's built library) has too, opcode by opcode.
 
 It reads only the wrappers, ``tile_plan``, ``max_fusion`` and the launch
 path of ``radx_tpu_torch.kernels.bitonic``, so it times any checkout: run
@@ -74,7 +86,9 @@ CROSS_SIZES = {"keys": 28, "rider": 26, "lex2": 28, "lex3": 26,
                **{f"lex{p}": 24 for p in range(4, 9)}}
 MODES = {"keys": (1, 1), "rider": (1, 2),
          **{f"lex{p}": (2, p) for p in range(2, 9)}}
-KERNELS = ("finish", "chunk_sort", "cross_stage")
+KERNELS = ("finish", "chunk_sort", "cross_stage", "chunk_sort_cyclic",
+           "slot_merge")
+RADIX_SIZES = (26, 28)  # the radix sort's geometries (K4, K5)
 
 
 def int_ops_per_s(device=0):
@@ -129,20 +143,26 @@ def _random_planes(n, planes, gen):
     return [x, *rest]
 
 
-def _designs(kernel, planes, log_t, kk, lo_bit=0):
+def _designs(kernel, planes, log_t, kk, lo_bit=0, **kw):
     """The plans the checkout can force for this pass of ``kernel`` ({}
     where it has the run-time plan only: a mode without a compile-time
-    kernel, ``finish`` before its compile-time plan, the other two before
+    kernel, ``finish`` before its compile-time plan, the others before
     theirs)."""
     if hasattr(B, "compile_time_plan"):
-        both = B.compile_time_plan(kernel, planes, log_t, kk, lo_bit)
+        both = (kernel in B.TOP_MODES
+                and B.compile_time_plan(kernel, planes, log_t, kk, lo_bit,
+                                        **kw))
     else:
         both = kernel == "finish" and hasattr(B, "_launch_finish")
     return {"runtime_plan": False, "compile_time_plan": True} if both else {}
 
 
 def _launch_forced(kernel, planes, ncmp, args, top):
-    if kernel == "chunk_sort":
+    if kernel == "chunk_sort_cyclic":
+        B._launch_cyclic(planes, args[0], ncmp, *args[1:], top)
+    elif kernel == "slot_merge":
+        B._launch_slot(planes, args[0], ncmp, *args[1:], top)
+    elif kernel == "chunk_sort":
         B._launch_chunk(planes, ncmp, *args, False, False, top)
     elif kernel == "cross_stage":
         B._launch_cross(planes, ncmp, *args, False,
@@ -218,6 +238,57 @@ def case(kernel, mode, log_n, tag, gen, ops_per_s, f=None):
     print(json.dumps(row), flush=True)
 
 
+def radix_case(kernel, mode, log_n, tag, gen, ops_per_s):
+    """K4 or K5 of one mode at the radix sort's geometry of 2^log_n keys:
+    the rule's pass, then both plans in turns, their outputs held equal."""
+    from radx_tpu_torch.kernels import radix_sort as RS
+
+    ncmp, p = MODES[mode]
+    cfg = SortConfig(strategy="radix")
+    geo = RS.plan(1 << log_n, RS.pick_chunk(1 << log_n, cfg.chunk_elems))
+    c, f = cfg.mode_tiles(p, ncmp)
+    if kernel == "chunk_sort_cyclic":
+        n, tile = 1 << log_n, c
+        lt = tile.bit_length() - 1
+        first, subs = 1, lt * (lt + 1) // 2
+        args = (geo.C, tile)
+        designs = _designs(kernel, p, lt, lt)
+    else:
+        n, tile = geo.nb_pad * geo.C, min(max(f, c), geo.C)
+        lt, ls = tile.bit_length() - 1, geo.slot.bit_length() - 1
+        first, subs = ls + 1, sum(range(ls + 1, lt + 1))
+        args = (geo.C, geo.slot, tile)
+        designs = _designs(kernel, p, lt, lt, log_s=ls)
+    planes = _random_planes(n, p, gen)
+    out = [torch.empty_like(q) for q in planes]
+    bound_ms, bound_by = _bound(n, p, subs, ops_per_s)
+    row = {"tag": tag, "kernel": kernel, "mode": mode, "n_keys": 1 << log_n,
+           "rows": n, "C": geo.C, "tile": tile,
+           **({"slot": geo.slot} if kernel == "slot_merge" else {}),
+           "round_trips": B.round_trips(lt, first, lt, p),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    wrapper = getattr(B, kernel)
+    rule = lambda: wrapper(planes, out, ncmp, *args)  # noqa: E731
+    outs = {}
+    for _ in range(2):
+        row.setdefault("rule", []).append(_ms(rule))
+        for name, top in designs.items():
+            row.setdefault(name, []).append(_ms(
+                lambda: _launch_forced(kernel, planes, ncmp, (out, *args),
+                                       top)))
+            outs[name] = [q.clone() for q in out]
+    if designs:
+        row["plans_equal"] = all(
+            torch.equal(a, b) for a, b in zip(outs["runtime_plan"],
+                                              outs["compile_time_plan"]))
+    row["library_ms"] = (_ms(lambda: torch.sort(planes[0].view(-1, tile),
+                                                dim=1))
+                         if p == 1 else None)
+    print(json.dumps(row), flush=True)
+    if designs and not row["plans_equal"]:
+        raise SystemExit(f"{kernel}{B._suffix(ncmp, p)}: the two plans differ")
+
+
 def _sass(so):
     """{function name: Counter of opcodes} of the library's SASS."""
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
@@ -240,39 +311,89 @@ def _sass(so):
     return funcs
 
 
-def _plan_rules(p, log_t):
-    """Substages of the mode's compile-time chunk plan by the rule of their
-    level's direction (top_levels): tile, register, warp (a branch one
-    for a warp), lanes (no branch)."""
+def _plan_rules(p, log_t, kk=0):
+    """Substages of a compile-time plan (``top_plan(log_t, kk, r)``: a
+    chunk sort, kk = 0; the levels above a slot, kk = log_s + 1) by the rule
+    of their level's direction (top_levels): tile, register, warp (a branch
+    one for a warp), lanes (no branch)."""
     r = B.max_fusion(p)
     counts = collections.Counter()
-    for ph in B.top_plan(log_t, 0, r):
+    for ph in B.top_plan(log_t, kk, r):
         kk_a, kk_b, hi, lo, wlo = ph
-        for kk in range(kk_a, kk_b + 1):
-            how = ("tile" if kk >= log_t else "register" if kk - wlo < r
-                   else "warp" if kk - r >= 5 else "lanes")
-            counts[how] += min(hi, kk - 1) - lo + 1
+        for k in range(kk_a, kk_b + 1):
+            how = ("tile" if k >= log_t else "register" if k - wlo < r
+                   else "warp" if k - r >= 5 else "lanes")
+            counts[how] += min(hi, k - 1) - lo + 1
     return dict(counts)
 
 
-def sass_report():
-    so = _build.build()
-    for name, ops in sorted(_sass(so).items()):
-        m = re.search(r"chunk_sort_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
-        if not m:
-            continue
-        ncmp, p, log_t = map(int, m.groups())
-        keep = ("IMNMX", "VIMNMX", "ISETP", "SEL", "LOP3", "BRA",
-                "BRA_conditional", "BSSY", "BSYNC", "WARPSYNC", "LDS", "STS",
-                "BAR")
-        print(json.dumps({
-            "sass": f"chunk_sort{B._suffix(ncmp, p)}",
-            "compile_time_plan": log_t > 0,
-            "instructions": sum(v for k, v in ops.items()
-                                if k != "BRA_conditional"),
-            **{k: ops.get(k, 0) for k in keep},
-            **({"plan_substages_by_rule": _plan_rules(p, log_t)}
-               if log_t else {})}), flush=True)
+# (launch name, its template arguments) of a tile-engine kernel's mangled
+# name: chunk_sort <NCMP, P, LOG_T>, finish <NCMP, P, LOG_T>, cross_stage
+# <F, NCMP, P>, chunk_sort_cyclic <NCMP, P, LOG_T>, slot_merge <NCMP, P,
+# LOG_T, LOG_S> (LOG_T > 0: a compile-time plan)
+_TILE_KERNELS = re.compile(r"(chunk_sort_cyclic|slot_merge|chunk_sort|finish|"
+                           r"cross_stage)_kernelI((?:Li\d+E)+)E")
+
+
+def _instances(so):
+    """{(kernel, template arguments): opcode Counter} of a library, the
+    arguments without trailing zeros (a run-time plan's LOG_T = 0, which a
+    checkout from before the compile-time plans does not have)."""
+    out = {}
+    for name, ops in _sass(so).items():
+        m = _TILE_KERNELS.search(name)
+        if m:
+            a = [int(x) for x in re.findall(r"Li(\d+)E", m.group(2))]
+            while a and a[-1] == 0:
+                a.pop()
+            out[(m.group(1), tuple(a))] = ops
+    return out
+
+
+def _predicted(kernel, a):
+    """The compile-time plan's substages by rule and, keys only, the
+    VIMNMX the layout predicts: 2^R a substage in each body its level
+    runs (two for a warp's bit, one otherwise)."""
+    if kernel == "cross_stage" or len(a) < 3:
+        return {}
+    p, log_t = a[1], a[2]
+    kk = {"chunk_sort": 0, "chunk_sort_cyclic": 0, "finish": log_t,
+          "slot_merge": a[3] + 1 if len(a) > 3 else 0}[kernel]
+    rules = _plan_rules(p, log_t, kk)
+    w = 1 << B.max_fusion(p)
+    vimnmx = w * (sum(rules.values()) + rules.get("warp", 0))
+    return {"plan_substages_by_rule": rules,
+            **({"predicted_VIMNMX": vimnmx} if p == 1 else {})}
+
+
+def sass_report(against=None):
+    """The opcode counts of every tile-engine kernel instance, those on a
+    compile-time plan beside the plan's prediction; with ``against``
+    (another library) whether each instance both have has the same counts."""
+    mine = _instances(_build.build())
+    other = _instances(against) if against else {}
+    keep = ("IMNMX", "VIMNMX", "ISETP", "SEL", "LOP3", "BRA",
+            "BRA_conditional", "BSSY", "BSYNC", "WARPSYNC", "LDS", "STS",
+            "LDG", "STG", "BAR")
+    for (kernel, a), ops in sorted(mine.items()):
+        row = {"sass": kernel, "template": list(a),
+               "instructions": sum(v for k, v in ops.items()
+                                   if k != "BRA_conditional"),
+               **{k: ops.get(k, 0) for k in keep}, **_predicted(kernel, a)}
+        if (kernel, a) in other:
+            theirs = other[(kernel, a)]
+            row["same_as_against"] = theirs == ops
+            if theirs != ops:
+                row["differs"] = {k: [theirs.get(k, 0), ops.get(k, 0)]
+                                  for k in set(theirs) | set(ops)
+                                  if theirs.get(k, 0) != ops.get(k, 0)}
+        print(json.dumps(row), flush=True)
+    if other:
+        common = [k for k in mine if k in other]
+        print(json.dumps({"sass_against": str(against),
+                          "instances_compared": len(common),
+                          "identical": sum(mine[k] == other[k]
+                                           for k in common)}), flush=True)
 
 
 def run_probe(ops_per_s):
@@ -322,6 +443,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="this checkout")
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--sass-against", default=None)
     ap.add_argument("--kernels", default=",".join(KERNELS))
     args = ap.parse_args(argv)
     timing.require_cuda()
@@ -329,10 +451,16 @@ def main(argv=None) -> int:
     ops_per_s = int_ops_per_s()
     if args.probe:
         print(json.dumps(run_probe(ops_per_s)), flush=True)
-    if args.sass:
-        sass_report()
+    if args.sass or args.sass_against:
+        sass_report(args.sass_against)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for kernel in args.kernels.split(","):
+        if kernel in ("chunk_sort_cyclic", "slot_merge"):
+            for log_n in RADIX_SIZES:
+                for mode in MODES:
+                    radix_case(kernel, mode, log_n, args.tag, gen, ops_per_s)
+                    torch.cuda.empty_cache()
+            continue
         if kernel == "cross_stage":
             todo = [(mode, CROSS_SIZES[mode], f) for mode, (_, p) in
                     MODES.items()

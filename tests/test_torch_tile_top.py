@@ -370,7 +370,8 @@ def test_rule_picks_each_compile_time_plan_where_it_applies():
             assert not rule("cross_stage", p, ct - 1, ct + 3, ct - 1 - f)
         assert rule("finish", p, lt, lt + 3)
         assert not rule("finish", p, lt, lt - 1)
-    assert set(tb.TOP_MODES) == {"chunk_sort", "cross_stage", "finish"}
+    assert set(tb.TOP_MODES) == {"chunk_sort", "cross_stage", "finish",
+                                 "chunk_sort_cyclic", "slot_merge"}
     # the strided pass's compile-time plan measured faster for keys only
     assert tb.TOP_MODES["cross_stage"] == {1}
     assert tb.TOP_MODES["chunk_sort"] == tb.TOP_MODES["finish"] == set(
