@@ -54,7 +54,14 @@ Phases, one line each (any failure raises and exits nonzero):
      one window); ``merge_runs`` (``merge_checks``: 1 to 4 planes, runs
      of 0 to 2^27 rows, shorter than a tile and a tile and a row either
      side, runs and outputs that start 1-3 rows past a 16-byte boundary,
-     all-equal and 0xFFFFFFFF keys, both rows-a-thread variants);
+     all-equal and 0xFFFFFFFF keys, both rows-a-thread variants); a sort's
+     first and last launches (``edge_checks``: chunk_sort's source form and
+     finish's unbiasing form, keys, rider, lex2 and the join's lex2 of two
+     key columns and a tie made from the row, each on both plans: columns
+     0..3 rows past a 16-byte boundary, n at and one either side of a
+     16-row run and equal to the planes' rows, join splits at 0, 1, a run
+     boundary and one either side, and n, stores in place and into n rows,
+     a descending arbitrary-N piece whose sources start past row 0);
   4. the paths through the public entry points, each in a window of its
      own (``window``): the launch counts are set to 0 just before the path
      and read just after it, and every kernel the path runs must show >= 1
@@ -62,7 +69,14 @@ Phases, one line each (any failure raises and exits nonzero):
      also >= 1 launch of chunk_sort, finish and each strided pass on its
      compile-time plan: ``compile_time_plan_launches``; the radix windows
      of ``chunk_sort_cyclic`` and, where no bucket overflows,
-     ``slot_merge`` on theirs: ``radix_top``):
+     ``slot_merge`` on theirs: ``radix_top``; the windows of the sorts
+     whose planes the network's first and last launches make (slice 1's
+     ``sort``, config 2, ``assume_unique``, ``argsort``, ``sort_multi``,
+     the joins, the q3 group-by, the shards' local sorts, the suite's sort,
+     unique-pairs, group-by, argsort and arbitrary-N configs, the oracle's
+     and the scaling model's sorts) also fail on any call of PyTorch's
+     preparation on the card, ``ops/sort.PREP_CALLS`` (``prep="none"``),
+     and the radix windows unless it runs (``prep="runs"``)):
        a. ``sort`` / ``sort_any`` (slice 1), bit-equal to ``torch.sort``;
        b. the sort-based config-3 query at 2^28 rows and the other group-by
           / unique inputs (slice 2), against plain torch references;
@@ -166,6 +180,10 @@ Phases, one line each (any failure raises and exits nonzero):
      row-limited ``cross_stage<1>``) at q3's and the join's shapes held
      bit-equal to its plain version ``_cx_directed``, ascending and
      descending, and timed beside it;
+     chunk_sort's source form and finish's unbiasing form at 2^28 keys,
+     2^26 (key, rider) and 2^28 (key, index), each held bit-equal to its
+     plain version, timed beside it and its bound, then in turns with the
+     in-place kernel of the same plan (``edge_timings``);
      ``cross_stage<2..10>`` likewise on columns bitonic along the 2^F
      axis, at 2^23 and 2^26 keys, and at 2^28 beside its plain version;
      the cross passes with their shared-memory round trips); then the
@@ -263,6 +281,10 @@ def ptxas_report(log):
             r"(I(?:L[ib]\d+E)+E)?", ln)
         if found:
             kernel = _ptxas_name(found.group(1), found.group(2))
+            # csrc/bitonic_io.cu's overloads: a sort's first and last launch
+            edge = ("/src" if "Sources" in ln else
+                    "/unbias" if "KeyOut" in ln else "")
+            kernel = kernel.replace(found.group(1), found.group(1) + edge, 1)
         elif kernel and ("Used" in ln or "spill" in ln):
             info = ln.split(":", 1)[-1] if "ptxas info" in ln else ln
             ptxas[kernel] = f"{ptxas.get(kernel, '')} {info.strip()}".strip()
@@ -564,6 +586,269 @@ def _offset(planes):
     return out
 
 
+def _launch_edge(kernel, top):
+    """``bitonic``'s launch of chunk_sort's source form ("chunk_sort/src")
+    or finish's unbiasing form ("finish/unbias") with its plan forced (the
+    compile-time one where ``top``), whatever the rule would pick."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    if kernel == "chunk_sort/src":
+        return lambda planes, ncmp, chunk, invert, sources, row0, key_out: (
+            B._launch_chunk_src(planes, ncmp, chunk, invert, sources, row0,
+                                key_out, top))
+    return lambda planes, ncmp, tile, kk, invert, key_out: (
+        B._launch_finish_out(planes, ncmp, tile, kk, invert,
+                             B._log_span(planes[0], None), key_out, top))
+
+
+def _edge_case(name, sources, ncmp, total, chunk, key_rows, row0=0,
+               invert=False, **case):
+    """One set of sources through chunk_sort's source form and then
+    finish's unbiasing form at the top level, each on both of its plans
+    where the compile-time plan applies, bit for bit against the plain
+    versions on the same inputs: the planes from ``source_planes_ref``
+    sorted by ``chunk_sort_ref``; ``finish_ref`` on those.  Plane 0 is
+    stored three ways by the chunk sort (as a plane, unbiased in place,
+    unbiased into ``key_rows`` rows of a new output, the rows past it
+    untouched) and two by finish; the other planes stay in place."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    dev = sources[0].cols[0].device if sources[0].cols else "cuda"
+    p = len(sources)
+    first, last = B.source_kernels(ncmp, p)
+    made = B.source_planes_ref(sources, row0, total, dev)
+    k, rd, lx = B._keywords(made, ncmp)
+    want = B.chunk_sort_ref(k, chunk, invert=invert, rider=rd, lex=lx)
+    want = want if isinstance(want, tuple) else (want,)
+    log_c = chunk.bit_length() - 1
+    tile = min(B.top_tile(p), total)
+    log_n = total.bit_length() - 1
+    k, rd, lx = B._keywords(list(want), ncmp)
+    fin = B.finish_ref(k, tile, log_n, invert, rider=rd, lex=lx)
+    fin = fin if isinstance(fin, tuple) else (fin,)
+
+    def stored(planes, out, ref):
+        """max |difference| of the planes and plane 0's store."""
+        e = _max_err(planes[1:], ref[1:]) if p > 1 else 0
+        if out is None:
+            return max(e, _max_err(planes[:1], ref[:1]))
+        m = out.numel() - 4  # 4 guard rows past the output
+        e = max(e, _max_err([out[:m]], [ref[0][:m] ^ SIGN]))
+        return e if bool((out[m:] == 7).all()) else max(e, 1)
+
+    for kernel, ref, plans_ in (
+            (first, want, plans("chunk_sort", p, log_c, log_c)),
+            (last, fin, plans("finish", p, tile.bit_length() - 1, log_n))):
+        for top in plans_:
+            stores = ("plane", "in_place", "rows") if kernel == first else (
+                "in_place", "rows")
+            for how in stores:
+                if kernel == first:
+                    planes = [torch.full((total,), 7, dtype=torch.int32,
+                                         device=dev) for _ in range(p)]
+                else:
+                    planes = [w.clone() for w in want]
+                out = (None if how == "plane" else planes[0]
+                       if how == "in_place" else torch.full(
+                           (key_rows + 4,), 7, dtype=torch.int32, device=dev))
+                key_out = None if out is None else (
+                    out if how == "in_place" else out[:key_rows], 0)
+                if kernel == first:
+                    _launch_edge("chunk_sort/src", top)(
+                        planes, ncmp, chunk, invert, sources, row0, key_out)
+                else:
+                    _launch_edge("finish/unbias", top)(
+                        planes, ncmp, tile, log_n, invert, key_out)
+                torch.cuda.synchronize()
+                if how == "in_place":
+                    e = max(_max_err(planes[1:], ref[1:]) if p > 1 else 0,
+                            _max_err(planes[:1], [ref[0] ^ SIGN]))
+                else:
+                    e = stored(planes, out, ref)
+                record([kernel], e, e == 0, case=name,
+                    rows=total, chunk=chunk, tile=tile, store=how,
+                    compile_time_plan=top, row0=row0, invert=invert, **case)
+                del planes, out
+
+
+def edge_checks(dev):
+    """Phase 3 for a sort's first and last launches (csrc/bitonic_io.cu,
+    ``_edge_case``): chunk_sort's source form and finish's unbiasing form in
+    the keys, rider and lex2 modes and the join's lex2 of two key columns
+    and a tie made from the row, on both plans: columns 0..3 rows past a
+    16-byte boundary, n at, one below and one above a run of 16 rows (the
+    int4 loads), n equal to the planes' rows, join splits at 0, 1, a run
+    boundary and one either side, and n, 0xFFFFFFFF keys among the real
+    ones; a piece of the arbitrary-N path (row0 past 0, descending)."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    def col(n, off):
+        """n random int32 rows 4 * off bytes past a 16-byte boundary, every
+        seventh 0xFFFFFFFF (-1)."""
+        buf = torch.empty(n + 4, dtype=torch.int32, device=dev)
+        v = buf[off: off + n]
+        v.copy_(torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                              generator=gen, device=dev))
+        v[::7] = -1
+        return v
+
+    total = 1 << 16
+    for n in (16 * 777, 16 * 777 - 1, 16 * 777 + 1, total):
+        for off in (0, 1, 2, 3):
+            keys = col(n, off)
+            for chunk in (B.top_tile(1), 1 << 10):
+                _edge_case("keys", [B.key_source(keys)], 1, total, chunk, n,
+                           n=n, offset=off)
+            rider = col(n, 3 - off)
+            _edge_case("rider", [B.key_source(keys),
+                                 B.column_source(rider, -7)], 1, total,
+                       B.top_tile(2), n, n=n, offset=off)
+            _edge_case("lex2", [B.key_source(keys), B.index_source(total)],
+                       2, total, B.top_tile(2), n, n=n, offset=off)
+    n = 16 * 1500 + 5
+    keys = col(n, 0)
+    for nb in (0, 1, 16 * 300 - 1, 16 * 300, 16 * 300 + 1, n):
+        b, pr = col(nb, 1), col(n - nb, 2)
+        b.copy_(keys[:nb])
+        pr.copy_(keys[nb:])
+        _edge_case("union", [B.key_source(b, pr),
+                             B.index_source(n, nb, (0, (1 << 30) - nb),
+                                            0x7FFFFFFF)],
+                   2, total, B.top_tile(2), n, n=n, nb=nb)
+    # a piece of the arbitrary-N path: rows [2^16, 2^17) of sources of 2^16
+    # + 12345 rows, descending
+    keys = col(total + 12345, 3)
+    for ncmp, sources in ((1, [B.key_source(keys)]),
+                          (2, [B.key_source(keys),
+                               B.index_source(2 * total)])):
+        _edge_case("piece", sources, ncmp, total, B.top_tile(len(sources)),
+                   12345, row0=total, invert=True, n=total + 12345)
+    torch.cuda.empty_cache()
+
+
+def edge_timings(dev, gen, time_pair, card):
+    """Phase 5 for a sort's first and last launches at the cells' shapes
+    (2^28 keys: the keys cell; 2^26 (key, rider): q3's pieces; 2^28 (key,
+    index): the pairs cell): chunk_sort's source form reading the caller's
+    column(s) and finish's unbiasing form at the top level, each first held
+    bit-equal to its plain version on the same inputs, then timed beside it
+    and its bound (each source column read once, each plane and the keys
+    written once; the network's operations and one XOR a key), then in
+    turns with the in-place kernel of the same network on the same plan
+    (in place, in place, new, new... : old, new, new, old), and finish's
+    unbiasing store in place against the store into a new output of n - 3
+    rows (the keys cell writes in place: n is the planes' rows)."""
+    from radx_tpu_torch import SortConfig
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.utils import timing
+
+    i32 = torch.int32
+    cfg = SortConfig()
+
+    def made_planes(sources, n):
+        return B.source_planes_ref(sources, 0, n, dev)
+
+    for name, ncmp, log_n in (("keys", 1, 28), ("rider", 1, 26),
+                              ("lex2", 2, 28)):
+        n = 1 << log_n
+        keys = torch.randint(-(2**31), 2**31, (n,), dtype=i32,
+                             generator=gen, device=dev)
+        sources = [B.key_source(keys)]
+        if name == "rider":
+            sources.append(B.column_source(torch.randint(
+                -(2**31), 2**31, (n,), dtype=i32, generator=gen,
+                device=dev), -7))
+        elif name == "lex2":
+            keys.bitwise_and_(0xFFFFF)  # ties decided by the index
+            keys[::7] = -1
+            sources.append(B.index_source(n))
+        p = len(sources)
+        chunk, tile = cfg.mode_tiles(p, ncmp)
+        first, last = B.source_kernels(ncmp, p)
+        planes = [torch.empty(n, dtype=i32, device=dev) for _ in range(p)]
+        k, rd, lx = B._keywords(planes, ncmp)
+        B.chunk_sort_sources(k, chunk, sources, rider=rd, lex=lx)
+        kr, rr, lr = B._keywords(made_planes(sources, n), ncmp)
+        want = B.chunk_sort_ref(kr, chunk, rider=rr, lex=lr)
+        want = want if isinstance(want, tuple) else (want,)
+        e = _max_err(planes, want)
+        record([first], e, e == 0, n=n, chunk=chunk, shape="cell")
+        read = sum(4 * n for s in sources if s.cols)
+        lc = chunk.bit_length() - 1
+        ops = _cx_ops(n, lc * (lc + 1) // 2, p) + n
+        def plain_first():
+            kp, rp, lp = B._keywords(made_planes(sources, n), ncmp)
+            return B.chunk_sort_ref(kp, chunk, rider=rp, lex=lp)
+
+        time_pair(first, log_n,
+                  lambda: B.chunk_sort_sources(k, chunk, sources, rider=rd,
+                                               lex=lx),
+                  plain_first, read + 4 * p * n, ops, iters=5,
+                  round_trips=B.round_trips(lc, 1, lc, p))
+        # in turns with the in-place chunk sort (same network, same plan)
+        same = [q.clone() for q in planes]
+        ks, rs, ls = B._keywords(same, ncmp)
+        ms = {}
+        for which in ("in_place", "sources", "sources", "in_place"):
+            run = ((lambda: B.chunk_sort(ks, chunk, rider=rs, lex=ls))
+                   if which == "in_place" else
+                   (lambda: B.chunk_sort_sources(k, chunk, sources, rider=rd,
+                                                 lex=lx)))
+            ms.setdefault(which, []).append(
+                timing.time_cuda(run, iters=10, repeats=5).seconds * 1e3)
+        _line("context", what=f"{first} in turns with the in-place "
+              f"chunk_sort, n=2^{log_n}", **ms, **card)
+        del same, ks, rs, ls
+        # finish's unbiasing form at the top level on the chunk-sorted
+        # planes (the tiles hold every row of each merge group)
+        lt = tile.bit_length() - 1
+        base = [w.clone() for w in want]
+        del want
+        got = [w.clone() for w in base]
+        kg, rg, lg = B._keywords(got, ncmp)
+        B.finish(kg, tile, log_n, rider=rg, lex=lg, key_out=(got[0], 0))
+        kb, rb, lb = B._keywords(base, ncmp)
+        ref = B.finish_ref(kb, tile, log_n, rider=rb, lex=lb)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        e = max(_max_err(got[:1], [ref[0] ^ SIGN]),
+                _max_err(got[1:], ref[1:]) if p > 1 else 0)
+        out = torch.empty(n - 3, dtype=i32, device=dev)
+        got = [w.clone() for w in base]
+        kg, rg, lg = B._keywords(got, ncmp)
+        B.finish(kg, tile, log_n, rider=rg, lex=lg, key_out=(out, 0))
+        e = max(e, _max_err([out], [ref[0][: n - 3] ^ SIGN]))
+        record([last], e, e == 0, n=n, tile=tile, shape="cell",
+               stores=["in_place", "rows n - 3"])
+        del got, ref
+        def plain_last():
+            res = B.finish_ref(kb, tile, log_n, rider=rb, lex=lb)
+            return (res if isinstance(res, tuple) else (res,))[0] ^ SIGN
+
+        time_pair(last, log_n,
+                  lambda: B.finish(kb, tile, log_n, rider=rb, lex=lb,
+                                   key_out=(kb, 0)),
+                  plain_last, 8 * p * n, _cx_ops(n, lt, p) + n, iters=5,
+                  round_trips=B.round_trips(lt, log_n, log_n, p))
+        ms = {}
+        for which in ("in_place", "unbias_in_place", "unbias_rows",
+                      "unbias_rows", "unbias_in_place", "in_place"):
+            run = {"in_place": lambda: B.finish(kb, tile, log_n, rider=rb,
+                                                lex=lb),
+                   "unbias_in_place": lambda: B.finish(
+                       kb, tile, log_n, rider=rb, lex=lb, key_out=(kb, 0)),
+                   "unbias_rows": lambda: B.finish(
+                       kb, tile, log_n, rider=rb, lex=lb,
+                       key_out=(out, 0))}[which]
+            ms.setdefault(which, []).append(
+                timing.time_cuda(run, iters=10, repeats=5).seconds * 1e3)
+        _line("context", what=f"{last} in turns with the in-place finish, "
+              f"n=2^{log_n}", **ms, **card)
+        del planes, k, rd, lx, base, kb, rb, lb, out, keys, sources
+        torch.cuda.empty_cache()
+
+
 def _radix_tile_checks(planes, ncmp, cfg):
     """K4 and K5 of one mode on ``planes`` (``tile_engine_checks``), each
     case on both plans wherever the compile-time plan applies (``forced``),
@@ -824,7 +1109,7 @@ def radix_path(dev):
     for n in (n26, n28):
         keys = u32(n)
         with window(f"radix_sort_2e{n.bit_length() - 1}",
-                    radix_required(1, 1), radix_top(1, 1)):
+                    radix_required(1, 1), radix_top(1, 1), prep="runs"):
             got = sort(keys, cfg)
         ok = torch.equal(_i32(got), _i32(bench.torch_sort_u32(keys)))
         flag_line(f"radix_sort_n{n}", "keys", equal_torch_sort=ok)
@@ -848,7 +1133,7 @@ def radix_path(dev):
                     ("radix_hist", "radix_rank", "chunk_sort_cyclic",
                      *B.KEY_KERNELS))
         with window(f"radix_sort_{name}_2e26", required,
-                    radix_top(1, 1, merge=name != "lowcard")):
+                    radix_top(1, 1, merge=name != "lowcard"), prep="runs"):
             got = sort(keys, cfg)
         ok = torch.equal(_i32(got), _i32(bench.torch_sort_u32(keys)))
         flag_line(f"radix_sort_{name}_n{n26}", "keys", equal_torch_sort=ok)
@@ -862,7 +1147,8 @@ def radix_path(dev):
     # gather
     with window("radix_sort_pairs_stable_2e28",
                 (*radix_required(2, 2),
-                 *gather_routes("index", "partitioned")), radix_top(2, 2)):
+                 *gather_routes("index", "partitioned")), radix_top(2, 2),
+                prep="runs"):
         got = sort_pairs(keys, payload, cfg)
     want = bench.torch_sort_pairs(keys, payload)
     ok = all(torch.equal(_i32(a), _i32(b)) for a, b in zip(got, want))
@@ -874,7 +1160,7 @@ def radix_path(dev):
 
     k26 = u32(n26, 0, 1 << 20)
     with window("radix_argsort_2e26", radix_required(2, 2),
-                radix_top(2, 2)):
+                radix_top(2, 2), prep="runs"):
         got = argsort(k26, cfg)
     ok = torch.equal(got.long(), _biased_order(_i32(k26) ^ SIGN))
     flag_line(f"radix_argsort_n{n26}", "lex2", equal_reference=ok)
@@ -889,7 +1175,7 @@ def radix_path(dev):
         _fail(f"n = {n_g} does not keep the power-of-two rider sort")
     keys, vals = bench.groupby_data(n_g)
     with window("radix_groupby_sum_15x2e22", radix_required(1, 2),
-                radix_top(1, 2)):
+                radix_top(1, 2), prep="runs"):
         res = groupby(keys, vals, "sum", cfg)
     g = bench._check_groups(*res, keys, vals)
     flag_line(f"radix_groupby_sum_n{n_g}", "rider", groups=g,
@@ -902,7 +1188,7 @@ def radix_path(dev):
         _fail(f"n = {n_g} does not take the arbitrary-N rider sort")
     keys, vals = bench.groupby_data(n_g)
     with window("radix_groupby_sum_arbn_3x2e24", radix_required(1, 2),
-                radix_top(1, 2)):
+                radix_top(1, 2), prep="runs"):
         res = groupby(keys, vals, "sum", cfg)
     g = bench._check_groups(*res, keys, vals)
     flag_line(f"radix_groupby_sum_arbn_n{n_g}", "rider", groups=g,
@@ -914,7 +1200,8 @@ def radix_path(dev):
     # the network's sort of 2^23 keys: levels of up to 9 cross distances
     with window("radix_sort_all_equal_2e23",
                 ("radix_hist", "radix_rank", "chunk_sort_cyclic",
-                 *B.mode_kernels(1, 1, 9)), radix_top(1, 1, merge=False)):
+                 *B.mode_kernels(1, 1, 9)), radix_top(1, 1, merge=False),
+                prep="runs"):
         got = sort(same, cfg)
     ok = torch.equal(_i32(got), _i32(same))
     if flag_line(f"radix_sort_all_equal_n{RADIX_N_EQUAL}", "keys",
@@ -1314,15 +1601,22 @@ def merge_checks(dev):
 
 
 @contextlib.contextmanager
-def window(name, required, top=()):
+def window(name, required, top=(), prep=None):
     """Drive one path inside the block: every launch count is set to 0 just
     before it and read just after it.  Fails unless every kernel of
     ``required`` launched at least once, every kernel of ``top`` at least
-    once on its compile-time plan, and no plain version ran."""
+    once on its compile-time plan, and no plain version ran.  ``prep``:
+    "none", the path's sorts make their planes in the network's first and
+    last launches, so no call of PyTorch's preparation
+    (``ops/sort.PREP_CALLS``) may run on the card; "runs", the path keeps
+    that preparation (the radix sort), so some call must run."""
+    from radx_tpu_torch.ops import sort as S
+
     mods = _kernel_modules()
     torch.cuda.synchronize()
     for m in mods:
         m.reset_counts()
+    S.reset_prep_counts()
     yield
     torch.cuda.synchronize()
     launches, plain = {}, {}
@@ -1334,13 +1628,39 @@ def window(name, required, top=()):
     from radx_tpu_torch.kernels import bitonic as B
 
     tops = {k: v for k, v in B.TOP_LAUNCHES.items() if v}
+    preps = {k: v for k, v in S.PREP_CALLS.items() if v}
     _line("counts", path=name, launches={k: v for k, v in launches.items() if v},
-          compile_time_plan_launches=tops, plain_calls=plain)
+          compile_time_plan_launches=tops, plain_calls=plain,
+          prep_calls=preps, prep_rule=prep)
     missing = [k for k in required if launches[k] < 1]
     missing += [f"{k} (compile-time plan)" for k in top if k not in tops]
     if missing or any(plain.values()):
         _fail(f"kernels not launched by the {name} path: {missing}; "
               f"plain calls {plain}")
+    if prep == "none" and preps:
+        _fail(f"the {name} path prepared its planes with PyTorch: {preps}")
+    if prep == "runs" and not preps:
+        _fail(f"the {name} path no longer runs PyTorch's preparation")
+
+
+def src_kernels(ncmp, planes, distances=None, unbias=True):
+    """The launch names of a sort whose planes the network makes
+    (``bitonic.sort_kernels``: the source chunk sort, the cross passes,
+    finish and, where the keys come back, the unbiasing finish)."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    return B.sort_kernels(ncmp, planes, distances, unbias)
+
+
+def top_src(ncmp, planes, distances, unbias=True):
+    """``top_kernels`` of such a sort: its source chunk sort, finish, the
+    unbiasing finish and the strided passes, on compile-time plans."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    first, last = B.source_kernels(ncmp, planes)
+    rest = [k for k in top_kernels(ncmp, planes, distances)
+            if not k.startswith("chunk_sort")]
+    return (first, *rest, *((last,) if unbias else ()))
 
 
 def top_kernels(ncmp, planes, distances):
@@ -1532,7 +1852,8 @@ def join_path(dev):
 
     # the union's (key, tie) sort, its value planes' gather (sides of 10^8
     # and 2^24 rows: the partitioned route), scan, compact
-    join_kernels = (*_lex(2), *gather_routes("tagged", "partitioned"),
+    join_kernels = (*src_kernels(2, 2, unbias=False),
+                    *gather_routes("tagged", "partitioned"),
                     *SG.KERNELS, *CP.KERNELS)
     gen = torch.Generator(device=dev).manual_seed(31)
 
@@ -1551,7 +1872,7 @@ def join_path(dev):
                                 probe.column("k"), probe.column("v"))
     pieces, overhangs = [], []
     with window("config4_join_inner_1e8", join_kernels,
-                top_kernels(2, 2, 14)), peak_memory(
+                top_src(2, 2, 14, unbias=False), prep="none"), peak_memory(
             "config4_join_inner_1e8", 8.95094,
             *(t.column(c) for t, c in ((build, "k"), (build, "w"),
                                        (probe, "k"), (probe, "v")))), \
@@ -1569,7 +1890,7 @@ def join_path(dev):
     del inner, want
     build_f = Table({"k": build.column("k"),
                      "w": build.column("w").view(torch.float32)})
-    with window("config4_join_left_float32_1e8", join_kernels):
+    with window("config4_join_left_float32_1e8", join_kernels, prep="none"):
         left = probe.join(build_f, "k", "v", "w", how="left", missing=-1.5)
     bench.check_join(left, "k", "v", "w", bench.torch_join_ref(
         build.column("k"), build.column("w"), probe.column("k"),
@@ -1588,7 +1909,8 @@ def join_path(dev):
     build, probe = bench._join_tables(n20)
     radix = SortConfig(strategy="radix")
     pieces = []
-    with window("lazy_join_radix_arbn", join_kernels), sorted_rows(pieces):
+    with window("lazy_join_radix_arbn", join_kernels, prep="none"), \
+            sorted_rows(pieces):
         with no_sync(dev):
             lazy = probe.lazy(radix).join(build.lazy(radix), "k", "v", "w")
         got = lazy.collect()
@@ -1619,7 +1941,7 @@ def join_path(dev):
     pk = torch.cat((hit, miss))[torch.randperm(n24, generator=gen,
                                                device=dev)].view(torch.uint32)
     pv = rand32(n24).view(torch.uint32)
-    with window("join_multi_2e24", join_kernels):
+    with window("join_multi_2e24", join_kernels, prep="none"):
         truncated = {m: J.join_merge_multi(bk, bv, pk, pv, m)[4]
                      for m in (4, 6)}
         multi = Table({"k": pk, "v": pv}).join(
@@ -1666,9 +1988,9 @@ def sort_path(dev):
 
     n28 = 1 << 28
     keys, payload = bench.pairs_data(n28)
-    required = (*_lex(2), *gather_routes("index", "partitioned"))
+    required = (*src_kernels(2, 2), *gather_routes("index", "partitioned"))
     with window("config2_sort_pairs_stable_2e28", required,
-                top_kernels(2, 2, 15)), peak_memory(
+                top_src(2, 2, 15), prep="none"), peak_memory(
             "config2_sort_pairs_stable_2e28", 6.0, keys, payload):
         got = sort_pairs(keys, payload)
     want = bench.torch_sort_pairs(keys, payload)
@@ -1678,7 +2000,8 @@ def sort_path(dev):
           equal_reference=True)
     del got, want, keys
     perm = torch.randperm(n28, generator=gen, device=dev).to(i32)
-    with window("sort_pairs_assume_unique_2e28", B.RIDER_KERNELS):
+    with window("sort_pairs_assume_unique_2e28", src_kernels(1, 2),
+                prep="none"):
         gk, gp = sort_pairs(perm.view(torch.uint32), payload,
                             assume_unique=True)
     wp = torch.empty_like(_i32(payload))
@@ -1694,7 +2017,9 @@ def sort_path(dev):
     k26 = rand32(n26, 0, 1 << 20)
     if not S._use_decomposition(n_odd, SortConfig()):
         _fail(f"n = {n_odd} does not take the arbitrary-N path")
-    with window("argsort_2e26_and_arbitrary_n", _lex(2)):
+    with window("argsort_2e26_and_arbitrary_n", src_kernels(2, 2,
+                                                           unbias=False),
+                prep="none"):
         got = argsort(k26.view(torch.uint32))
         got_odd = argsort(k26[:n_odd].view(torch.uint32))
     if not torch.equal(got.long(), _biased_order(k26)):
@@ -1707,7 +2032,8 @@ def sort_path(dev):
     pays = [rand32(n26) for _ in range(6)]
     for m, size in ((5, n26), (3, small), (4, small), (6, small)):
         with window(f"sort_multi_{m}_payloads",
-                    (*_lex(2), *gather_routes("index", "partitioned"))):
+                    (*src_kernels(2, 2),
+                     *gather_routes("index", "partitioned")), prep="none"):
             sk, sp = S.sort_multi(k26[:size].view(torch.uint32),
                                   [p[:size].view(torch.float32)
                                    for p in pays[:m]])
@@ -1805,8 +2131,8 @@ def rider_arbn_path(dev):
                        device=dev)
     overhangs = []
     with window("groupby_rider_arbn_1e8",
-                (*B.RIDER_KERNELS, *SG.KERNELS, *CP.KERNELS),
-                top_kernels(1, 2, 13)), \
+                (*src_kernels(1, 2), *SG.KERNELS, *CP.KERNELS),
+                top_src(1, 2, 13), prep="none"), \
             overhang_passes(overhangs):
         res = {agg: groupby(ids.view(torch.uint32), v1.view(torch.uint32),
                             agg, cfg) for agg in ("sum", "count")}
@@ -1846,8 +2172,9 @@ def example_path(dev):
     # (every column through the network: five planes over the joined
     # 2^17 rows, four over the 16,384-row query, which reaches F <= 2),
     # top_k's chunk pass (its final sort of 24 candidates fits one chunk)
-    required = (*CP.KERNELS, *SG.KERNELS, *B.RIDER_KERNELS, *_lex(2, 5),
-                "chunk_sort/lex4", "cross_stage<1>/lex4",
+    required = (*CP.KERNELS, *SG.KERNELS, *src_kernels(1, 2), *_lex(2, 5),
+                *B.source_kernels(2, 2), "chunk_sort/lex4",
+                "cross_stage<1>/lex4",
                 "cross_stage<2>/lex4", "finish/lex4", "gather_planes",
                 "gather_planes/tagged")
     with window("query_pipeline_example", required):
@@ -1920,7 +2247,7 @@ def chunked_path(dev, card):
     torch.cuda.reset_peak_memory_stats()
     _staging.reset_stats()
     with window("config3_eager_chunked_2e30",
-                (*B.RIDER_KERNELS, *CP.KERNELS, *SG.KERNELS)):
+                (*src_kernels(1, 2), *CP.KERNELS, *SG.KERNELS)):
         res, first = _timed(lambda: bench.run_query_chunked(*cols))
     peak = torch.cuda.max_memory_allocated()
     _staged("config3_eager_chunked_2e30")
@@ -1946,10 +2273,14 @@ def chunked_path(dev, card):
     gen = torch.Generator(device=dev).manual_seed(91)
     keys_dev = bench._randint(-(2**31), 2**31, n, gen).view(torch.uint32)
     keys = keys_dev.cpu().numpy()
-    for name, m, slab in (("sort_chunked_8_runs_2e26_slabs", n, 1 << 26),
-                          ("sort_chunked_one_slab", (1 << 26) - 5, 1 << 26)):
+    # many slabs: each slab's planes prepared on the card and merged by
+    # the network's merge levels; one slab: ``sort`` itself
+    for name, m, slab, required in (
+            ("sort_chunked_8_runs_2e26_slabs", n, 1 << 26, B.KEY_KERNELS),
+            ("sort_chunked_one_slab", (1 << 26) - 5, 1 << 26,
+             src_kernels(1, 1))):
         _staging.reset_stats()
-        with window(name, B.KEY_KERNELS):
+        with window(name, required):
             got, secs = _timed(lambda: chunked.sort_chunked(keys[:m],
                                                             slab=slab))
         _staged(name)
@@ -1997,12 +2328,14 @@ def dist_path(dev, card):
         got = torch.cat([_i32(rows[d, : v[d]]) for d in range(len(v))])
         return got.numel() == expect.numel() and torch.equal(got, _i32(expect))
 
-    def drive(name, required, n, fn, check):
+    def drive(name, required, n, fn, check, prep="none"):
         """The path once in its window (checked by ``check(out) -> (ok,
-        fields)``; every path runs the merge kernels too), then once more
-        by the host clock, warm, with its peak device memory (the peak
-        over what was allocated before the call: inputs not counted)."""
-        with window(name, (*required, *MG.KERNELS)):
+        fields)``; every path runs the merge kernels too; ``prep`` as
+        ``window``'s: the local sorts of keys and of (key, index) make their
+        planes in the network), then once more by the host clock, warm, with
+        its peak device memory (the peak over what was allocated before the
+        call: inputs not counted)."""
+        with window(name, (*required, *MG.KERNELS), prep=prep):
             out, first = _timed(fn)
         ok, extra = check(out)
         del out
@@ -2024,10 +2357,11 @@ def dist_path(dev, card):
         return lambda o: (not o[2].any() and rows_equal(o[0], o[1], expect),
                           {})
 
+    local = src_kernels(1, 1, unbias=False)  # the shards' local sorts
     for name, kw in (("dist_sort_flat_overlap_8x2e25", {}),
                      ("dist_sort_flat_no_overlap_8x2e25", {"overlap": False}),
                      ("dist_sort_hier_4x2_8x2e25", {"exchange": "hier"})):
-        drive(name, B.KEY_KERNELS, n28,
+        drive(name, local, n28,
               lambda: DS.sort_sharded(keys, mesh8, **kw), keys_ok(want))
 
     pk = bench._randint(0, 1 << 16, n28, gen)
@@ -2040,18 +2374,18 @@ def dist_path(dev, card):
               _lex(3), n28,
               lambda: DS.sort_pairs_sharded(pk, pv, mesh8, stable=stable),
               lambda o: (not o[3].any() and rows_equal(o[0], o[2], want_k)
-                         and rows_equal(o[1], o[2], want_v), {}))
-    drive("dist_argsort_8x2e25", _lex(2), n28,
+                         and rows_equal(o[1], o[2], want_v), {}), prep=None)
+    drive("dist_argsort_8x2e25", src_kernels(2, 2, unbias=False), n28,
           lambda: DS.argsort_sharded(pk, mesh8),
           lambda o: (not o[3].any() and rows_equal(o[0], o[2], want_k)
                      and rows_equal(o[1], o[2], order.to(torch.int32)), {}))
     del pk, pv, order, want_k, want_v
-    drive("dist_sort_auto_presorted_8x2e25", B.KEY_KERNELS, n28,
+    drive("dist_sort_auto_presorted_8x2e25", local, n28,
           lambda: DS.sort_sharded_auto(want, mesh8),
           lambda o: (o[2] > 2 and rows_equal(o[0], o[1], want),
                      {"capacity_used": o[2]}))
     nr = n28 - 12345
-    drive("dist_sort_ragged_6_shards", B.KEY_KERNELS, nr,
+    drive("dist_sort_ragged_6_shards", local, nr,
           lambda: DS.sort_sharded(keys[:nr], Mesh([dev] * 6)),
           keys_ok(bench.torch_sort_u32(keys[:nr])))
     del keys, want
@@ -2063,7 +2397,7 @@ def dist_path(dev, card):
     drive("dist_sort_pairs_all_ffffffff_8x2e23", _lex(3), nf,
           lambda: DS.sort_pairs_sharded_auto(fk, fv, mesh8),
           lambda o: (rows_equal(o[0], o[2], fk) and rows_equal(o[1], o[2], fv),
-                     {"capacity_used": o[3]}))
+                     {"capacity_used": o[3]}), prep=None)
     del fk, fv
     torch.cuda.empty_cache()
 
@@ -2080,7 +2414,7 @@ def dist_path(dev, card):
             out = multihost.sort_sharded_guarded(shard, mesh)
             return [multihost.allgather_result(x) for x in out]
 
-        drive("dist_sort_nccl_one_rank_2e26", B.KEY_KERNELS, n26, group_sort,
+        drive("dist_sort_nccl_one_rank_2e26", local, n26, group_sort,
               lambda o: (not o[2].any()
                          and np.array_equal(DS.collect(o[0], o[1]), expect),
                          {"backend": dist.get_backend(),
@@ -2089,7 +2423,7 @@ def dist_path(dev, card):
         dist.destroy_process_group()
     del host, expect
     # shards of 2^18 keys: levels of up to 4 cross distances
-    with window("dryrun_multichip_8", (*B.mode_kernels(1, 1, 4),
+    with window("dryrun_multichip_8", (*src_kernels(1, 1, 4, unbias=False),
                                        "chunk_sort/lex3", "finish/lex3",
                                        *MG.KERNELS)):
         _, secs = _timed(lambda: dryrun_multichip(8, dev))
@@ -2116,7 +2450,12 @@ def suite_path(dev, card):
 
     t0 = time.perf_counter()
     for name in BS.DEFAULT_SET:
-        with window(f"suite_{name}", BS.CONFIGS[name].kernels):
+        # the sorts whose planes the network makes prepare none on the
+        # card; the radix sorts keep PyTorch's preparation
+        first = BS.CONFIGS[name].kernels[0]
+        prep = ("none" if first.startswith("chunk_sort/src") else
+                "runs" if name.startswith("sort_radix") else None)
+        with window(f"suite_{name}", BS.CONFIGS[name].kernels, prep=prep):
             m, row = BS.run(name, iters=3, repeats=3)
         _line("suite", metrics_row=m.row(), **row, **card)
         if name == "arbn_600m" and not row["decomposition"]:
@@ -2207,7 +2546,7 @@ def last_modules_path(dev, card):
 
     # -- the scaling model: rates, audit, calibration, table, trace -------------
     t1 = time.perf_counter()
-    with window("scaling_model_rates", B.KEY_KERNELS):
+    with window("scaling_model_rates", src_kernels(1, 1), prep="none"):
         rates = SM.measure_rates(dev)
     _line("scaling_rates", sort_gkeys_per_s={str(k): v for k, v in
                                              rates["sort"].items()},
@@ -2215,13 +2554,14 @@ def last_modules_path(dev, card):
     # shards of 2^23 keys: levels of up to 9 cross distances
     for exchange in ("flat", "hier"):
         with window(f"scaling_model_audit_{exchange}_8x2e23",
-                    B.mode_kernels(1, 1, 9)):
+                    src_kernels(1, 1, 9, unbias=False)):
             a = SM.audit(8, SM.DEFAULT_L, exchange, device=dev)
         _line("scaling_audit", **a, **card)
         if not a["agrees"]:
             _fail(f"the counted exchange ({exchange}) departs from the "
                   "model's")
-    with window("scaling_model_calibration_8x2e23", B.mode_kernels(1, 1, 9)):
+    with window("scaling_model_calibration_8x2e23",
+                src_kernels(1, 1, 9, unbias=False)):
         cal = SM.calibrate(rates, SM.DEFAULT_L, device=dev)
     _line("scaling_calibration", **cal, **card)
     for name, (bw, t_wave) in SM.LINKS.items():
@@ -2231,7 +2571,7 @@ def last_modules_path(dev, card):
         _line("scaling_model", row=row, **card)
     with tempfile.TemporaryDirectory() as tmp:
         with window("scaling_model_trace_8x2e15",
-                    ("chunk_sort", "cross_stage<1>", "finish")):
+                    ("chunk_sort/src", "cross_stage<1>", "finish")):
             path = SM.trace(pathlib.Path(tmp) / "dist_sort_8shard.json",
                             device=dev)
         events = json.load(open(path)).get("traceEvents", [])
@@ -2254,7 +2594,7 @@ def last_modules_path(dev, card):
     with concurrent.futures.ThreadPoolExecutor(len(gens)) as pool:
         keys = dict(zip(gens, pool.map(lambda g: g(), gens.values())))
         want = {k: pool.submit(oracle.sort_u32, v) for k, v in keys.items()}
-        with window("oracle_config1_2e26", B.KEY_KERNELS):
+        with window("oracle_config1_2e26", src_kernels(1, 1), prep="none"):
             got = {k: sort(torch.from_numpy(v).to(dev)).cpu().numpy()
                    for k, v in keys.items()}
         for name in gens:
@@ -2268,7 +2608,8 @@ def last_modules_path(dev, card):
     n22 = 1 << 22
     pk = runtime.gen_uniform(n22, seed=2)
     pv = np.arange(n22, dtype=np.uint32)
-    with window("oracle_pairs_2e22", (*_lex(2), "gather_planes")):
+    with window("oracle_pairs_2e22", (*src_kernels(2, 2), "gather_planes"),
+                prep="none"):
         gk, gv = sort_pairs(torch.from_numpy(pk).to(dev),
                             torch.from_numpy(pv).to(dev))
         gk, gv = gk.cpu().numpy(), gv.cpu().numpy()
@@ -2290,7 +2631,7 @@ def last_modules_path(dev, card):
     if not ok or diff != 0:
         _fail("interpret_parity(sort) found a difference")
     k26 = bench._randint(-(2**31), 2**31, n26, gen).view(torch.uint32)
-    with window("checked_sort_2e26", B.KEY_KERNELS):
+    with window("checked_sort_2e26", src_kernels(1, 1), prep="none"):
         got = debug.checked(sort)(k26)
     same = torch.equal(_i32(got), _i32(sort(k26)))
     _line("debug", what="checked(sort) against sort", n=n26, equal=same)
@@ -2340,7 +2681,7 @@ def main():
     # the kernel instances the paths below drive (the radix ones in the
     # keys, rider, lex2 and lex3 modes)
     all_kernels = (*B.KEY_KERNELS, *B.RIDER_KERNELS, *B.LEX_KERNELS,
-                   *CP.KERNELS, *SG.KERNELS, *AG.KERNELS, *RX.KERNELS,
+                   *B.SOURCE_KERNELS, *CP.KERNELS, *SG.KERNELS, *AG.KERNELS, *RX.KERNELS,
                    *GT.KERNELS, *MG.KERNELS, "radix_rank",
                    *(k for m in MODES.values() for k in
                      (*B.radix_kernels(*m), *M.mode_kernels(*m))))
@@ -2545,6 +2886,7 @@ def main():
         del big
         torch.cuda.empty_cache()
     tile_engine_checks(dev, cfg)
+    edge_checks(dev)
 
     del base, ties, iota
     single_pass_checks(dev, cfg, rng)
@@ -2628,7 +2970,7 @@ def main():
     }
     torch.cuda.synchronize()
 
-    with window("sort", B.KEY_KERNELS, top_kernels(1, 1, 9)):
+    with window("sort", src_kernels(1, 1), top_src(1, 1, 9), prep="none"):
         outs = {k: sort(v) for k, v in dev_inputs.items()}
         any_outs = {k: sort_any(x, descending=d)
                     for k, (x, d) in any_inputs.items()}
@@ -2701,8 +3043,8 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     with window("filter_groupby_unique",
-                (*B.KEY_KERNELS, *B.RIDER_KERNELS, *CP.KERNELS, *SG.KERNELS),
-                top_kernels(1, 2, 9)):
+                (*B.KEY_KERNELS, *src_kernels(1, 2), *CP.KERNELS,
+                 *SG.KERNELS), top_src(1, 2, 9)):
         mask = _i32(pred) >= 0  # pred < 2^31
         (qk, qv), qcount = filter_columns(mask, [key, value])
         qc = int(qcount)
@@ -3015,6 +3357,7 @@ def main():
                                          lct - f))
     del lex2
     torch.cuda.empty_cache()
+    edge_timings(dev, gen, time_pair, card)
     # the valley merge's overhang at q3's (3 * 2^25 rider rows) and the
     # join's (3 * 2^26 lex2 rows) shapes: the row-limited cross_stage<1>
     # held bit-equal to its plain version in PyTorch (_cx_directed) in both
@@ -3465,6 +3808,7 @@ def main():
         torch.cuda.empty_cache()
 
     source = {"bitonic": "radx_tpu_torch/csrc/bitonic.cu",
+              "bitonic_io": "radx_tpu_torch/csrc/bitonic_io.cu",
               "compact": "radx_tpu_torch/csrc/compact.cu",
               "segscan": "radx_tpu_torch/csrc/segscan.cu",
               "dense": "radx_tpu_torch/csrc/aggregate.cu",
@@ -3504,7 +3848,9 @@ def main():
 
     def entry(name):
         family = name.split("/")[0]
-        if name in B.KERNELS:
+        if name in B.SOURCE_KERNELS:  # chunk_sort/src.., finish/unbias..
+            src, rep = source["bitonic_io"], replaces[family]
+        elif name in B.KERNELS:
             src, rep = source["bitonic"], replaces[family]
         elif name in AG.KERNELS:
             src, rep = source["dense"], replaces[name]

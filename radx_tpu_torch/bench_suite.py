@@ -416,14 +416,14 @@ _RADIX = (*bitonic.mode_kernels(
     1, 1, _log2(radix_sort.MAX_CHUNK) - _log2(SortConfig().finish_elems)),
           *bitonic.radix_kernels(1, 1), *msd.mode_kernels(1, 1),
           "radix_hist", "radix_rank")
-_GROUPBY = (*bitonic.RIDER_KERNELS, "segscan", "compact")
+_GROUPBY = (*bitonic.sort_kernels(1, 2), "segscan", "compact")
 
 
 def _sort_config(n, seed=1, **kw):
     kw.setdefault("iters", 5 if n <= 1 << 26 else 2)
     kw.setdefault("repeats", 5 if n <= 1 << 26 else 3)
     return Config("sort_u32 {n}", n, seed, _make_sort, _sort, _check_sort, 8,
-                  bitonic.mode_kernels(
+                  bitonic.sort_kernels(
                       1, 1, _log2(n) - _log2(SortConfig().finish_elems)),
                   **kw)
 
@@ -441,7 +441,7 @@ def _pairs_config(n):
 def _pairs_unique_config(n):
     return Config("sort_pairs_unique {n}", n, 12, _make_pairs_unique,
                   _pairs_unique, _check_pairs_unique, 16,
-                  bitonic.RIDER_KERNELS, iters=5 if n <= 1 << 22 else 2,
+                  bitonic.sort_kernels(1, 2), iters=5 if n <= 1 << 22 else 2,
                   repeats=5)
 
 
@@ -461,7 +461,7 @@ def _topk_config(n):
 
 def _argsort_config(n):
     return Config("argsort {n}", n, 13, _make_uniform_sort, _argsort,
-                  _check_argsort, 8, _lex(2))
+                  _check_argsort, 8, bitonic.sort_kernels(2, 2, unbias=False))
 
 
 CONFIGS: dict[str, Config] = {
@@ -495,8 +495,8 @@ CONFIGS: dict[str, Config] = {
     "topk_4m": _topk_config(1 << 22),
     "topk_16m": _topk_config(1 << 24),
     "arbn_600m": Config("sort_u32 {n}", 600_000_000, 3, _make_uniform_sort,
-                        _sort, _check_sort, 8, bitonic.KEY_KERNELS, iters=2,
-                        repeats=3, extra=_arbn_extra),
+                        _sort, _check_sort, 8, bitonic.sort_kernels(1, 1),
+                        iters=2, repeats=3, extra=_arbn_extra),
     "sort_chunked_1g": Config("sort_chunked {n}", 1 << 30, 9, _make_chunked,
                               _sort_chunked, _check_sort_chunked, 8,
                               bitonic.KEY_KERNELS, iters=1, repeats=2),

@@ -49,6 +49,14 @@ _SIGNATURES = {
     # planes, np, ncmp, n, log_t, invert, log_span, plan, phases, top,
     # stream
     "radx_finish": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P),
+    # planes, np, ncmp, n, log_c, invert, sources, row0, key, key_rows,
+    # key_xor, plan, phases, top, stream
+    "radx_chunk_sort_src": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P,
+                            _I, _I, _P),
+    # planes, np, ncmp, n, log_t, invert, log_span, key, key_rows, key_xor,
+    # plan, phases, top, stream
+    "radx_finish_out": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I,
+                        _P),
     # in, out, np, ncmp, n, log_t, log_c, plan, phases, top, stream
     "radx_chunk_sort_cyclic": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P),
     # in, out, np, ncmp, n, log_t, log_s, log_c, plan, phases, top, stream

@@ -51,6 +51,21 @@ keys-only strided cross pass over the cross tile, and in the modes the
 radix sort runs (keys, rider, lex2) ``chunk_sort_cyclic`` of the mode's
 tile and ``slot_merge`` of its tile for slots of 2^10 up to half of it.
 
+A sort's first and last launches have forms of their own
+(``csrc/bitonic_io.cu``, keys, rider and lex2: ``SOURCE_MODES``):
+
+  * ``chunk_sort/src`` — ``chunk_sort`` whose first load reads the caller's
+    columns (``Source``: ``key_source``, ``column_source``,
+    ``index_source``), biases, pads and numbers them, and writes the planes
+    out of place (``chunk_sort_sources``);
+  * ``finish/unbias`` — ``finish`` whose last store writes plane 0 XORed
+    with 0x80000000, in place or into the caller's output of its real rows
+    (``key_out``).
+
+``sort_planes(..., sources=, key_out=)`` (``sort_sources`` for a plane
+list) runs them at a sort's edges: the planes may come from
+``torch.empty``, and no PyTorch pass makes or unbiases them.
+
 ``_overhang`` is the valley merge's top half-cleaner
 (``merge_valley_ascending``): one ``cross_stage<1>`` launch over the rows
 present of a virtual power-of-two array.
@@ -70,13 +85,15 @@ on a CPU tensor it runs the kernel's plain PyTorch version, which computes
 the same network one compare-exchange substage at a time.  ``LAUNCHES``
 counts kernel launches by name (``TOP_LAUNCHES`` those of them on a
 compile-time plan) and ``PLAIN_CALLS`` counts calls of the
-plain versions (``_cx_directed``, the overhang's on the CPU, among them).
+plain versions (``_cx_directed``, the overhang's on the CPU, and
+``source_planes_ref``, the source load's, among them).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -144,19 +161,44 @@ def radix_kernels(ncmp: int, planes: int) -> tuple[str, ...]:
     return f"chunk_sort_cyclic{sfx}", f"slot_merge{sfx}"
 
 
+# The modes whose sorts make their planes in the network's own first and
+# last launches (csrc/bitonic_io.cu): keys, (key, rider) and lex2.
+SOURCE_MODES = ((1, 1), (1, 2), (2, 2))
+
+
+def source_kernels(ncmp: int, planes: int) -> tuple[str, ...]:
+    """Launch names of a mode's first and last launches of a sort made
+    from sources (``SOURCE_MODES``): ``chunk_sort`` reading the sources,
+    ``finish`` storing the keys unbiased."""
+    sfx = _suffix(ncmp, planes)
+    return f"chunk_sort/src{sfx}", f"finish/unbias{sfx}"
+
+
+def sort_kernels(ncmp: int, planes: int, distances: int | None = None,
+                 unbias: bool = True) -> tuple[str, ...]:
+    """Launch names of a sort made from sources, as ``mode_kernels``:
+    the source chunk sort in place of the chunk sort, the cross passes,
+    ``finish`` and (``unbias``) its unbiasing form."""
+    first, last = source_kernels(ncmp, planes)
+    return (first, *mode_kernels(ncmp, planes, distances)[1:],
+            *((last,) if unbias else ()))
+
+
 KEY_KERNELS = mode_kernels(1, 1)
 RIDER_KERNELS = mode_kernels(1, 2)
 LEX_PLANES = tuple(range(2, MAX_PLANES + 1))
 LEX_KERNELS = tuple(k for p in LEX_PLANES for k in mode_kernels(2, p))
 MODES = ((1, 1), (1, 2), *((2, p) for p in LEX_PLANES))
 RADIX_KERNELS = tuple(k for m in MODES for k in radix_kernels(*m))
-KERNELS = KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS + RADIX_KERNELS
+SOURCE_KERNELS = tuple(k for m in SOURCE_MODES for k in source_kernels(*m))
+KERNELS = (KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS + RADIX_KERNELS
+           + SOURCE_KERNELS)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # the launches of LAUNCHES that ran a compile-time plan (compile_time_plan)
 TOP_LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(("chunk_sort_ref", "cross_stage_ref", "finish_ref",
                              "chunk_sort_cyclic_ref", "slot_merge_ref",
-                             "_cx_directed"), 0)
+                             "_cx_directed", "source_planes_ref"), 0)
 
 
 def reset_counts() -> None:
@@ -310,6 +352,97 @@ def slot_merge_ref(planes, ncmp, chunk, slot, tile):
         planes = _substages_ref(planes, ncmp, range(kk - 1, -1, -1), kk,
                                 False, chunk - 1)
     return planes
+
+
+# --- a sort's sources (csrc/tile_engine.cuh PlaneSource) -------------------
+
+SIGN = -(1 << 31)  # int32 bit pattern 0x80000000: the keys' sign bias
+PAD_KEY = 0x7FFFFFFF  # sign-biased 0xFFFFFFFF: pads sort after every row
+
+
+class Source(NamedTuple):
+    """Where a plane's rows come from in a sort's first load.  Rows [0, n)
+    are the 32-bit columns ``cols`` back to back (int32 views), XORed with
+    ``xor``, or, with no column, a number made from the row: row + add[0]
+    below ``split``, row + add[1] from it.  Rows >= n hold ``pad``, or the
+    row itself where ``pad`` is None."""
+
+    cols: tuple
+    n: int
+    xor: int = 0
+    add: tuple = (0, 0)
+    split: int = 0
+    pad: int | None = 0
+
+
+def _column(c):
+    if c.dim() != 1 or c.element_size() != 4 or not c.is_contiguous():
+        raise ValueError("a source column is a contiguous 1-D 32-bit tensor")
+    return c.view(torch.int32)
+
+
+def key_source(*cols) -> Source:
+    """uint32 keys (one column, or the join's two back to back), sign-biased
+    at load, padded with the biased 0xFFFFFFFF."""
+    cols = tuple(_column(c) for c in cols)
+    return Source(cols, sum(c.numel() for c in cols), SIGN,
+                  split=cols[0].numel(), pad=PAD_KEY)
+
+
+def column_source(col, pad: int) -> Source:
+    """A 32-bit rider column taken as it is, padded with ``pad``."""
+    col = _column(col)
+    return Source((col,), col.numel(), split=col.numel(), pad=pad)
+
+
+def index_source(n: int, split: int | None = None, add=(0, 0),
+                 pad: int | None = None) -> Source:
+    """A number made from the row: row + add[0] below ``split`` (default
+    n), row + add[1] from it, for rows < n; ``pad`` past them (None: the
+    row, the stable sorts' index plane)."""
+    return Source((), n, add=tuple(add), split=n if split is None else split,
+                  pad=pad)
+
+
+def _source_rows(s: Source, row0: int, rows: int, device) -> torch.Tensor:
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
+    if s.pad is None:
+        out = r.to(torch.int32)
+    else:
+        out = torch.full((rows,), s.pad, dtype=torch.int32, device=device)
+    hi = min(max(s.n - row0, 0), rows)  # rows of the range below n
+    if hi == 0:
+        return out
+    if not s.cols:
+        idx = r[:hi]
+        out[:hi] = (idx + torch.where(idx < s.split, s.add[0], s.add[1])
+                    ).to(torch.int32)
+        return out
+    off = 0
+    for c in s.cols:  # the columns' rows that fall in [row0, row0 + hi)
+        a, b = max(off, row0), min(off + c.numel(), row0 + hi)
+        if a < b:
+            out[a - row0: b - row0] = c[a - off: b - off] ^ s.xor
+        off += c.numel()
+    return out
+
+
+def source_planes_ref(sources, row0: int, rows: int, device):
+    """Plain version of a sort's first load: the planes' rows [row0, row0 +
+    rows) made from their sources, bit for bit as the kernel's load makes
+    them (and as PyTorch made the planes before it: ``ops/sort.py``
+    ``_key_plane`` / ``_iota`` / ``_rider_planes``, ``ops/join.py``'s
+    union)."""
+    PLAIN_CALLS["source_planes_ref"] += 1
+    return [_source_rows(s, row0, rows, device) for s in sources]
+
+
+def _store_key(key_out, plane0, xor=SIGN):
+    """Plain version of the unbiasing store: ``plane0``'s rows XORed into
+    ``key_out`` = (out, row) at out[row:], the rows that fit."""
+    out, row = key_out
+    m = min(max(out.numel() - row, 0), plane0.numel())
+    out[row: row + m] = plane0[:m] ^ xor
 
 
 # --- kernel wrappers -----------------------------------------------------------
@@ -475,6 +608,104 @@ def chunk_sort(x, chunk, invert=False, ascending=False, rider=None, lex=None):
     return x
 
 
+def _edge_mode(planes, ncmp):
+    if (ncmp, len(planes)) not in SOURCE_MODES:
+        raise ValueError(f"no source load / unbiasing store at num_cmp="
+                         f"{ncmp}, {len(planes)} planes")
+
+
+def _key_out_args(key_out, planes, xor):
+    """(pointer, rows, xor) of plane 0's store: key_out = (out, row)
+    takes rows [row, ...) of ``out`` (an int32 tensor on the planes'
+    device), as many as it holds up to the planes' length; None: plane 0
+    itself, as it is."""
+    x = planes[0]
+    if key_out is None:
+        return x.data_ptr(), x.numel(), 0
+    out, row = key_out
+    if (out.dtype != torch.int32 or out.dim() != 1 or not out.is_contiguous()
+            or out.device != x.device or row < 0):
+        raise ValueError("the keys' output is a contiguous 1-D int32 tensor "
+                         "on the planes' device")
+    rows = min(max(out.numel() - row, 0), x.numel())
+    return (out.data_ptr() + 4 * row if rows else out.data_ptr()), rows, xor
+
+
+def _store(planes, res, key_out):
+    """Write a plain version's result: every plane in place, or plane 0
+    through the unbiasing store (``_store_key``) where ``key_out`` is
+    given."""
+    if key_out is None:
+        return _plain(planes, res)
+    for p, o in zip(planes[1:], res[1:]):
+        p.copy_(o)
+    _store_key(key_out, res[0] if isinstance(res, tuple) else res)
+    return planes[0]
+
+
+def _check_sources(sources, planes):
+    if len(sources) != len(planes):
+        raise ValueError("one source a plane")
+    for s in sources:
+        if len(s.cols) > 2 or any(c.device != planes[0].device
+                                  or c.dtype != torch.int32 for c in s.cols):
+            raise ValueError("at most two int32 source columns on the "
+                             "planes' device")
+        if not 0 <= s.split <= s.n < 2**31 or (
+                s.cols and (sum(c.numel() for c in s.cols) != s.n
+                            or s.split != s.cols[0].numel())):
+            raise ValueError(f"bad source of {s.n} rows split at {s.split}")
+
+
+def _source_fields(sources, planes):
+    """The sources packed as csrc/bitonic_io.cu make_source reads them:
+    index, col0, col1, n, split, xor, add0, add1, pad, pad_row a plane."""
+    _check_sources(sources, planes)
+    fields = []
+    for s in sources:
+        ptrs = [c.data_ptr() if c.numel() else 0 for c in s.cols]
+        fields += [int(not s.cols), *ptrs, *[0] * (2 - len(ptrs)), s.n,
+                   s.split, s.xor, *s.add, 0 if s.pad is None else s.pad,
+                   int(s.pad is None)]
+    return (ctypes.c_int64 * len(fields))(*fields)
+
+
+def chunk_sort_sources(x, chunk, sources, row0=0, invert=False, rider=None,
+                       lex=None, key_out=None):
+    """``chunk_sort`` whose first load reads ``sources`` (one ``Source`` a
+    plane, from source row ``row0``) and writes the sorted chunks to ``x``
+    (with ``rider`` / ``lex``), out of place: their contents are not read.
+    ``key_out`` = (out, row): plane 0 goes unbiased to out[row:] (the rows
+    that fit) instead of to ``x``, the store of a sort whose array is one
+    chunk.  Keys, rider and lex2 (``SOURCE_MODES``); the plan at compile
+    time where ``compile_time_plan`` says so."""
+    log_c = _log2(chunk)
+    planes, ncmp = _planes(x, rider, lex)
+    _edge_mode(planes, ncmp)
+    _log2(x.numel())
+    if not _on_cuda(planes, chunk, tile=True):
+        _check_sources(sources, planes)
+        made = source_planes_ref(sources, row0, x.numel(), x.device)
+        k, rd, lx = _keywords(made, ncmp)
+        return _store(planes, chunk_sort_ref(k, chunk, invert=invert,
+                                             rider=rd, lex=lx), key_out)
+    _launch_chunk_src(planes, ncmp, chunk, invert, sources, row0, key_out,
+                      compile_time_plan("chunk_sort", len(planes), log_c,
+                                        log_c))
+    return x
+
+
+def _launch_chunk_src(planes, ncmp, chunk, invert, sources, row0, key_out,
+                      top):
+    """One launch of chunk_sort's source form on the compile-time plan
+    (``top``) or the run-time one."""
+    log_c = _log2(chunk)
+    _launch("chunk_sort/src", "radx_chunk_sort_src", planes, ncmp, log_c,
+            int(invert), _source_fields(sources, planes), row0,
+            *_key_out_args(key_out, planes, SIGN),
+            *_plan_arg(log_c, 1, log_c, max_fusion(len(planes))), top=top)
+
+
 def cross_segment(planes, j_low, f):
     """log2 of the segment L of a cross pass's strided tile: as long as
     the tile of ``cross_tile`` rows allows with 2^f segments, and at most
@@ -601,21 +832,41 @@ def _launch_finish(planes, ncmp, tile, kk, invert, log_span, top):
             top=top)
 
 
-def finish(x, tile, kk, invert=False, rider=None, lex=None, span=None):
+def finish(x, tile, kk, invert=False, rider=None, lex=None, span=None,
+           key_out=None):
     """Every distance of level kk below ``tile``, inside each tile, in place;
     directions from the index within blocks of ``span`` rows; the plan at
-    compile time where ``compile_time_plan`` says so."""
+    compile time where ``compile_time_plan`` says so.  ``key_out`` = (out,
+    row): the unbiasing store of a sort's last level (keys, rider, lex2):
+    plane 0 goes XORed with 0x80000000 to out[row:] (the rows that fit;
+    ``out`` may be plane 0 itself), not to ``x``."""
     log_t = _log2(tile)
     planes, ncmp = _planes(x, rider, lex)
     log_span = _log_span(x, span)
     if log_t > log_span:
         raise ValueError(f"tile {tile} exceeds the span 2^{log_span}")
+    if key_out is not None:
+        _edge_mode(planes, ncmp)
     if not _on_cuda(planes, tile, tile=True):
-        return _plain(planes, finish_ref(x, tile, kk, invert, rider, lex,
-                                          span))
-    _launch_finish(planes, ncmp, tile, kk, invert, log_span,
-                   compile_time_plan("finish", len(planes), log_t, kk))
+        return _store(planes, finish_ref(x, tile, kk, invert, rider, lex,
+                                         span), key_out)
+    top = compile_time_plan("finish", len(planes), log_t, kk)
+    if key_out is None:
+        _launch_finish(planes, ncmp, tile, kk, invert, log_span, top)
+    else:
+        _launch_finish_out(planes, ncmp, tile, kk, invert, log_span, key_out,
+                           top)
     return x
+
+
+def _launch_finish_out(planes, ncmp, tile, kk, invert, log_span, key_out,
+                       top):
+    """One launch of finish's unbiasing form on the compile-time plan
+    (``top``) or the run-time one."""
+    log_t = _log2(tile)
+    _launch("finish/unbias", "radx_finish_out", planes, ncmp, log_t,
+            int(invert), log_span, *_key_out_args(key_out, planes, SIGN),
+            *_plan_arg(log_t, kk, kk, max_fusion(len(planes))), top=top)
 
 
 def _mode(planes, ncmp):
@@ -725,13 +976,18 @@ def _cross_schedule(kk, log_t, fmax):
 
 def _sort_pipeline(x, chunk_elems, finish_elems, presorted,
                    presorted_log=None, invert=False, rider=None, lex=None,
-                   span=None):
+                   span=None, src=None, key_out=None):
     """Merge levels up to log2(span) (default: the whole array); with a
     span, the input is presorted and every block of ``span`` rows ends
-    ascending (``invert`` descending)."""
+    ascending (``invert`` descending).  ``src`` = (sources, row0): the chunk
+    sort reads the planes' rows from their sources (``chunk_sort_sources``);
+    ``key_out``: the last launch stores plane 0 unbiased there (``finish``,
+    or the chunk sort where the array is one chunk)."""
     n = x.numel() if span is None else span
     log_n = _log_span(x, span)
     if n == 1:
+        if src is not None or key_out is not None:
+            raise ValueError("a one-row sort makes no launch")
         return x
     if span is not None and not presorted:
         raise ValueError("a span merges presorted runs only")
@@ -741,23 +997,49 @@ def _sort_pipeline(x, chunk_elems, finish_elems, presorted,
     fmax = cross_fusion(len(_planes(x, rider, lex)[0]))
     if presorted_log is None:
         presorted_log = log_c
-    if not presorted:
-        chunk_sort(x, c, invert=invert, rider=rider, lex=lex)
     start_kk = (presorted_log if presorted else log_c) + 1
+    if src is not None and presorted:
+        raise ValueError("the sources are read by the chunk sort")
+    if key_out is not None and presorted and start_kk > log_n:
+        raise ValueError("no launch stores the keys")
+    if src is not None:
+        chunk_sort_sources(x, c, *src, invert=invert, rider=rider, lex=lex,
+                           key_out=key_out if start_kk > log_n else None)
+    elif not presorted:
+        chunk_sort(x, c, invert=invert, rider=rider, lex=lex)
     for kk in range(start_kk, log_n + 1):
         for j_low, f in _cross_schedule(kk, log_t, fmax):
             cross_stage(x, j_low, f, kk, invert, rider, lex, span)
-        finish(x, t, kk, invert, rider, lex, span)
+        finish(x, t, kk, invert, rider, lex, span,
+               key_out=key_out if kk == log_n else None)
     return x
 
 
 def sort_planes(x, chunk_elems, finish_elems, descending=False, rider=None,
-                lex=None):
+                lex=None, sources=None, row0=0, key_out=None):
     """Sort the rows of ``x`` (with ``rider`` or ``lex`` planes) in place,
     ascending (or descending: every direction bit flipped, the same passes).
-    ``x.numel()`` is a power of two; the tiles are clamped to it."""
+    ``x.numel()`` is a power of two; the tiles are clamped to it.
+    ``sources`` (one ``Source`` a plane, from source row ``row0``): the
+    first launch makes the planes from them (``chunk_sort_sources``), so
+    they are written, never read first, and may come from ``torch.empty``.
+    ``key_out`` = (out, row): the last launch writes plane 0's keys unbiased
+    (XORed with 0x80000000) to out[row:], the rows that fit (``out`` may be
+    plane 0 itself), and leaves plane 0 unwritten otherwise.  Both in keys,
+    rider and lex2 (``SOURCE_MODES``)."""
     return _sort_pipeline(x, chunk_elems, finish_elems, presorted=False,
-                          invert=descending, rider=rider, lex=lex)
+                          invert=descending, rider=rider, lex=lex,
+                          src=None if sources is None else (sources, row0),
+                          key_out=key_out)
+
+
+def sort_sources(sources, planes, ncmp, chunk_elems, finish_elems,
+                 descending=False, row0=0, key_out=None):
+    """``sort_planes`` of a plane list (``ncmp`` compare planes) made from
+    ``sources`` in its first launch."""
+    k, rd, lx = _keywords(planes, ncmp)
+    return sort_planes(k, chunk_elems, finish_elems, descending, rider=rd,
+                       lex=lx, sources=sources, row0=row0, key_out=key_out)
 
 
 def sort_chunks_ascending(x, chunk_elems, lex=None):
@@ -827,13 +1109,13 @@ def merge_sorted_runs(x, log_run, chunk_elems, finish_elems, descending=False,
 
 
 def merge_bitonic_ascending(x, chunk_elems, finish_elems, descending=False,
-                            rider=None, lex=None):
+                            rider=None, lex=None, key_out=None):
     """Sort ONE bitonic sequence of power-of-two length: the top merge level
     with every direction forced ascending (or all inverted)."""
     return _sort_pipeline(
         x, chunk_elems, finish_elems, presorted=True,
         presorted_log=_log2(x.numel()) - 1, invert=descending, rider=rider,
-        lex=lex,
+        lex=lex, key_out=key_out,
     )
 
 
@@ -887,32 +1169,45 @@ def _overhang(planes, ncmp, descending):
 
 
 def merge_valley_ascending(x, chunk_elems, finish_elems, descending=False,
-                           rider=None, lex=None):
+                           rider=None, lex=None, key_out=None):
     """Sort a bitonic sequence of any length in place — the arbitrary-N
     primitive.  The sequence is merged on a virtual 2^ceil(log2 L)-wire
     network whose tail wires hold +inf (ascending; -inf descending), so an
     exchange with a virtual high wire is a no-op and the tail never exists.
     Per halving level: the top half-cleaner touches only the physical
     overhang, the low half is then a full pow2 bitonic merge, and the high
-    remainder is bitonic again; iterate on it."""
+    remainder is bitonic again; iterate on it.  ``key_out`` = (out, row):
+    each half's last launch stores its keys unbiased at its own rows of
+    out[row:] (``sort_sources``), so the sequence must not end in a lone
+    row."""
     planes, ncmp = _planes(x, rider, lex)
 
     def split(ps):
         return _keywords(ps, ncmp)
 
-    cur = planes
+    def store_at(off):
+        return None if key_out is None else (key_out[0], key_out[1] + off)
+
+    rest = planes[0].numel()
+    while key_out is not None and rest != _virtual_rows(rest):
+        rest -= _virtual_rows(rest) // 2
+    if key_out is not None and rest < 2:
+        raise ValueError("a valley merge that stores its keys must not end "
+                         "in a lone row")
+    cur, off = planes, 0
     while cur[0].numel() > 1:
         r = cur[0].numel()
         v = _virtual_rows(r)
         if r == v:
             k, rd, lx = split(cur)
             merge_bitonic_ascending(k, chunk_elems, finish_elems, descending,
-                                    rd, lx)
-            break
+                                    rd, lx, key_out=store_at(off))
+            return x
         half = v // 2
         _overhang(cur, ncmp, descending)
         k, rd, lx = split([p[:half] for p in cur])
         merge_bitonic_ascending(k, chunk_elems, finish_elems, descending, rd,
-                                lx)
+                                lx, key_out=store_at(off))
         cur = [p[half:] for p in cur]
+        off += half
     return x

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from radx_tpu_torch.config import DEFAULT, SortConfig
-from radx_tpu_torch.kernels import gather, segscan
+from radx_tpu_torch.kernels import bitonic, gather, segscan
 from radx_tpu_torch.ops import sort as sort_ops
 from radx_tpu_torch.ops.filter import _compact
 
@@ -62,6 +62,15 @@ def _check_cap(nb, np_):
         raise ValueError("join supports up to 2^30-1 rows per side")
 
 
+def union_sources(enc_b, enc_p):
+    """The tagged union's (key, tie) sources: build keys then probe keys
+    (uint32, biased at load), and the tie made from the row: the build row's
+    index, 2^30 plus the probe row's, 0x7FFFFFFF for a pad."""
+    nb, n = enc_b.numel(), enc_b.numel() + enc_p.numel()
+    return [bitonic.key_source(enc_b.contiguous(), enc_p.contiguous()),
+            bitonic.index_source(n, nb, (0, PROBE_TIE - nb), _I32_MAX)]
+
+
 def tagged_union(enc_b, build_vals, enc_p, probe_vals, cfg: SortConfig):
     """The sorted tagged union of both sides: (key, tie, build value, probe
     value) int32 planes of the union's rows (nb + np), sorted by (key, tie);
@@ -72,8 +81,13 @@ def tagged_union(enc_b, build_vals, enc_p, probe_vals, cfg: SortConfig):
     valley merges of ``sort_ops._sort_pieces`` (the JAX package pads to a
     power of two); elsewhere to a power of two.  Pads (key and tie
     0x7FFFFFFF) follow every row, since a real tie is below 2^31 - 1, so
-    the first nb + np rows are the same either way.  The value planes are
-    gathered by their sorted tie (``gather.gather_planes``, tagged)."""
+    the first nb + np rows are the same either way.  The network's first
+    launches make the two planes (``sort_ops._source_load`` with
+    ``network``: the union sorts on the network under every strategy): the
+    build keys then the probe keys biased as they are read, the tie made
+    from the row (row, or row - nb + 2^30 for a probe row), the pads
+    written there; the planes come from ``torch.empty``.  The value planes
+    are gathered by their sorted tie (``gather.gather_planes``, tagged)."""
     nb, np_ = enc_b.numel(), enc_p.numel()
     n = nb + np_
     chunk, fin = cfg.lex_tiles(2)
@@ -83,18 +97,14 @@ def tagged_union(enc_b, build_vals, enc_p, probe_vals, cfg: SortConfig):
         total = blocks * chunk
     else:
         total = sort_ops._pad_len(n)
-    dev = enc_b.device
-    key = torch.full((total,), sort_ops._PAD_KEY, dtype=torch.int32, device=dev)
-    key[:nb] = enc_b.view(torch.int32) ^ sort_ops._SIGN
-    key[nb:n] = enc_p.view(torch.int32) ^ sort_ops._SIGN
-    tie = torch.full((total,), _I32_MAX, dtype=torch.int32, device=dev)
-    tie[:nb] = torch.arange(nb, dtype=torch.int32, device=dev)
-    tie[nb:n] = torch.arange(np_, dtype=torch.int32, device=dev) + PROBE_TIE
+    key = sort_ops._empty(total, enc_b.device)
+    tie = sort_ops._empty(total, enc_b.device)
+    sources = union_sources(enc_b, enc_p)
     if sizes is None:
-        sort_ops._lex_sort([key, tie], cfg)
+        bitonic.sort_sources(sources, [key, tie], 2, chunk, fin)
     else:
         sort_ops._sort_pieces([key, tie], sizes, chunk, fin, cfg, 2,
-                              network=True)
+                              network=True, sources=sources)
     bval, pval = gather.gather_planes(
         tie[:n], [build_vals.contiguous().view(torch.int32),
                   probe_vals.contiguous().view(torch.int32)], "tagged")

@@ -3,7 +3,14 @@
 It owns buffer preparation — the sign bias that maps unsigned order onto
 signed int32 order, the sentinel pads up to a power of two (or, for large
 ragged sizes, to the whole pieces of the arbitrary-N paths), the index plane
-that makes a sort stable — and dispatches to a strategy:
+that makes a sort stable — and dispatches to a strategy.  Where the
+network sorts keys, (key, rider) or (key, index) planes, its own first and
+last launches make them (``_source_load``, ``bitonic.sort_sources``): the
+first chunk sort reads the caller's columns and writes the biased, padded
+planes into buffers from ``torch.empty``; the last launch writes the keys
+back unbiased.  ``"lax"`` and the radix sort keep the PyTorch preparation
+(``_key_plane``, ``_iota``, ``_rider_planes``, ``_unbias``; counted in
+``PREP_CALLS`` on a card).  The strategies:
 
   * ``"bitonic"`` (default) — the hand-written CUDA bitonic network
     (kernels/bitonic.py): keys only, (key, rider), or lexicographic over
@@ -42,8 +49,8 @@ import torch
 from radx_tpu_torch.config import DEFAULT, SortConfig
 from radx_tpu_torch.kernels import bitonic, gather, radix_sort
 
-_SIGN = -(1 << 31)  # int32 bit pattern 0x80000000
-_PAD_KEY = 0x7FFFFFFF  # sign-biased 0xFFFFFFFF: sorts to the end
+_SIGN = bitonic.SIGN  # int32 bit pattern 0x80000000
+_PAD_KEY = bitonic.PAD_KEY  # sign-biased 0xFFFFFFFF: sorts to the end
 
 
 def _as_tensor(keys, device) -> torch.Tensor:
@@ -76,15 +83,72 @@ def _pad_len(n: int, min_total: int = 1024) -> int:
     return 1 << (total - 1).bit_length()
 
 
+# Calls of the PyTorch preparation of a sort's planes on CUDA tensors: the
+# paths that ``_source_load`` leaves to it ("lax", the radix sort, modes
+# with no source form, and the callers outside this module that build
+# their planes themselves).  Where the network's first and last launches
+# make the planes, none of these runs.
+PREP_CALLS = dict.fromkeys(("_key_plane", "_unbias", "_iota",
+                            "_rider_planes", "_payload_plane",
+                            "_local_sort_planes"), 0)
+
+
+def count_prep(name: str, t: torch.Tensor) -> None:
+    if t.is_cuda:
+        PREP_CALLS[name] += 1
+
+
+def reset_prep_counts() -> None:
+    for name in PREP_CALLS:
+        PREP_CALLS[name] = 0
+
+
 def _key_plane(keys: torch.Tensor, total: int) -> torch.Tensor:
     """uint32 keys -> a new sign-biased int32 buffer of ``total`` keys."""
+    count_prep("_key_plane", keys)
     plane = torch.full((total,), _PAD_KEY, dtype=torch.int32, device=keys.device)
     plane[: keys.numel()] = keys.view(torch.int32) ^ _SIGN
     return plane
 
 
 def _unbias(plane: torch.Tensor, n: int) -> torch.Tensor:
+    count_prep("_unbias", plane)
     return (plane[:n] ^ _SIGN).view(torch.uint32)
+
+
+def _source_load(cfg: SortConfig, planes: int, num_cmp: int, total: int,
+                 network: bool = False) -> bool:
+    """The one rule that picks how a sort's planes are made: by the
+    network's first launch reading the caller's columns and its last one
+    writing the keys unbiased (``bitonic.sort_sources``), or by PyTorch
+    before the first kernel (``_key_plane``, ``_iota``, ``_rider_planes``;
+    ``_unbias`` after the last).  The network's launches make them in a
+    mode that has their source form (``bitonic.SOURCE_MODES``) wherever
+    the network sorts the planes: under ``"bitonic"``, for the callers that
+    sort on the network under every strategy (``network``: the joins'
+    union, the distributed sort's local sort), and under ``"radix"`` where
+    ``radix_sort.plan`` does not take the ``total`` rows.  ``"lax"``
+    (``torch.sort``) and the radix sort (which reads the planes before its
+    first kernel) keep PyTorch's preparation."""
+    if (num_cmp, planes) not in bitonic.SOURCE_MODES:
+        return False
+    if network or cfg.strategy == "bitonic":
+        return True
+    if cfg.strategy == "lax":
+        return False
+    chunk, _ = cfg.mode_tiles(planes, num_cmp)
+    return radix_sort.plan(total, radix_sort.pick_chunk(total, chunk)) is None
+
+
+def _empty(total: int, device) -> torch.Tensor:
+    return torch.empty(total, dtype=torch.int32, device=device)
+
+
+def _key_output(plane: torch.Tensor, n: int) -> torch.Tensor:
+    """Where a sort's last launch writes its n keys unbiased: the key plane
+    itself where the result is all of it, else a new tensor of n rows (a
+    result never holds pad rows alive)."""
+    return plane if plane.numel() == n else _empty(n, plane.device)
 
 
 def _lex_groups(planes):
@@ -126,7 +190,14 @@ def _engine(planes, cfg: SortConfig, num_cmp: int, n_valid: int):
 
 
 def _sort_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor:
-    plane = _key_plane(keys, _pad_len(n))
+    total = _pad_len(n)
+    if _source_load(cfg, 1, 1, total):
+        plane = _empty(total, keys.device)
+        out = _key_output(plane, n)
+        bitonic.sort_sources([bitonic.key_source(keys.contiguous())], [plane],
+                             1, *cfg.mode_tiles(1, 1), key_out=(out, 0))
+        return out.view(torch.uint32)
+    plane = _key_plane(keys, total)
     if cfg.strategy == "lax":
         plane = torch.sort(plane).values
     else:
@@ -138,9 +209,17 @@ def _rider_planes(keys: torch.Tensor, payload: torch.Tensor, total: int,
                   neutral: int):
     """(sign-biased key plane, rider plane) of ``total`` rows: rows past the
     keys hold key 0xFFFFFFFF and the rider ``neutral``."""
+    count_prep("_rider_planes", keys)
     pp = torch.full((total,), neutral, dtype=torch.int32, device=keys.device)
     pp[: payload.numel()] = payload
     return _key_plane(keys, total), pp
+
+
+def _rider_sources(keys: torch.Tensor, payload: torch.Tensor, neutral: int):
+    """The sources of ``_rider_planes``: the keys biased, the rider as it
+    is; pads key 0xFFFFFFFF and rider ``neutral``."""
+    return [bitonic.key_source(keys.contiguous()),
+            bitonic.column_source(payload.contiguous(), neutral)]
 
 
 def _sort_rider(keys: torch.Tensor, payload: torch.Tensor, cfg: SortConfig,
@@ -163,6 +242,11 @@ def _sort_rider(keys: torch.Tensor, payload: torch.Tensor, cfg: SortConfig,
     if _use_decomposition(n, cfg):
         return _sort_rider_arbn(keys, payload, cfg, n, neutral)
     total = _pad_len(n)
+    if _source_load(cfg, 2, 1, total):
+        kp, pp = _empty(total, keys.device), _empty(total, keys.device)
+        bitonic.sort_sources(_rider_sources(keys, payload, neutral), [kp, pp],
+                             1, *cfg.mode_tiles(2, 1), key_out=(kp, 0))
+        return kp.view(torch.uint32), pp
     kp, pp = _rider_planes(keys, payload, total, neutral)
     if cfg.strategy == "lax":
         kp, order = torch.sort(kp)
@@ -188,7 +272,8 @@ def _decompose_blocks(n: int, block_elems: int):
 
 
 def _sort_pieces(planes, sizes, chunk: int, fin: int, cfg: SortConfig,
-                 num_cmp: int, *, network: bool = False):
+                 num_cmp: int, *, network: bool = False, sources=None,
+                 key_out=None):
     """The arbitrary-N scheme, in place on ``planes`` (any mode): pieces of
     ``sizes`` blocks of ``chunk`` rows each (largest first) lie back to back;
     all but the last sort descending (every direction bit flipped) on the
@@ -200,24 +285,38 @@ def _sort_pieces(planes, sizes, chunk: int, fin: int, cfg: SortConfig,
     valley (descending piece ++ ascending merged suffix) is a suffix of the
     buffer, so every step works in place.  Sentinel pads that spill into
     the descending pieces are just large keys: the merges push them to the
-    tail."""
+    tail.  With ``sources`` (``_source_load``), every piece's first launch
+    reads its own stretch of them (only the last piece holds pads) and the
+    planes are written, not read, so they may be ``torch.empty``; every
+    piece sorts on the network; ``key_out`` (out, row): the last launches
+    (the last valley merge's, or the one piece's) write the keys unbiased
+    there (``bitonic.sort_sources``)."""
     offsets, off = [], 0
     for sz in sizes:
         offsets.append(off)
         off += sz * chunk
     *heads, last = [[p[o: o + sz * chunk] for p in planes]
                     for o, sz in zip(offsets, sizes)]
-    for piece in heads:
+    for o, piece in zip(offsets, heads):
+        if sources is not None:
+            bitonic.sort_sources(sources, piece, num_cmp, chunk, fin, True,
+                                 row0=o)
+            continue
         k, rider, lex = bitonic._keywords(piece, num_cmp)
         bitonic.sort_planes(k, chunk, fin, True, rider=rider, lex=lex)
-    if network:
+    if sources is not None:
+        bitonic.sort_sources(sources, last, num_cmp, chunk, fin,
+                             row0=offsets[-1],
+                             key_out=None if heads else key_out)
+    elif network:
         k, rider, lex = bitonic._keywords(last, num_cmp)
         bitonic.sort_planes(k, chunk, fin, rider=rider, lex=lex)
     else:
         _engine(last, cfg, num_cmp, last[0].numel())
     for o in reversed(offsets[:-1]):
         k, rider, lex = bitonic._keywords([p[o:] for p in planes], num_cmp)
-        bitonic.merge_valley_ascending(k, chunk, fin, rider=rider, lex=lex)
+        bitonic.merge_valley_ascending(k, chunk, fin, rider=rider, lex=lex,
+                                       key_out=key_out if o == 0 else None)
     return planes
 
 
@@ -227,6 +326,13 @@ def _sort_arbn_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor
     ``_sort_pieces``.  Total pad <= n/32 + C."""
     c = cfg.chunk_elems
     blocks, sizes = _decompose_blocks(n, c)
+    if _source_load(cfg, 1, 1, sizes[-1] * c):
+        plane = _empty(blocks * c, keys.device)
+        out = _key_output(plane, n)
+        _sort_pieces([plane], sizes, c, cfg.finish_elems, cfg, 1,
+                     sources=[bitonic.key_source(keys.contiguous())],
+                     key_out=(out, 0))
+        return out.view(torch.uint32)
     plane = _key_plane(keys, blocks * c)
     _sort_pieces([plane], sizes, c, cfg.finish_elems, cfg, 1)
     return _unbias(plane, n)
@@ -243,6 +349,12 @@ def _sort_rider_arbn(keys: torch.Tensor, payload: torch.Tensor,
     chunk, fin = cfg.mode_tiles(2, 1)
     blocks, sizes = _decompose_blocks(n, chunk)
     total = blocks * chunk
+    if _source_load(cfg, 2, 1, sizes[-1] * chunk):
+        kp, pp = _empty(total, keys.device), _empty(total, keys.device)
+        _sort_pieces([kp, pp], sizes, chunk, fin, cfg, 1,
+                     sources=_rider_sources(keys, payload, neutral),
+                     key_out=(kp, 0))
+        return kp.view(torch.uint32), pp
     kp, pp = _rider_planes(keys, payload, total, neutral)
     _sort_pieces([kp, pp], sizes, chunk, fin, cfg, 1)
     return _unbias(kp, total), pp
@@ -348,11 +460,14 @@ def sort_any(keys, descending: bool = False, cfg: SortConfig | None = None,
 
 
 def _iota(total: int, device) -> torch.Tensor:
+    if torch.device(device).type == "cuda":
+        PREP_CALLS["_iota"] += 1
     return torch.arange(total, dtype=torch.int32, device=device)
 
 
 def _payload_plane(p: torch.Tensor, total: int) -> torch.Tensor:
     """32-bit payload -> a new int32 bit plane of ``total`` rows, zero pads."""
+    count_prep("_payload_plane", p)
     plane = torch.zeros(total, dtype=torch.int32, device=p.device)
     plane[: p.numel()] = p.contiguous().view(torch.int32)
     return plane
@@ -378,44 +493,81 @@ def _gather_payloads(index: torch.Tensor, payloads):
             for out in gather.gather_planes(index, srcs[i: i + step])]
 
 
-def _stable_planes(keys: torch.Tensor, payloads, cfg: SortConfig, total: int):
+def _stable_sources(keys: torch.Tensor, total: int):
+    """The sources of the stable sorts' (key, index) planes: the keys
+    biased, the index the row (pads too, as ``_iota`` numbers them)."""
+    return [bitonic.key_source(keys.contiguous()),
+            bitonic.index_source(total)]
+
+
+def _stable_planes(keys: torch.Tensor, payloads, cfg: SortConfig, total: int,
+                   unbias: bool = False):
     """(key, index, payloads...) planes sorted stably by key: the key and
     index planes of ``total`` rows, the payloads of ``keys.numel()`` rows
     (all ``total`` under ``"lax"``).  ``torch.sort(stable=True)`` under
     ``"lax"``; else (key, index) through the engine, then the payloads
-    gathered by the sorted index (the JAX package sorts them as riders)."""
+    gathered by the sorted index (the JAX package sorts them as riders).
+    ``unbias``: the key plane comes back as the n sorted uint32 keys (the
+    sort's last launch writes them, where the network makes the planes)."""
     n = keys.numel()
+    if _source_load(cfg, 2, 2, total):
+        planes = [_empty(total, keys.device), _empty(total, keys.device)]
+        out = _key_output(planes[0], n) if unbias else None
+        bitonic.sort_sources(_stable_sources(keys, total), planes, 2,
+                             *cfg.lex_tiles(2),
+                             key_out=None if out is None else (out, 0))
+        if unbias:
+            planes[0] = out.view(torch.uint32)
+        return [*planes, *_gather_payloads(planes[1][:n], payloads)]
     planes = [_key_plane(keys, total), _iota(total, keys.device)]
     if cfg.strategy == "lax":
         planes += [_payload_plane(p, total) for p in payloads]
         order = torch.sort(planes[0], stable=True).indices
-        return [p[order] for p in planes]
-    _engine(planes, cfg, 2, n)
-    return [*planes, *_gather_payloads(planes[1][:n], payloads)]
+        planes = [p[order] for p in planes]
+    else:
+        _engine(planes, cfg, 2, n)
+        planes += _gather_payloads(planes[1][:n], payloads)
+    if unbias:
+        planes[0] = _unbias(planes[0], n)
+    return planes
 
 
-def _sort_arbn_stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):
+def _sort_arbn_stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int,
+                      unbias: bool = False):
     """Arbitrary-N stable sort (port of ``_sort_arbn_stable_jit``):
     ``_sort_pieces`` on the (key, index) planes, then the payloads gathered
     by the sorted index.  (key, original index) is a total order, so the
     result is the unique stable permutation however the input was cut.
-    Returns the sorted planes: key and index of ``blocks * chunk`` rows,
-    the payloads of n rows."""
+    Returns the sorted planes: key and index of ``blocks * chunk`` rows
+    (with ``unbias`` the key plane the n uint32 keys), the payloads of n
+    rows."""
     chunk, fin = cfg.lex_tiles(2)
     blocks, sizes = _decompose_blocks(n, chunk)
     total = blocks * chunk
-    planes = [_key_plane(keys, total), _iota(total, keys.device)]
-    _sort_pieces(planes, sizes, chunk, fin, cfg, 2)
+    if _source_load(cfg, 2, 2, sizes[-1] * chunk):
+        planes = [_empty(total, keys.device), _empty(total, keys.device)]
+        out = _key_output(planes[0], n) if unbias else None
+        _sort_pieces(planes, sizes, chunk, fin, cfg, 2,
+                     sources=_stable_sources(keys, total),
+                     key_out=None if out is None else (out, 0))
+        if unbias:
+            planes[0] = out.view(torch.uint32)
+    else:
+        planes = [_key_plane(keys, total), _iota(total, keys.device)]
+        _sort_pieces(planes, sizes, chunk, fin, cfg, 2)
+        if unbias:
+            planes[0] = _unbias(planes[0], n)
     return [*planes, *_gather_payloads(planes[1][:n], payloads)]
 
 
-def _stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int):
+def _stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int,
+            unbias: bool = False):
     """Stably sorted (key, index, payloads...) planes of the n keys, by the
     arbitrary-N path where ``_use_decomposition`` routes there, else padded
-    to a power of two."""
+    to a power of two (``unbias``: the keys as the n sorted uint32 keys)."""
     if _use_decomposition(n, cfg):
-        return _sort_arbn_stable(keys, payloads, cfg, n)
-    return _stable_planes(keys, payloads, cfg, _pad_len(n))
+        return _sort_arbn_stable(keys, payloads, cfg, n, unbias)
+    return _stable_planes(keys, payloads, cfg, _pad_len(n), unbias)
 
 
 def _check_payload(p: torch.Tensor, keys: torch.Tensor, what="payload"):
@@ -455,6 +607,12 @@ def sort_pairs(keys, payload, cfg: SortConfig | None = None,
         return keys.clone(), payload.clone()
     if assume_unique:
         total = _pad_len(n)
+        if _source_load(cfg, 2, 1, total):
+            kp, pp = _empty(total, keys.device), _empty(total, keys.device)
+            out = _key_output(kp, n)
+            bitonic.sort_sources(_rider_sources(keys, payload, 0), [kp, pp],
+                                 1, *cfg.mode_tiles(2, 1), key_out=(out, 0))
+            return out.view(torch.uint32), pp[:n].view(payload.dtype)
         kp, pp = _key_plane(keys, total), _payload_plane(payload, total)
         if cfg.strategy == "lax":
             kp, order = torch.sort(kp, stable=True)
@@ -462,8 +620,8 @@ def sort_pairs(keys, payload, cfg: SortConfig | None = None,
         else:
             _engine([kp, pp], cfg, 1, n)
         return _unbias(kp, n), pp[:n].view(payload.dtype)
-    planes = _stable(keys, [payload], cfg, n)
-    return _unbias(planes[0], n), planes[2][:n].view(payload.dtype)
+    planes = _stable(keys, [payload], cfg, n, unbias=True)
+    return planes[0], planes[2][:n].view(payload.dtype)
 
 
 def sort_multi(keys, payloads, cfg: SortConfig | None = None, *, device=None):
@@ -480,9 +638,9 @@ def sort_multi(keys, payloads, cfg: SortConfig | None = None, *, device=None):
     n = keys.numel()
     if n <= 1:
         return keys.clone(), [p.clone() for p in payloads]
-    planes = _stable_planes(keys, payloads, cfg, _pad_len(n))
-    return _unbias(planes[0], n), [o[:n].view(p.dtype)
-                                   for o, p in zip(planes[2:], payloads)]
+    planes = _stable_planes(keys, payloads, cfg, _pad_len(n), unbias=True)
+    return planes[0], [o[:n].view(p.dtype)
+                       for o, p in zip(planes[2:], payloads)]
 
 
 def sort_u64(hi, lo, cfg: SortConfig | None = None, *, device=None):

@@ -60,6 +60,7 @@ import torch
 
 from radx_tpu_torch.config import DEFAULT, SortConfig
 from radx_tpu_torch.kernels import bitonic, merge
+from radx_tpu_torch.ops import sort as sort_ops
 
 _SIGN = -(1 << 31)  # int32 bit pattern 0x80000000
 _PAD_KEY = 0x7FFFFFFF  # sign-biased 0xFFFFFFFF
@@ -106,6 +107,7 @@ def _network(planes, num_cmp, cfg: SortConfig):
 def _local_sort_planes(planes, m: int, cfg: SortConfig, num_cmp: int):
     """Pad int32 planes of length m to a power of two and sort them; the
     sorted first m rows (views)."""
+    sort_ops.count_prep("_local_sort_planes", planes[0])
     total = _pow2_pad(m)
     padded = []
     for i, p in enumerate(planes):
@@ -116,6 +118,20 @@ def _local_sort_planes(planes, m: int, cfg: SortConfig, num_cmp: int):
     keys, lex, chunk, fin = _network(padded, num_cmp, cfg)
     bitonic.sort_planes(keys, chunk, fin, lex=lex)
     return [b[:m] for b in padded]
+
+
+def _local_sort_sources(sources, m: int, device, cfg: SortConfig,
+                        num_cmp: int):
+    """``_local_sort_planes`` with the planes made by the network's first
+    launch (``bitonic.sort_sources``): the shard's keys biased as they are
+    read, the stable sort's global index made from the row, the pads of
+    ``_plane_fill`` past m; the planes come from ``torch.empty``.  The
+    sorted first m rows (views)."""
+    planes = [torch.empty(_pow2_pad(m), dtype=torch.int32, device=device)
+              for _ in sources]
+    _, _, chunk, fin = _network(planes, num_cmp, cfg)
+    bitonic.sort_sources(sources, planes, num_cmp, chunk, fin)
+    return [p[:m] for p in planes]
 
 
 def _bounds(ranks, valid: int):
@@ -272,12 +288,21 @@ def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, hier=None,
     planes_k, valid_k, samples = [], [], []
     for k, me in enumerate(tr.local):
         dev = shards[k].device
-        planes = [shards[k].view(torch.int32) ^ _SIGN]
-        if stable:
-            planes.append(torch.arange(me * m, me * m + m, dtype=torch.int32,
-                                       device=dev))
-        planes += [p.contiguous().view(torch.int32) for p in payloads[k]]
-        planes = _local_sort_planes(planes, m, cfg, num_cmp)
+        n_planes = 1 + stable + len(payloads[k])
+        if sort_ops._source_load(cfg, n_planes, num_cmp, _pow2_pad(m),
+                                 network=True):
+            sources = [bitonic.key_source(shards[k].contiguous())]
+            if stable:
+                sources.append(bitonic.index_source(
+                    m, add=(me * m, me * m), pad=_plane_fill(1, num_cmp)))
+            planes = _local_sort_sources(sources, m, dev, cfg, num_cmp)
+        else:
+            planes = [shards[k].view(torch.int32) ^ _SIGN]
+            if stable:
+                planes.append(torch.arange(me * m, me * m + m,
+                                           dtype=torch.int32, device=dev))
+            planes += [p.contiguous().view(torch.int32) for p in payloads[k]]
+            planes = _local_sort_planes(planes, m, cfg, num_cmp)
         m_valid = min(max(n - me * m, 0), m)
         # the JAX positions jj*q + (jj*r)//(ns+1), m_valid = q*(ns+1) + r,
         # are floor(jj * m_valid / (ns+1)): exact here in int64

@@ -641,7 +641,9 @@ def test_two_plane_sorts_gather_on_the_card(cuda, n):
             want[name] = want.get(name, 0) + count
     assert {k: v for k, v in tgt.LAUNCHES.items() if v} == want
     assert _no_plain_calls()
-    assert tb.LAUNCHES["chunk_sort/lex2"] and not tb.LAUNCHES["chunk_sort/lex3"]
+    # the (key, index) planes made by the network's first launch
+    assert tb.LAUNCHES["chunk_sort/src/lex2"]
+    assert not tb.LAUNCHES["chunk_sort/lex3"]
     assert torch.equal(gp.view(torch.int32), pays[0][o])
     assert all(torch.equal(g, p[o]) for g, p in zip(gps, pays))
     bk = k[: n // 2]
@@ -652,7 +654,8 @@ def test_two_plane_sorts_gather_on_the_card(cuda, n):
     torch.cuda.synchronize()
     assert {k: v for k, v in tgt.LAUNCHES.items() if v} == _route_launches(
         [bv, pv], "tagged") and _no_plain_calls()
-    assert tb.LAUNCHES["chunk_sort/lex2"] and not tb.LAUNCHES["chunk_sort/lex4"]
+    assert tb.LAUNCHES["chunk_sort/src/lex2"]
+    assert not tb.LAUNCHES["chunk_sort/lex4"]
     build = tie < tgt.PROBE_TIE
     assert torch.equal(bval, torch.where(build, bv[tie.clamp(
         max=n // 2 - 1).long()], 0))
@@ -813,7 +816,8 @@ def test_chunked_ops_match_torch(cuda):
     got = tch.sort_chunked(keys, slab=SLAB9)
     torch.cuda.synchronize()
     assert _no_plain_calls()
-    assert tb.LAUNCHES["chunk_sort/rider"] and tb.LAUNCHES["chunk_sort"]
+    # the group-by's rider sort from its sources; the slabs' own planes
+    assert tb.LAUNCHES["chunk_sort/src/rider"] and tb.LAUNCHES["chunk_sort"]
     assert tcp.LAUNCHES["compact"] and tsg.LAUNCHES["segscan"]
     m = torch.from_numpy(mask).to(cuda)
     kd, vd = (torch.from_numpy(x).to(cuda) for x in (keys, vals))
@@ -880,8 +884,9 @@ def test_in_process_mesh_matches_torch(cuda, exchange, overlap):
                                                 overlap=overlap)
     ak, idx, avalid, aovf = tds.argsort_sharded(keys, mesh, overlap=overlap)
     torch.cuda.synchronize()
-    assert _no_plain_calls() and tb.LAUNCHES["chunk_sort"]
-    assert tb.LAUNCHES["chunk_sort/lex3"] and tb.LAUNCHES["chunk_sort/lex2"]
+    # keys and (key, index) local sorts from the shards; lex3 prepared
+    assert _no_plain_calls() and tb.LAUNCHES["chunk_sort/src"]
+    assert tb.LAUNCHES["chunk_sort/lex3"] and tb.LAUNCHES["chunk_sort/src/lex2"]
     assert tmg.LAUNCHES["merge_runs"]
     assert not (ovf.any() or povf.any() or aovf.any())
     o = torch.sort(keys.view(torch.int32), stable=True)
@@ -1026,3 +1031,120 @@ def test_scaling_model_rates_and_audit(cuda):
         assert a["agrees"], a
     cal = sm.calibrate(rates, 1 << 16, device=cuda)
     assert cal["measured_s"] > 0 and cal["modelled_s"] > 0
+
+
+# --- a sort's first and last launches (csrc/bitonic_io.cu) ---------------------
+
+
+def _col(cuda, n, off, seed):
+    """n int32 rows 4 * off bytes past a 16-byte boundary, every seventh
+    0xFFFFFFFF."""
+    v = torch.empty(n + 4, dtype=torch.int32, device=cuda)[off: off + n]
+    v.copy_(_keys(cuda, n, seed))
+    v[::7] = -1
+    return v
+
+
+def _sources(cuda, mode, n, off, total):
+    keys = _col(cuda, n, off, n + off)
+    if mode == "keys":
+        return 1, [tb.key_source(keys)]
+    if mode == "rider":
+        return 1, [tb.key_source(keys),
+                   tb.column_source(_col(cuda, n, 3 - off, 5), -7)]
+    if mode == "lex2":
+        return 2, [tb.key_source(keys), tb.index_source(total)]
+    nb = n // 3 + off  # the union: two key columns, the tie from the row
+    b, p = _col(cuda, nb, 1, 6), _col(cuda, n - nb, 2, 7)
+    return 2, [tb.key_source(b, p),
+               tb.index_source(n, nb, (0, (1 << 30) - nb), 0x7FFFFFFF)]
+
+
+@pytest.mark.parametrize("mode", ["keys", "rider", "lex2", "union"])
+@pytest.mark.parametrize("n", [(1 << 20) - 17, (1 << 20) - 16, 1 << 20,
+                               12345])
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_sort_edges_match_plain(cuda, mode, n, off):
+    """chunk_sort's source form and finish's unbiasing form (keys, rider,
+    lex2, the join's two-source lex2) on the mode's tiles (compile-time
+    plans) and at half the tile (run-time plans), against the plain
+    versions: the planes from ``source_planes_ref`` sorted by
+    ``chunk_sort_ref``; the top level's ``finish_ref``, its keys unbiased
+    in place and into n - 1 rows."""
+    total = 1 << 20
+    ncmp, sources = _sources(cuda, mode, n, off, total)
+    p = len(sources)
+    chunk, tile = CFG.mode_tiles(p, ncmp)
+    made = tb.source_planes_ref(sources, 0, total, cuda)
+    for c in (chunk, chunk // 2):
+        k, rd, lx = tb._keywords(made, ncmp)
+        want = tb.chunk_sort_ref(k, c, rider=rd, lex=lx)
+        want = want if isinstance(want, tuple) else (want,)
+        planes = [torch.full((total,), 5, dtype=torch.int32, device=cuda)
+                  for _ in range(p)]
+        k, rd, lx = tb._keywords(planes, ncmp)
+        _reset_all()
+        tb.chunk_sort_sources(k, c, sources, rider=rd, lex=lx)
+        torch.cuda.synchronize()
+        assert _no_plain_calls() and tb.LAUNCHES[tb.source_kernels(ncmp,
+                                                                   p)[0]]
+        assert all(torch.equal(a, b) for a, b in zip(planes, want)), c
+    for t in (tile, tile // 2):
+        k, rd, lx = tb._keywords(list(want), ncmp)
+        ref = tb.finish_ref(k, t, 20, rider=rd, lex=lx)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for rows in (None, total - 1):
+            got = [w.clone() for w in want]
+            out = got[0] if rows is None else torch.zeros(
+                rows, dtype=torch.int32, device=cuda)
+            k, rd, lx = tb._keywords(got, ncmp)
+            tb.finish(k, t, 20, rider=rd, lex=lx, key_out=(out, 0))
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref[0][: out.numel()] ^ tb.SIGN), (t, rows)
+            assert all(torch.equal(a, b) for a, b in zip(got[1:], ref[1:]))
+
+
+def test_sorts_from_sources_on_the_card(cuda):
+    """sort, sort_pairs, argsort, groupby and the union of a join on the
+    card from their sources: no PyTorch preparation, the edges launched,
+    every result against torch; peak memory of the keys sort: the input,
+    the plane, no temporary."""
+    from radx_tpu_torch import argsort, groupby, sort_pairs
+    from radx_tpu_torch.ops import sort as ts
+
+    n = (1 << 22) - 3
+    k = _keys(cuda, n, 3).view(torch.uint32)
+    v = _keys(cuda, n, 4)
+    kb = k.view(torch.int32) ^ (-(1 << 31))
+    o = torch.sort(kb, stable=True)
+    ts.reset_prep_counts()
+    _reset_all()
+    got = sort(k)
+    gk, gv = sort_pairs(k, v)
+    ga = argsort(k)
+    torch.cuda.synchronize()
+    assert not any(ts.PREP_CALLS.values()) and _no_plain_calls()
+    assert tb.LAUNCHES["chunk_sort/src"] and tb.LAUNCHES["finish/unbias"]
+    assert tb.LAUNCHES["finish/unbias/lex2"]
+    assert torch.equal(got.view(torch.int32), o.values ^ (-(1 << 31)))
+    assert torch.equal(gk.view(torch.int32), o.values ^ (-(1 << 31)))
+    assert torch.equal(gv, v[o.indices]) and torch.equal(ga.long(),
+                                                         o.indices)
+    g = (k.view(torch.int32) & 1023).view(torch.uint32)
+    uk, sums, ng = groupby(g, v, "sum")
+    assert tb.LAUNCHES["chunk_sort/src/rider"] and int(ng) == 1024
+    want = torch.zeros(1024, dtype=torch.int64, device=cuda).index_add_(
+        0, g.view(torch.int32).long(), v.long())
+    assert torch.equal(sums[:1024].long() & 0xFFFFFFFF, want & 0xFFFFFFFF)
+    n26 = 1 << 26
+    keys = _keys(cuda, n26, 9).view(torch.uint32)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = sort(keys)
+    torch.cuda.synchronize()
+    # the plane (the result) and nothing of the keys' size beside it
+    assert torch.cuda.max_memory_allocated() - before < 4 * n26 + (1 << 20)
+    assert torch.equal(out.view(torch.int32), torch_sort_u32(keys).view(
+        torch.int32))
+    assert not any(ts.PREP_CALLS.values())

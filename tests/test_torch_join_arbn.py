@@ -307,8 +307,15 @@ def test_union_of_2e8_rows_takes_the_pieces(monkeypatch):
         assert cfg.lex_tiles(2) == (1 << 13, 1 << 13)
         with pytest.raises(_Stop):
             tj.tagged_union(keys, keys, keys, keys, cfg)
-        assert seen.pop() == ([201_326_592] * 2, [16384, 8192], 1 << 13,
-                              1 << 13, 2, {"network": True})
+        *shapes, kw = seen.pop()
+        assert shapes == [[201_326_592] * 2, [16384, 8192], 1 << 13,
+                          1 << 13, 2]
+        # on the network, its (key, tie) planes made from the two sides by
+        # the pieces' first launches
+        assert kw.keys() == {"network", "sources"} and kw["network"]
+        key, tie = kw["sources"]
+        assert (key.n, key.split, len(key.cols), tie.n, tie.split) == (
+            2 * n8, n8, 2, 2 * n8, n8)
     assert ts._worth_decomposing(2 * n8)
     assert not ts._use_decomposition(2 * n8, SortConfig(strategy="lax"))
     # whole powers of two and sizes just below one keep the padded union

@@ -23,8 +23,16 @@ keys, rider and lex2..lex8, at the modes' own tiles and at small ones:
     differ (30 + 6 of 105 substages at 2^14 keys, register-bit levels
     second);
   * the rule ``compile_time_plan`` picks the compile-time kernel exactly
-    where it applies, and the wrappers pass its answer to the launch.
+    where it applies, and the wrappers pass its answer to the launch;
+  * a sort's first load from its sources at PH == 0 (csrc/tile_engine.cuh
+    ``Sources``: int4 runs only inside one column, below n and aligned,
+    so every read stays inside its column and reads each row once) and
+    its last store of the keys unbiased (``KeyOut``), around the chunk
+    sort's compile-time plan, equal to ``source_planes_ref`` and
+    ``chunk_sort_ref`` bit for bit.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -419,3 +427,114 @@ def test_wrappers_pass_the_rule_to_the_launch(monkeypatch, mode):
             assert args[-1] == int(f > r and landed), (name, args)
         assert {args[-1] for _, args in by_fn["radx_finish"]} == {top}
         assert any(args[6] > r for _, args in by_fn["radx_cross_stage"])
+
+
+# --- a sort's first load and last store (csrc/tile_engine.cuh Sources, KeyOut)
+
+
+def _source_load(sources, base, log_t, r):
+    """The kernel's first load of a tile from sources (``rows_from_global``
+    over ``Sources``, PH == 0: runs of 2^r rows, wlo = 0): a run of a column
+    moves as int4 vectors where it lies in one column, below n, at a 16-byte
+    aligned address, else row by row; an index is made, not read.  Returns
+    the tile's planes and, per plane, the column elements each read
+    touched, as (column, first, last) element ranges."""
+    w, t = 1 << r, 1 << log_t
+    planes, reads = [], []
+    for s in sources:
+        vals, touched = [], []
+        starts = [0]
+        for c in s.cols:
+            starts.append(starts[-1] + c.numel())
+        for gb in range(0, t, w):
+            r0 = base + gb
+            second = r0 >= s.split
+            c = 1 if second and len(s.cols) > 1 else 0
+            at = r0 - starts[c]
+            addr = (s.cols[c].data_ptr() + 4 * at) if s.cols else 1
+            if (s.cols and r0 + w <= s.n and (second or r0 + w <= s.split)
+                    and addr % 16 == 0):
+                touched.append((c, at, at + w - 1))
+                vals += (s.cols[c][at: at + w] ^ s.xor).tolist()
+                continue
+            for row in range(r0, r0 + w):
+                if row >= s.n:
+                    vals.append(row if s.pad is None else s.pad)
+                elif not s.cols:
+                    vals.append(row + s.add[row >= s.split])
+                else:
+                    c = int(row >= s.split and len(s.cols) > 1)
+                    touched.append((c, row - starts[c], row - starts[c]))
+                    vals.append(int(s.cols[c][row - starts[c]]) ^ s.xor)
+        planes.append(torch.tensor(vals, dtype=torch.int64).to(torch.int32))
+        reads.append(touched)
+    return planes, reads
+
+
+def _key_store(out, row_limit, base, plane0):
+    """The kernel's last store of plane 0 (``rows_to_global`` over
+    ``KeyOut``): rows below the limit XORed with 0x80000000."""
+    m = min(max(row_limit - base, 0), plane0.numel())
+    out[base: base + m] = plane0[:m] ^ tb.SIGN
+
+
+@pytest.mark.parametrize("mode", ("keys", "rider", "lex2"))
+@pytest.mark.parametrize("n, off", ((4096, 0), (4095, 1), (4097, 3),
+                                    (4000, 2), (16 * 200 + 1, 0)))
+def test_top_pass_from_sources_to_an_unbiased_store(mode, n, off):
+    """The compile-time chunk sort's plan with the first phase loading from
+    sources (the keys biased, a rider with a neutral pad, or, lex2, the
+    join's two key columns and its tie) and the last phase storing plane 0
+    unbiased into n rows: every read inside its column, each column row
+    read once, the loaded tile equal to ``source_planes_ref``, the network
+    then ``chunk_sort_ref``'s, the store the rows below n XORed."""
+    ncmp, p = MODES[mode]
+    r = tb.max_fusion(p)
+    log_t = 8
+    t = 1 << log_t
+    total = -(-n // t) * t + t
+    rng = np.random.default_rng(n + off)
+    k = rng.integers(0, 2**32, n, dtype=np.uint32)
+    k[rng.random(n) < 0.3] = 0xFFFFFFFF
+    buf = torch.empty(n + 8, dtype=torch.int32)
+    keys = buf[off: off + n]
+    keys.copy_(torch.from_numpy(k.view(np.int32)))
+    if mode == "keys":
+        sources = [tb.key_source(keys)]
+    elif mode == "rider":
+        sources = [tb.key_source(keys), tb.column_source(keys.flip(0)
+                                                         .contiguous(), -7)]
+    else:
+        nb = n // 3 + off
+        other = torch.empty(n + 8, dtype=torch.int32)[3 - off:]
+        other[: n - nb] = keys[nb:]
+        sources = [tb.key_source(keys[:nb], other[: n - nb]),
+                   tb.index_source(n, nb, (0, (1 << 30) - nb), 0x7FFFFFFF)]
+    want = tb.source_planes_ref(sources, 0, total, "cpu")
+    tiles = [[] for _ in range(p)]
+    seen = [collections.Counter() for _ in range(p)]
+    for base in range(0, total, t):
+        planes, reads = _source_load(sources, base, log_t, r)
+        for j in range(p):
+            tiles[j].append(planes[j])
+            for c, a, b in reads[j]:
+                cols = sources[j].cols
+                assert 0 <= a <= b < cols[c].numel(), (mode, base, a, b)
+                seen[j].update((c, i) for i in range(a, b + 1))
+    for j, s in enumerate(sources):
+        assert all(v == 1 for v in seen[j].values())
+        assert sum(seen[j].values()) == (s.n if s.cols else 0)
+    views = [torch.stack(x) for x in tiles]
+    assert all(torch.equal(v.reshape(-1), w) for v, w in zip(views, want))
+    base = torch.arange(total // t, dtype=torch.int64) * t
+    _top_network(views, ncmp, log_t, r, tb.top_plan(log_t, 0, r),
+                 lambda kk: (base >> kk) & 1, False)
+    kw, rd, lx = tb._keywords(want, ncmp)
+    ref = tb.chunk_sort_ref(kw, t, rider=rd, lex=lx)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    got = [v.reshape(-1) for v in views]
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    out = torch.zeros(n, dtype=torch.int32)
+    for b in range(0, total, t):
+        _key_store(out, n, b, got[0][b: b + t])
+    assert torch.equal(out, ref[0][:n] ^ tb.SIGN)
