@@ -46,7 +46,12 @@ Phases, one line each (any failure raises and exits nonzero):
      segment tables in one launch), K12, K5, K13 at the radix geometries of
      2^26 keys (keys, rider, lex2, lex3) and 2^28 keys (keys, lex3), K11
      also on a rider sort's tail of pads (n_valid = 3 * 2^24) and on
-     overflowing keys; ``gather_planes`` (``gather_checks``: both routes,
+     overflowing keys, and the radix sort's first and last launches
+     (``_radix_source_check``: K4's source form on both plans from the
+     caller's columns, a ragged column at an odd offset and a piece's
+     row0, the counts read from the key source, K13's unbiasing form in
+     place and into n - 3 rows) at 2^26 (keys, rider, lex2) and 2^28
+     (keys, lex2); ``gather_planes`` (``gather_checks``: both routes,
      the partitioned one step by step too: index mode with one source at
      2^28 and 1..4 sources at 2^26 + 4099 on an unaligned index plane with
      out-of-range indices, tagged mode on the join's union of 2 x 10^8 rows
@@ -70,13 +75,15 @@ Phases, one line each (any failure raises and exits nonzero):
      compile-time plan: ``compile_time_plan_launches``; the radix windows
      of ``chunk_sort_cyclic`` and, where no bucket overflows,
      ``slot_merge`` on theirs: ``radix_top``; the windows of the sorts
-     whose planes the network's first and last launches make (slice 1's
+     whose planes the sort's own first and last launches make (slice 1's
      ``sort``, config 2, ``assume_unique``, ``argsort``, ``sort_multi``,
-     the joins, the q3 group-by, the shards' local sorts, the suite's sort,
-     unique-pairs, group-by, argsort and arbitrary-N configs, the oracle's
-     and the scaling model's sorts) also fail on any call of PyTorch's
-     preparation on the card, ``ops/sort.PREP_CALLS`` (``prep="none"``),
-     and the radix windows unless it runs (``prep="runs"``)):
+     the joins, the q3 group-by, the shards' local sorts, the radix
+     windows, the suite's sort, unique-pairs, group-by, argsort and
+     arbitrary-N configs, the oracle's and the scaling model's sorts) also
+     fail on any call of PyTorch's preparation on the card,
+     ``ops/sort.PREP_CALLS`` (``prep="none"``), and the suite's radix
+     windows, whose gate replays the radix stage on a plane it prepares,
+     unless it runs (``prep="runs"``)):
        a. ``sort`` / ``sort_any`` (slice 1), bit-equal to ``torch.sort``;
        b. the sort-based config-3 query at 2^28 rows and the other group-by
           / unique inputs (slice 2), against plain torch references;
@@ -111,6 +118,9 @@ Phases, one line each (any failure raises and exits nonzero):
           all-equal keys at 2^23 (the overflow
           fallback to the network) and ``tile_histograms`` (K14) at 2^26,
           each window printing its overflow count, every result exact;
+          every radix sort makes its planes in its own first and last
+          launches (K4's and K13's forms required, the fallback network's
+          from the same sources: 0 ``PREP_CALLS``);
        e. slice 9: the host copies that chose the streaming operators'
           staging (pageable and pinned rates, pinned allocation,
           ``cudaHostRegister``, host copies at 1-8 threads, pieces of 8-512
@@ -183,7 +193,10 @@ Phases, one line each (any failure raises and exits nonzero):
      chunk_sort's source form and finish's unbiasing form at 2^28 keys,
      2^26 (key, rider) and 2^28 (key, index), each held bit-equal to its
      plain version, timed beside it and its bound, then in turns with the
-     in-place kernel of the same plan (``edge_timings``);
+     in-place kernel of the same plan (``edge_timings``); K4's source form
+     and K13's unbiasing form likewise at 2^26 (keys, rider, lex2) and
+     2^28 (keys, lex2), in turns with the in-place K4 and with K13's plain
+     form (``radix_edge_timings``), with ptxas's registers;
      ``cross_stage<2..10>`` likewise on columns bitonic along the 2^F
      axis, at 2^23 and 2^26 keys, and at 2^28 beside its plain version;
      the cross passes with their shared-memory round trips); then the
@@ -369,11 +382,13 @@ MODES = {"keys": (1, 1), "rider": (1, 2), "lex2": (2, 2), "lex3": (2, 3)}
 RADIX_N, RADIX_N_BIG, RADIX_N_EQUAL = 1 << 26, 1 << 28, 1 << 23
 
 
-def radix_required(ncmp, planes):
+def radix_required(ncmp, planes, unbias=True):
     """Every kernel a radix sort of one mode launches when no bucket
-    overflows: the mode's cross / finish passes (spans), K4, K5, K10-K13,
-    and the keys-only chunk sort of the >= 2^17 splitter samples (K4 takes
-    the place of the mode's own chunk sort)."""
+    overflows: the mode's cross / finish passes (spans), K4 reading the
+    caller's columns (its source form), K5, K10-K12, K13 (its unbiasing
+    form where the keys come back: ``unbias``), and the keys-only chunk
+    sort of the >= 2^17 splitter samples (K4 takes the place of the mode's
+    own chunk sort)."""
     from radx_tpu_torch import SortConfig
     from radx_tpu_torch.kernels import bitonic as B
     from radx_tpu_torch.kernels import msd as M
@@ -382,20 +397,23 @@ def radix_required(ncmp, planes):
     # the levels above the tile run inside radix chunks of RS.MAX_CHUNK rows
     fin = SortConfig().mode_tiles(planes, ncmp)[1]
     distances = RS.MAX_CHUNK.bit_length() - fin.bit_length()
+    pack, concat = M.mode_kernels(ncmp, planes)
     return (*B.mode_kernels(ncmp, planes, distances)[1:],
-            *B.radix_kernels(ncmp, planes),
-            *M.mode_kernels(ncmp, planes), "radix_hist", "radix_rank",
-            "chunk_sort")
+            B.radix_source_kernel(ncmp, planes),
+            B.radix_kernels(ncmp, planes)[1], pack,
+            M.unbias_kernel(ncmp, planes) if unbias else concat,
+            "radix_hist", "radix_rank", "chunk_sort")
 
 
 def radix_top(ncmp, planes, merge=True):
     """The radix tile passes that a radix sort of one mode runs on their
-    compile-time plans (``bitonic.TOP_MODES``): K4, and K5 where no bucket
-    overflows (``merge``); every slot of the paths' geometries has a K5
-    instance."""
+    compile-time plans (``bitonic.TOP_MODES``): K4 (its source form), and
+    K5 where no bucket overflows (``merge``); every slot of the paths'
+    geometries has a K5 instance."""
     from radx_tpu_torch.kernels import bitonic as B
 
-    names = zip(B.radix_kernels(ncmp, planes),
+    names = zip((B.radix_source_kernel(ncmp, planes),
+                 B.radix_kernels(ncmp, planes)[1]),
                 ("chunk_sort_cyclic", "slot_merge"))
     return tuple(k for k, kernel in names if planes in B.TOP_MODES[kernel]
                  and (merge or kernel == "chunk_sort_cyclic"))
@@ -986,6 +1004,11 @@ def radix_checks(dev):
     for n, mode in geometries:
         _radix_geometry_check(dev, n, mode, gen)
         torch.cuda.empty_cache()
+    # K4's source form and K13's unbiasing form: 2^26 (slots of 4096) in
+    # every mode they have, 2^28 (slots of 1024) in the cells' keys and lex2
+    for n, mode in [(RADIX_N, m) for m in ("keys", "rider", "lex2")] + [
+            (RADIX_N_BIG, m) for m in ("keys", "lex2")]:
+        _radix_source_check(dev, n, mode, gen)
     for n in (RADIX_N, RADIX_N_BIG):
         for dist in ("rider_path", "all_equal", "lowcard"):
             if dist != "rider_path" or n == RADIX_N:
@@ -1083,10 +1106,151 @@ def _radix_geometry_check(dev, n, mode, gen):
            **case)
 
 
+def _sources_of(planes, ncmp):
+    """The sources whose planes are ``planes`` (``_mode_planes``): the
+    caller's uint32 keys (plane 0 unbiased), a rider column (its pad never
+    read: no pad rows), or the index made from the row."""
+    from radx_tpu_torch.kernels import bitonic as B
+
+    sources = [B.key_source(planes[0] ^ SIGN)]
+    if ncmp == 2:
+        sources.append(B.index_source(planes[1].numel()))
+    elif len(planes) == 2:
+        sources.append(B.column_source(planes[1], -7))
+    return sources
+
+
+def _radix_stages(planes, ncmp, p, cfg, sources=None):
+    """(sorted chunks, ``rank_runs``' outputs, merged buckets) of a radix
+    sort of ``planes`` (from ``sources`` where given: K4's source form and
+    the counting of the key source) at the plan ``p``, no overflow."""
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import msd as M
+    from radx_tpu_torch.kernels import radix_sort as RS
+
+    np_ = len(planes)
+    c, f = cfg.mode_tiles(np_, ncmp)
+    n = planes[0].numel()
+    tail = ncmp == 1 and np_ == 2
+    if sources is None:
+        sorted_ = B.sort_chunks_ascending_cyclic(planes, ncmp, p.C, c, f)
+        counted = planes[0]
+    else:
+        sorted_ = B.sort_chunks_ascending_cyclic(
+            [torch.empty_like(q) for q in planes], ncmp, p.C, c, f,
+            sources=sources)
+        counted = sources[0]
+    b = RS.rank_runs(*RS.rank_args(sorted_[0], counted, p, n,
+                                   cfg.mode_tiles(1, 1), tail))
+    if bool(b.overflow):
+        _fail(f"the radix geometry of {n} rows overflowed")
+    packed = M.pack(sorted_, b.bounds, p.C, p.slot, p.nb_pad, ncmp)
+    merged = B.merge_slots_ascending(packed, ncmp, p.C, p.slot, c, f)
+    return sorted_, b, merged
+
+
+def _radix_source_check(dev, n, mode, gen):
+    """K4's source form and K13's unbiasing form of one mode at the radix
+    geometry of n keys, bit-equal to their plain versions on the same
+    inputs: K4 (both plans) against ``chunk_sort_cyclic_ref`` of
+    ``source_planes_ref``'s planes, from the caller's columns as they are,
+    from a column 12345 rows short 3 rows past a 16-byte boundary (the pads
+    made at load) and from a piece whose sources start 2^20 rows in
+    (``row0``, 777 pad rows); the digit totals and sentinel count read from
+    the key source against those of the plane it makes; K13 against
+    ``concat_ref`` with plane 0 XORed, in place and into the first n - 3
+    rows of a new output (the rows past it untouched)."""
+    from radx_tpu_torch import SortConfig
+    from radx_tpu_torch.kernels import bitonic as B
+    from radx_tpu_torch.kernels import msd as M
+    from radx_tpu_torch.kernels import radix_sort as RS
+
+    cfg = SortConfig(strategy="radix")
+    p = RS.plan(n, RS.pick_chunk(n, cfg.chunk_elems))
+    ncmp, np_ = MODES[mode]
+    c = cfg.mode_tiles(np_, ncmp)[0]
+    lc = c.bit_length() - 1
+    k4, k13 = B.radix_source_kernel(ncmp, np_), M.unbias_kernel(ncmp, np_)
+    planes = _mode_planes(dev, mode, n, gen)
+    case = dict(n=n, mode=mode, C=p.C, slot=p.slot, nb_pad=p.nb_pad)
+
+    def column(rows, off):
+        buf = torch.empty(rows + 4, dtype=torch.int32, device=dev)
+        v = buf[off: off + rows]
+        v.copy_(torch.randint(-(2**31), 2**31, (rows,), dtype=torch.int32,
+                              generator=gen, device=dev))
+        v[::101] = -1  # 0xFFFFFFFF: the pads' key
+        return v
+
+    short = n - 12345
+    piece = (1 << 20) + n - 777
+    for name, rows, off, row0 in (("columns", n, 0, 0),
+                                  ("ragged", short, 3, 0),
+                                  ("piece", piece, 1, 1 << 20)):
+        if name == "columns":
+            sources = _sources_of(planes, ncmp)
+        else:
+            sources = [B.key_source(column(rows, off))]
+            if ncmp == 2:
+                sources.append(B.index_source(rows))
+            elif np_ == 2:
+                sources.append(B.column_source(column(rows, 3 - off), -7))
+        made = B.source_planes_ref(sources, row0, n, dev)
+        want = B.chunk_sort_cyclic_ref(made, ncmp, p.C, c)
+        for top in plans("chunk_sort_cyclic", np_, lc, lc):
+            out = [torch.empty_like(q) for q in planes]
+            B._launch_cyclic_src(out, ncmp, p.C, c, sources, row0, top)
+            torch.cuda.synchronize()
+            e = _max_err(out, want)
+            record([k4], e, e == 0, sources=name, rows=rows, row0=row0,
+                   offset=off, compile_time_plan=top, **case)
+            del out
+        tail = ncmp == 1 and np_ == 2
+        got = RS.rank_args(want[0], sources[0], p, n, cfg.mode_tiles(1, 1),
+                           tail, row0)
+        ref = RS.rank_args(want[0], made[0], p, n, cfg.mode_tiles(1, 1),
+                           tail)
+        e = max(_max_err([got[3]], [ref[3]]),
+                _max_err([got[6]], [ref[6]]) if tail else 0)
+        record(["radix_hist"], e, e == 0, counted="key source",
+               sources=name, rows=rows, row0=row0, **case)
+        del made, want, got, ref
+    sorted_, b, merged = _radix_stages(planes, ncmp, p, cfg,
+                                       _sources_of(planes, ncmp))
+    tail = ncmp == 1 and np_ == 2
+    src = sorted_ if tail else None
+    want = M.concat_ref(merged, src, b.start, b.src, p.nb_pad, n, ncmp)
+    ok = torch.equal(want[0], planes[0][_biased_order(planes[0])])
+    for store in ("in_place", "rows"):
+        out = [torch.full((n,), 7, dtype=torch.int32, device=dev)
+               for _ in range(np_)]
+        if store == "in_place":
+            key = out[0]
+        else:
+            guard = torch.full((n + 1,), 7, dtype=torch.int32, device=dev)
+            key = guard[: n - 3]
+            out[0] = key if np_ == 1 else None
+        M.concat(merged, src, out, b.start, b.src, p.nb_pad, ncmp,
+                 (key, 0))
+        torch.cuda.synchronize()
+        rows = key.numel()
+        e = max(_max_err([key], [want[0][:rows] ^ SIGN]),
+                _max_err(out[1:], want[1:]) if np_ > 1 else 0)
+        if store == "rows" and not bool((guard[rows:] == 7).all()):
+            e = max(e, 1)
+        record([k13], e, ok and e == 0, store=store, key_rows=rows, **case)
+        del out, key
+    del planes, sorted_, b, merged, want
+    torch.cuda.empty_cache()
+
+
 def radix_path(dev):
     """Slice 4: the radix distribution sort through the entry points under
     ``SortConfig(strategy="radix")``, one window per path, each printing
-    its count of radix sorts and of overflows; every result exact."""
+    its count of radix sorts and of overflows; every result exact.  The
+    sorts make their planes in their own first and last launches (K4's
+    source form, K13's unbiasing form; the overflow fallback's network
+    from the same sources): no window may run PyTorch's preparation."""
     from radx_tpu_torch import SortConfig, argsort, groupby, sort, sort_pairs
     from radx_tpu_torch import bench
     from radx_tpu_torch.kernels import bitonic as B
@@ -1109,7 +1273,7 @@ def radix_path(dev):
     for n in (n26, n28):
         keys = u32(n)
         with window(f"radix_sort_2e{n.bit_length() - 1}",
-                    radix_required(1, 1), radix_top(1, 1), prep="runs"):
+                    radix_required(1, 1), radix_top(1, 1), prep="none"):
             got = sort(keys, cfg)
         ok = torch.equal(_i32(got), _i32(bench.torch_sort_u32(keys)))
         flag_line(f"radix_sort_n{n}", "keys", equal_torch_sort=ok)
@@ -1130,10 +1294,10 @@ def radix_path(dev):
     for name, keys in dists.items():
         # low-cardinality keys may overflow a slot: the network then sorts
         required = (radix_required(1, 1) if name != "lowcard" else
-                    ("radix_hist", "radix_rank", "chunk_sort_cyclic",
-                     *B.KEY_KERNELS))
+                    ("radix_hist", "radix_rank", B.radix_source_kernel(1, 1),
+                     "chunk_sort", *src_kernels(1, 1)))
         with window(f"radix_sort_{name}_2e26", required,
-                    radix_top(1, 1, merge=name != "lowcard"), prep="runs"):
+                    radix_top(1, 1, merge=name != "lowcard"), prep="none"):
             got = sort(keys, cfg)
         ok = torch.equal(_i32(got), _i32(bench.torch_sort_u32(keys)))
         flag_line(f"radix_sort_{name}_n{n26}", "keys", equal_torch_sort=ok)
@@ -1148,7 +1312,7 @@ def radix_path(dev):
     with window("radix_sort_pairs_stable_2e28",
                 (*radix_required(2, 2),
                  *gather_routes("index", "partitioned")), radix_top(2, 2),
-                prep="runs"):
+                prep="none"):
         got = sort_pairs(keys, payload, cfg)
     want = bench.torch_sort_pairs(keys, payload)
     ok = all(torch.equal(_i32(a), _i32(b)) for a, b in zip(got, want))
@@ -1159,8 +1323,8 @@ def radix_path(dev):
     torch.cuda.empty_cache()
 
     k26 = u32(n26, 0, 1 << 20)
-    with window("radix_argsort_2e26", radix_required(2, 2),
-                radix_top(2, 2), prep="runs"):
+    with window("radix_argsort_2e26", radix_required(2, 2, unbias=False),
+                radix_top(2, 2), prep="none"):
         got = argsort(k26, cfg)
     ok = torch.equal(got.long(), _biased_order(_i32(k26) ^ SIGN))
     flag_line(f"radix_argsort_n{n26}", "lex2", equal_reference=ok)
@@ -1175,7 +1339,7 @@ def radix_path(dev):
         _fail(f"n = {n_g} does not keep the power-of-two rider sort")
     keys, vals = bench.groupby_data(n_g)
     with window("radix_groupby_sum_15x2e22", radix_required(1, 2),
-                radix_top(1, 2), prep="runs"):
+                radix_top(1, 2), prep="none"):
         res = groupby(keys, vals, "sum", cfg)
     g = bench._check_groups(*res, keys, vals)
     flag_line(f"radix_groupby_sum_n{n_g}", "rider", groups=g,
@@ -1187,8 +1351,12 @@ def radix_path(dev):
     if S._decompose_blocks(n_g, cfg.rider_chunk_elems)[1] != [4096, 2048]:
         _fail(f"n = {n_g} does not take the arbitrary-N rider sort")
     keys, vals = bench.groupby_data(n_g)
-    with window("radix_groupby_sum_arbn_3x2e24", radix_required(1, 2),
-                radix_top(1, 2), prep="runs"):
+    # the heads sort descending on the network and the valley merges store
+    # the keys, so the last piece's K13 writes its planes as they are
+    with window("radix_groupby_sum_arbn_3x2e24",
+                (*radix_required(1, 2, unbias=False),
+                 *B.source_kernels(1, 2)),
+                radix_top(1, 2), prep="none"):
         res = groupby(keys, vals, "sum", cfg)
     g = bench._check_groups(*res, keys, vals)
     flag_line(f"radix_groupby_sum_arbn_n{n_g}", "rider", groups=g,
@@ -1199,9 +1367,9 @@ def radix_path(dev):
                       device=dev).view(torch.uint32)
     # the network's sort of 2^23 keys: levels of up to 9 cross distances
     with window("radix_sort_all_equal_2e23",
-                ("radix_hist", "radix_rank", "chunk_sort_cyclic",
-                 *B.mode_kernels(1, 1, 9)), radix_top(1, 1, merge=False),
-                prep="runs"):
+                ("radix_hist", "radix_rank", B.radix_source_kernel(1, 1),
+                 *src_kernels(1, 1, 9)), radix_top(1, 1, merge=False),
+                prep="none"):
         got = sort(same, cfg)
     ok = torch.equal(_i32(got), _i32(same))
     if flag_line(f"radix_sort_all_equal_n{RADIX_N_EQUAL}", "keys",
@@ -2682,7 +2850,7 @@ def main():
     # keys, rider, lex2 and lex3 modes)
     all_kernels = (*B.KEY_KERNELS, *B.RIDER_KERNELS, *B.LEX_KERNELS,
                    *B.SOURCE_KERNELS, *CP.KERNELS, *SG.KERNELS, *AG.KERNELS, *RX.KERNELS,
-                   *GT.KERNELS, *MG.KERNELS, "radix_rank",
+                   *GT.KERNELS, *MG.KERNELS, "radix_rank", *M.UNBIAS_KERNELS,
                    *(k for m in MODES.values() for k in
                      (*B.radix_kernels(*m), *M.mode_kernels(*m))))
     i32 = torch.int32
@@ -3220,6 +3388,81 @@ def main():
               spread_pct=tk.spread_pct, plain_spread_pct=tp.spread_pct,
               **card)
 
+    def ptxas_of(name):
+        """ptxas's report of a launch name's instances (run-time plan, and
+        compile-time plan: "/top")."""
+        return {k: v for k, v in ptxas.items() if k in (name, f"{name}/top")}
+
+    def radix_edge_timings(planes, out, ncmp, geo, log_r):
+        """K4's source form in turns with the in-place K4 (its output
+        equal to the in-place kernel's on the planes its sources make:
+        ``_sources_of``), and K13's unbiasing form in turns with K13 on
+        the merged buckets of the same planes (in place, in place, new,
+        new: old, new, new, old); at 2^28 each also beside its plain
+        version and bound (``time_pair``)."""
+        np_ = len(planes)
+        if (ncmp, np_) not in B.SOURCE_MODES:
+            return
+        n = planes[0].numel()
+        c = rcfg.mode_tiles(np_, ncmp)[0]
+        lc = c.bit_length() - 1
+        cyc = B.radix_kernels(ncmp, np_)[0]
+        k4s = B.radix_source_kernel(ncmp, np_)
+        sources = _sources_of(planes, ncmp)
+        src_out = [torch.empty_like(q) for q in planes]
+        if log_r == 28:
+            time_pair(k4s, log_r,
+                      lambda: B.chunk_sort_cyclic_sources(src_out, ncmp,
+                                                          geo.C, c, sources),
+                      lambda: B.chunk_sort_cyclic_ref(
+                          B.source_planes_ref(sources, 0, n, dev), ncmp,
+                          geo.C, c),
+                      sum(4 * n for s in sources if s.cols) + 4 * np_ * n,
+                      chunk_ops(n, c, np_) + n,
+                      round_trips=B.round_trips(lc, 1, lc, np_),
+                      ptxas=ptxas_of(k4s))
+        ms = {}
+        for which in ("in_place", "sources", "sources", "in_place"):
+            run = ((lambda: B.chunk_sort_cyclic(planes, out, ncmp, geo.C, c))
+                   if which == "in_place" else
+                   (lambda: B.chunk_sort_cyclic_sources(src_out, ncmp, geo.C,
+                                                        c, sources)))
+            ms.setdefault(which, []).append(
+                timing.time_cuda(run, iters=10, repeats=5).seconds * 1e3)
+        e = _max_err(src_out, out)
+        record([k4s], e, e == 0, n=n, against=cyc, shape="cell")
+        _line("context", what=f"{k4s} in turns with the in-place {cyc}, "
+              f"n=2^{log_r}", **ms, ptxas=ptxas_of(k4s), **card)
+        del src_out
+        torch.cuda.empty_cache()
+        concat = M.mode_kernels(ncmp, np_)[1]
+        k13 = M.unbias_kernel(ncmp, np_)
+        sorted_, b, merged = _radix_stages(planes, ncmp, geo, rcfg)
+        src = sorted_ if ncmp == 1 and np_ == 2 else None
+        cout = [torch.empty_like(q) for q in planes]
+        keys = torch.empty_like(planes[0])
+        if log_r == 28:
+            time_pair(k13, log_r,
+                      lambda: M.concat(merged, src, cout, b.start, b.src,
+                                       geo.nb_pad, ncmp, (cout[0], 0)),
+                      lambda: M.concat_ref(merged, src, b.start, b.src,
+                                           geo.nb_pad, n, ncmp)[0] ^ SIGN,
+                      8 * np_ * n + 16 * b.src.numel(), n,
+                      ptxas=ptxas_of(k13))
+        ms = {}
+        for which in ("plain_form", "unbias", "unbias", "plain_form"):
+            key_out = None if which == "plain_form" else (keys, 0)
+            run = (lambda: M.concat(merged, src, cout, b.start, b.src,
+                                    geo.nb_pad, ncmp, key_out))
+            ms.setdefault(which, []).append(
+                timing.time_cuda(run, iters=10, repeats=5).seconds * 1e3)
+        e = _max_err([keys], [cout[0] ^ SIGN])
+        record([k13], e, e == 0, n=n, against=concat, shape="cell")
+        _line("context", what=f"{k13} in turns with {concat}, n=2^{log_r}",
+              **ms, ptxas=ptxas_of(k13), **card)
+        del sorted_, b, merged, src, cout, keys
+        torch.cuda.empty_cache()
+
     def tile_sort(x, tile):
         """The library call of a tile sort: torch.sort of the (n / tile,
         tile) view, every tile ascending."""
@@ -3706,6 +3949,20 @@ def main():
                   8 * np_ * n26, _cx_ops(n26, log_c * (log_c + 1) // 2, np_),
                   tile_sort(planes[0], c) if mode == "keys" else None,
                   round_trips=B.round_trips(log_c, 1, log_c, np_))
+        edge = (ncmp, np_) in B.SOURCE_MODES
+        if edge:  # K4's source form: the caller's columns, biased at load
+            sources = _sources_of(planes, ncmp)
+            k4s = B.radix_source_kernel(ncmp, np_)
+            time_pair(k4s, log_n,
+                      lambda: B.chunk_sort_cyclic_sources(out, ncmp, rp.C, c,
+                                                          sources),
+                      lambda: B.chunk_sort_cyclic_ref(
+                          B.source_planes_ref(sources, 0, n26, dev), ncmp,
+                          rp.C, c),
+                      sum(4 * n26 for s in sources if s.cols) + 4 * np_ * n26,
+                      _cx_ops(n26, log_c * (log_c + 1) // 2, np_) + n26,
+                      round_trips=B.round_trips(log_c, 1, log_c, np_),
+                      ptxas=ptxas_of(k4s))
         sorted_ = B.sort_chunks_ascending_cyclic(planes, ncmp, rp.C, c, f)
         tail = mode == "rider"
         args = RS.rank_args(sorted_[0], planes[0], rp, n26,
@@ -3750,6 +4007,15 @@ def main():
                   lambda: M.concat_ref(merged, src, b.start, b.src, rp.nb_pad,
                                        n26, ncmp),
                   8 * np_ * n26 + 16 * b.src.numel())
+        if edge:  # K13's unbiasing form, in place
+            k13 = M.unbias_kernel(ncmp, np_)
+            time_pair(k13, log_n,
+                      lambda: M.concat(merged, src, cout, b.start, b.src,
+                                       rp.nb_pad, ncmp, (cout[0], 0)),
+                      lambda: M.concat_ref(merged, src, b.start, b.src,
+                                           rp.nb_pad, n26, ncmp)[0] ^ SIGN,
+                      8 * np_ * n26 + 16 * b.src.numel(), n26,
+                      ptxas=ptxas_of(k13))
         del planes, out, sorted_, merged, cout, args, b, src
         torch.cuda.empty_cache()
     # K4 and K5 at the radix cells' shapes on both plans, in turns: keys and
@@ -3771,6 +4037,7 @@ def main():
                  tile_sort(planes[0], c) if np_ == 1 else None,
                  top=B.compile_time_plan("chunk_sort_cyclic", np_, lc, lc),
                  C=geo.C, tile=c, round_trips=B.round_trips(lc, 1, lc, np_))
+        radix_edge_timings(planes, out, ncmp, geo, log_r)
         del planes, out
         slot_rows = geo.nb_pad * geo.C
         packed = [torch.randint(-(2**31), 2**31, (slot_rows,), dtype=i32,

@@ -541,8 +541,7 @@ def sweep_tiles(n: int = 1 << 26, groups=SWEEP_GROUPS):
             if not torch.equal(sort(keys, cfg).view(torch.int32), want):
                 raise AssertionError("sort differs from torch.sort")
             if cfg.strategy == "radix" and not (
-                    msd.LAUNCHES["radix_rank"] == msd.LAUNCHES["radix_concat"]
-                    == 1):
+                    msd.LAUNCHES["radix_rank"] == msd.LAUNCHES[K13] == 1):
                 raise AssertionError("the radix sort overflowed")
 
         for strategy in [g for g in ("keys", "radix") if g in groups]:
@@ -1063,6 +1062,8 @@ def sweep_gather(windows=(4, 8, 16, 32), tiles=(1 << 11, 1 << 12, 1 << 13),
 
 
 RADIX = SortConfig(strategy="radix")
+# the last launch of a keys-only radix sort: K13 writing the keys unbiased
+K13 = msd.unbias_kernel(1, 1)
 
 
 def measure_radix(n: int, cfg: SortConfig = RADIX) -> dict:
@@ -1075,11 +1076,11 @@ def measure_radix(n: int, cfg: SortConfig = RADIX) -> dict:
     if not torch.equal(sort(keys, cfg).view(torch.int32),
                        torch_sort_u32(keys).view(torch.int32)):
         raise AssertionError(f"radix sort of {n} keys differs from torch.sort")
-    if not msd.LAUNCHES["radix_rank"] == msd.LAUNCHES["radix_concat"] == 1:
+    if not msd.LAUNCHES["radix_rank"] == msd.LAUNCHES[K13] == 1:
         raise AssertionError(f"radix overflow on {n} permutation keys")
     msd.reset_counts()
     t = timing.time_cuda(lambda: sort(keys, cfg), iters=3, repeats=5)
-    if msd.LAUNCHES["radix_concat"] != msd.LAUNCHES["radix_rank"]:
+    if msd.LAUNCHES[K13] != msd.LAUNCHES["radix_rank"]:
         raise AssertionError("a timed radix sort fell back to the network")
     tb = timing.time_cuda(lambda: sort(keys), iters=3, repeats=5)
     return _row(f"sort_radix_u32_keys_per_s_{_name(n)}", n, t, unit="keys/s",

@@ -411,11 +411,13 @@ def _log2(x):
 
 
 # a radix sort runs the levels above the tile inside its chunks of at most
-# radix_sort.MAX_CHUNK rows
+# radix_sort.MAX_CHUNK rows; its first launch (K4) reads the caller's keys
+# and its last (K13) writes them back unbiased
 _RADIX = (*bitonic.mode_kernels(
     1, 1, _log2(radix_sort.MAX_CHUNK) - _log2(SortConfig().finish_elems)),
-          *bitonic.radix_kernels(1, 1), *msd.mode_kernels(1, 1),
-          "radix_hist", "radix_rank")
+          bitonic.radix_source_kernel(1, 1), bitonic.radix_kernels(1, 1)[1],
+          msd.mode_kernels(1, 1)[0], msd.unbias_kernel(1, 1), "radix_hist",
+          "radix_rank")
 _GROUPBY = (*bitonic.sort_kernels(1, 2), "segscan", "compact")
 
 

@@ -1,9 +1,10 @@
 // A sort's first and last launches on Hopper (sm_90a): the bitonic chunk
-// sort that reads the caller's columns, and the finish pass that writes the
-// keys back unbiased.  Both run the register tile engine of
-// csrc/tile_engine.cuh with the loads and stores of a sort's edges
-// (Sources, KeyOut); the network, its tiles and its plans are those of
-// csrc/bitonic.cu's chunk_sort and finish, bit for bit.
+// sort and the radix sort's cyclic chunk sort that read the caller's
+// columns, and the finish pass that writes the keys back unbiased.  They
+// run the register tile engine of csrc/tile_engine.cuh with the loads and
+// stores of a sort's edges (Sources, CyclicSources, KeyOut); the network,
+// its tiles and its plans are those of csrc/bitonic.cu's chunk_sort,
+// chunk_sort_cyclic and finish, bit for bit.
 //
 // Before, every sort built its planes with PyTorch before the first kernel
 // (the padded plane filled, the keys' sign bias XORed into a temporary and
@@ -24,6 +25,16 @@
 //                  caller allocates without a fill.  Where the array is one
 //                  chunk, this is also the sort's last launch and its store
 //                  unbiases plane 0 (KeyOut).
+//   chunk_sort_cyclic (source form) <- radx_tpu/kernels/bitonic.py::
+//                  _chunk_sort_cyclic_kernel (:217), and the same
+//                  preparation of the radix sort's planes.  Radix phase 1
+//                  with its first phase reading tile row i of radix chunk c
+//                  from the source row that the block-cyclic map gives
+//                  (CyclicSources: the cyclic map composed with the
+//                  sources), the planes written out of place as the
+//                  in-place kernel writes its output.  The radix sort's
+//                  last launch, radix_concat's unbiasing form, is in
+//                  csrc/radix.cu.
 //   finish (unbiasing form) <- radx_tpu/kernels/bitonic.py::_finishw_kernel
 //                  (:427), and radx_tpu/ops/sort.py:118 (the bias XORed
 //                  out).  The sort's last level: its last phase writes plane
@@ -31,14 +42,15 @@
 //                  output of its real rows (the pads past them not stored);
 //                  the other planes go back in place.
 //
-// Bound on the card: as chunk_sort and finish (integer operations and the
-// shared-memory phases' instructions); the source load and the unbiasing
-// store add no pass and no byte.  Modes: keys, (key, rider) and lex2, the
-// modes of the sorts whose planes they make (kernels/bitonic.py
-// SOURCE_MODES); each on the mode's own tile (the plan laid out at compile
-// time, top_pass) and on any other tile (the plan read at run time,
-// tile_pass).  The kernel functions are overloads of chunk_sort_kernel and
-// finish_kernel, so a trace counts them in the network's family.
+// Bound on the card: as chunk_sort, chunk_sort_cyclic and finish (integer
+// operations and the shared-memory phases' instructions); the source load
+// and the unbiasing store add no pass and no byte.  Modes: keys, (key,
+// rider) and lex2, the modes of the sorts whose planes they make
+// (kernels/bitonic.py SOURCE_MODES); each on the mode's own tile (the plan
+// laid out at compile time, top_pass) and on any other tile (the plan read
+// at run time, tile_pass).  The kernel functions are overloads of
+// chunk_sort_kernel, chunk_sort_cyclic_kernel and finish_kernel, so a trace
+// counts them in their in-place kernels' families.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +88,34 @@ __global__ void __launch_bounds__(kTileThreads, 3)
   }
 }
 
+// chunk_sort_cyclic's source form: radix phase 1 (stages 1..log_t of every
+// radix chunk, whose 1024-row tiles are taken block-cyclically), tile row i
+// of radix chunk c read from source row src.base + Cyclic{lb, c,
+// n_chunks}(i), the tile written contiguously to x at b << log_t, as
+// csrc/bitonic.cu's chunk_sort_cyclic_kernel writes `out`.  The sort goes
+// on after it, so every plane is stored as it is.  The launch bound is the
+// chunk sort's source form's: three blocks an SM.
+template <int NCMP, int P, int LOG_T>
+__global__ void __launch_bounds__(kTileThreads, 3)
+    chunk_sort_cyclic_kernel(Planes x, CyclicSources<P> src, int log_t,
+                             int log_c, int64_t n_chunks, TilePlan plan,
+                             int vec) {
+  const int lt = LOG_T == 0 ? log_t : LOG_T;
+  const int64_t tile = blockIdx.x;
+  const int64_t lb = (tile << lt) & ((static_cast<int64_t>(1) << log_c) - 1);
+  CyclicSources<P> map = src;
+  map.cyclic = Cyclic{lb, tile >> (log_c - lt), n_chunks};
+  const Contiguous omap{tile << lt};
+  if constexpr (LOG_T == 0) {
+    tile_pass<NCMP, P>(x, x, map, omap, log_t, plan, lb, 0, vec != 0);
+  } else {
+    extern __shared__ int top_smem[];
+    top_pass<NCMP, P, LOG_T, 0, 0, 0>(x, x, top_smem, map, omap,
+                                      static_cast<int>((lb >> LOG_T) & 1), 0,
+                                      vec != 0);
+  }
+}
+
 // finish's unbiasing form: level kk (the plan's) below the tile, in place,
 // plane 0 stored through `out` (xr = 0x80000000).
 template <int NCMP, int P, int LOG_T>
@@ -97,15 +137,6 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     top_pass<NCMP, P, LOG_T, LOG_T, 0, 0>(x, x, top_smem, map, omap, flip,
                                           invert, vec != 0);
   }
-}
-
-// The modes that have these kernels: keys, (key, rider), lex2.
-template <typename Launch>
-cudaError_t dispatch_edges(int ncmp, int np, const Launch& launch) {
-  if (ncmp == 1 && np == 1) return launch.template operator()<1, 1>();
-  if (ncmp == 1 && np == 2) return launch.template operator()<1, 2>();
-  if (ncmp == 2 && np == 2) return launch.template operator()<2, 2>();
-  return cudaErrorInvalidValue;
 }
 
 constexpr int kSourceFields = 10;
@@ -133,6 +164,21 @@ bool make_source(const int64_t* f, PlaneSource* s) {
                       (split == n || s->col1 != nullptr));
 }
 
+// A chunk sort's plan starts with register window 0, so the source load
+// takes a thread's rows as one run (rows_from_sources).
+bool first_phase_runs(const TilePlan& plan) {
+  return decode_phase(plan.code[0]).wlo == 0;
+}
+
+// The P planes' sources, kSourceFields packed fields each.
+template <int P>
+bool make_sources(const int64_t* fields, PlaneSource (&s)[P]) {
+  for (int j = 0; j < P; ++j) {
+    if (!make_source(fields + kSourceFields * j, &s[j])) return false;
+  }
+  return true;
+}
+
 struct ChunkSourceLaunch {
   Planes x;
   const int64_t* fields;
@@ -147,14 +193,11 @@ struct ChunkSourceLaunch {
   cudaError_t operator()() const {
     constexpr int kLogT = top_log_t(P);
     Sources<P> src;
-    for (int j = 0; j < P; ++j) {
-      if (!make_source(fields + kSourceFields * j, &src.s[j])) {
-        return cudaErrorInvalidValue;
-      }
-    }
+    if (!make_sources<P>(fields, src.s)) return cudaErrorInvalidValue;
     src.base = row0;
     TilePlan tp;
     if (!make_plan<max_fusion(P)>(plan, phases, log_c, &tp) ||
+        !first_phase_runs(tp) ||
         (top && (log_c != kLogT || !is_top_plan<P>(tp, kLogT, 0, 0)))) {
       return cudaErrorInvalidValue;
     }
@@ -164,6 +207,42 @@ struct ChunkSourceLaunch {
     }
     return launch_tile<P>(chunk_sort_kernel<NCMP, P, 0>, x, x, n, log_c, tp,
                           stream, x, src, out, log_c, invert);
+  }
+};
+
+struct CyclicSourceLaunch {
+  Planes x;
+  const int64_t* fields;
+  int64_t row0, n;
+  int log_t, log_c;
+  const int* plan;
+  int64_t phases;
+  int top;
+  cudaStream_t stream;
+  template <int NCMP, int P>
+  cudaError_t operator()() const {
+    constexpr int kLogT = top_log_t(P);
+    static_assert(radix_top(P), "every source mode has K4's top plan");
+    CyclicSources<P> src;
+    if (!make_sources<P>(fields, src.s)) return cudaErrorInvalidValue;
+    src.base = row0;
+    src.cyclic = Cyclic{0, 0, 1};  // each block sets its own
+    TilePlan tp;
+    if (log_t > log_c || log_c < kCyclicLog || log_c > 62 ||
+        (n >> log_c) << log_c != n ||
+        !make_plan<max_fusion(P)>(plan, phases, log_t, &tp) ||
+        !first_phase_runs(tp) ||
+        (top && (log_t != kLogT || !is_top_plan<P>(tp, kLogT, 0, 0)))) {
+      return cudaErrorInvalidValue;
+    }
+    if (top) {
+      return launch_tile<P>(chunk_sort_cyclic_kernel<NCMP, P, kLogT>, x, x,
+                            n, log_t, tp, stream, x, src, log_t, log_c,
+                            n >> log_c);
+    }
+    return launch_tile<P>(chunk_sort_cyclic_kernel<NCMP, P, 0>, x, x, n,
+                          log_t, tp, stream, x, src, log_t, log_c,
+                          n >> log_c);
   }
 };
 
@@ -230,6 +309,32 @@ int radx_chunk_sort_src(void* const* planes, int64_t np, int64_t ncmp,
   launch.n = n;
   launch.log_c = static_cast<int>(log_c);
   launch.invert = static_cast<int>(invert);
+  launch.plan = plan;
+  launch.phases = phases;
+  launch.top = static_cast<int>(top != 0);
+  launch.stream = static_cast<cudaStream_t>(stream);
+  return dispatch_edges(static_cast<int>(ncmp), static_cast<int>(np), launch);
+}
+
+// chunk_sort_cyclic reading sources: `planes` the np output planes of n
+// rows (radix chunks of 2^log_c rows, tiles of 2^log_t, sorted as
+// radx_chunk_sort_cyclic sorts them), `sources` and row0 as
+// radx_chunk_sort_src's.  `plan`, `phases` and `top` as
+// radx_chunk_sort_cyclic's.
+int radx_chunk_sort_cyclic_src(void* const* planes, int64_t np, int64_t ncmp,
+                               int64_t n, int64_t log_t, int64_t log_c,
+                               const int64_t* sources, int64_t row0,
+                               const int* plan, int64_t phases, int64_t top,
+                               void* stream) {
+  CyclicSourceLaunch launch;
+  if (!make_planes(planes, np, &launch.x) || sources == nullptr || row0 < 0) {
+    return cudaErrorInvalidValue;
+  }
+  launch.fields = sources;
+  launch.row0 = row0;
+  launch.n = n;
+  launch.log_t = static_cast<int>(log_t);
+  launch.log_c = static_cast<int>(log_c);
   launch.plan = plan;
   launch.phases = phases;
   launch.top = static_cast<int>(top != 0);

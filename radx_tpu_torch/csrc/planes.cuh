@@ -47,6 +47,18 @@ cudaError_t dispatch(int ncmp, int np, const Launch& launch) {
   }
 }
 
+// The same for the modes of a sort's first and last launches, whose
+// planes the sort makes from the caller's columns and whose keys it writes
+// back unbiased (csrc/bitonic_io.cu, radix_concat's unbiasing form): keys,
+// (key, rider), lex2.
+template <typename Launch>
+cudaError_t dispatch_edges(int ncmp, int np, const Launch& launch) {
+  if (ncmp == 1 && np == 1) return launch.template operator()<1, 1>();
+  if (ncmp == 1 && np == 2) return launch.template operator()<1, 2>();
+  if (ncmp == 2 && np == 2) return launch.template operator()<2, 2>();
+  return cudaErrorInvalidValue;
+}
+
 bool make_planes(void* const* ptrs, int64_t np, Planes* out) {
   if (np < 1 || np > kMaxPlanes) return false;
   for (int j = 0; j < kMaxPlanes; ++j) {

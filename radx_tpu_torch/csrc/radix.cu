@@ -517,11 +517,16 @@ __device__ __forceinline__ int segment_of(const int64_t* start, int n_seg,
 // each thread finds the segment of its first row by a binary search of the
 // segment starts (cached reads, shared by the block's threads) and walks
 // forward, so any number of buckets may meet a block.  Rows from start
-// [n_seg] (= n_valid) to `total` get the per-plane fill.
-template <int NCMP, int P>
-__global__ void radix_concat_kernel(Planes merged, Planes sorted, Planes out,
-                                    const int64_t* start, const int64_t* src,
-                                    int n_seg, int n_merged, int64_t total) {
+// [n_seg] (= n_valid) to `total` get the per-plane fill.  Row i of plane j
+// is stored through `store` (PlaneStore: out.p[j][i]; KeyStore: plane 0 to
+// the caller's keys, unbiased).
+template <int NCMP, int P, typename Store>
+__device__ __forceinline__ void concat_rows(const Planes& merged,
+                                            const Planes& sorted,
+                                            const Store& store,
+                                            const int64_t* start,
+                                            const int64_t* src, int n_seg,
+                                            int n_merged, int64_t total) {
   const int64_t n_valid = __ldg(start + n_seg);
   const int64_t o = static_cast<int64_t>(blockIdx.x) << kConcatRowsLog;
   const int64_t block_end = o + (static_cast<int64_t>(1) << kConcatRowsLog);
@@ -530,7 +535,7 @@ __global__ void radix_concat_kernel(Planes merged, Planes sorted, Planes out,
   for (int64_t i = o + threadIdx.x; i < end; i += blockDim.x) {
     if (i >= n_valid) {
 #pragma unroll
-      for (int j = 0; j < P; ++j) out.p[j][i] = fill<NCMP>(j);
+      for (int j = 0; j < P; ++j) store(j, i, fill<NCMP>(j));
       continue;
     }
     if (s < 0) {
@@ -542,9 +547,60 @@ __global__ void radix_concat_kernel(Planes merged, Planes sorted, Planes out,
     const bool from_merged = s < n_merged;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      out.p[j][i] = (from_merged ? merged.p[j] : sorted.p[j])[k];
+      store(j, i, (from_merged ? merged.p[j] : sorted.p[j])[k]);
     }
   }
+}
+
+struct PlaneStore {
+  Planes out;
+  __device__ __forceinline__ void operator()(int j, int64_t i, int v) const {
+    out.p[j][i] = v;
+  }
+};
+
+// The last store of a radix sort (radix_concat's unbiasing form, as
+// csrc/tile_engine.cuh's KeyOut is the network's): plane 0's row i goes to
+// key[i] ^ xr for i below `rows` (in place: key = plane 0, or the caller's
+// output of its real rows, the pads past it not stored); the other planes
+// go to `out`.
+struct ConcatKeyOut {
+  int* key;
+  int64_t rows;
+  int xr;
+};
+
+struct KeyStore {
+  Planes out;
+  ConcatKeyOut key;
+  __device__ __forceinline__ void operator()(int j, int64_t i, int v) const {
+    if (j != 0) {
+      out.p[j][i] = v;
+    } else if (i < key.rows) {
+      key.key[i] = v ^ key.xr;
+    }
+  }
+};
+
+template <int NCMP, int P>
+__global__ void radix_concat_kernel(Planes merged, Planes sorted, Planes out,
+                                    const int64_t* start, const int64_t* src,
+                                    int n_seg, int n_merged, int64_t total) {
+  concat_rows<NCMP, P>(merged, sorted, PlaneStore{out}, start, src, n_seg,
+                       n_merged, total);
+}
+
+// radix_concat's unbiasing form: the radix sort's last launch writes the
+// keys back unbiased (radx_tpu/ops/sort.py:118, the bias XORed out), so no
+// pass follows it.  Same bound and design; plane 0 adds no byte (the pads
+// past `rows` are not stored).  Keys, (key, rider) and lex2.
+template <int NCMP, int P>
+__global__ void radix_concat_kernel(Planes merged, Planes sorted, Planes out,
+                                    ConcatKeyOut key, const int64_t* start,
+                                    const int64_t* src, int n_seg,
+                                    int n_merged, int64_t total) {
+  concat_rows<NCMP, P>(merged, sorted, KeyStore{out, key}, start, src, n_seg,
+                       n_merged, total);
 }
 
 struct PackLaunch {
@@ -572,15 +628,48 @@ struct ConcatLaunch {
   cudaStream_t stream;
   template <int NCMP, int P>
   cudaError_t operator()() const {
-    const int64_t blocks =
-        (total + (static_cast<int64_t>(1) << kConcatRowsLog) - 1) >>
-        kConcatRowsLog;
     radix_concat_kernel<NCMP, P>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-            merged, sorted, out, start, src, n_seg, n_merged, total);
+        <<<blocks(), kThreads, 0, stream>>>(merged, sorted, out, start, src,
+                                            n_seg, n_merged, total);
+    return cudaGetLastError();
+  }
+  unsigned blocks() const {
+    return static_cast<unsigned>(
+        (total + (static_cast<int64_t>(1) << kConcatRowsLog) - 1) >>
+        kConcatRowsLog);
+  }
+};
+
+struct ConcatOutLaunch {
+  ConcatLaunch c;
+  ConcatKeyOut key;
+  template <int NCMP, int P>
+  cudaError_t operator()() const {
+    radix_concat_kernel<NCMP, P><<<c.blocks(), kThreads, 0, c.stream>>>(
+        c.merged, c.sorted, c.out, key, c.start, c.src, c.n_seg, c.n_merged,
+        c.total);
     return cudaGetLastError();
   }
 };
+
+// The launch of radix_concat (either form) from the C entry's arguments.
+bool make_concat(void* const* merged, void* const* sorted, void* const* out,
+                 int64_t np, const void* start, const void* src, int64_t n_seg,
+                 int64_t n_merged, int64_t total, void* stream,
+                 ConcatLaunch* c) {
+  if (!make_planes(merged, np, &c->merged) ||
+      !make_planes(sorted, np, &c->sorted) || !make_planes(out, np, &c->out) ||
+      n_seg <= 0 || total <= 0 || n_merged > n_seg) {
+    return false;
+  }
+  c->start = static_cast<const int64_t*>(start);
+  c->src = static_cast<const int64_t*>(src);
+  c->n_seg = static_cast<int>(n_seg);
+  c->n_merged = static_cast<int>(n_merged);
+  c->total = total;
+  c->stream = static_cast<cudaStream_t>(stream);
+  return true;
+}
 
 }  // namespace
 
@@ -711,19 +800,29 @@ int radx_radix_concat(void* const* merged, void* const* sorted,
                       const void* start, const void* src, int64_t n_seg,
                       int64_t n_merged, int64_t total, void* stream) {
   ConcatLaunch launch;
-  if (!make_planes(merged, np, &launch.merged) ||
-      !make_planes(sorted, np, &launch.sorted) ||
-      !make_planes(out, np, &launch.out) || n_seg <= 0 || total <= 0 ||
-      n_merged > n_seg) {
+  if (!make_concat(merged, sorted, out, np, start, src, n_seg, n_merged,
+                   total, stream, &launch)) {
     return cudaErrorInvalidValue;
   }
-  launch.start = static_cast<const int64_t*>(start);
-  launch.src = static_cast<const int64_t*>(src);
-  launch.n_seg = static_cast<int>(n_seg);
-  launch.n_merged = static_cast<int>(n_merged);
-  launch.total = total;
-  launch.stream = static_cast<cudaStream_t>(stream);
   return dispatch(static_cast<int>(ncmp), static_cast<int>(np), launch);
+}
+
+// radix_concat's unbiasing form: as radx_radix_concat, plane 0 to `key`
+// (its first key_rows rows, XORed with key_xor) and not to out[0]; keys,
+// rider and lex2.
+int radx_radix_concat_out(void* const* merged, void* const* sorted,
+                          void* const* out, int64_t np, int64_t ncmp,
+                          const void* start, const void* src, int64_t n_seg,
+                          int64_t n_merged, int64_t total, void* key,
+                          int64_t key_rows, int64_t key_xor, void* stream) {
+  ConcatOutLaunch launch;
+  if (!make_concat(merged, sorted, out, np, start, src, n_seg, n_merged,
+                   total, stream, &launch.c) ||
+      key_rows < 0 || (key == nullptr && key_rows > 0)) {
+    return cudaErrorInvalidValue;
+  }
+  launch.key = {static_cast<int*>(key), key_rows, static_cast<int>(key_xor)};
+  return dispatch_edges(static_cast<int>(ncmp), static_cast<int>(np), launch);
 }
 
 }  // extern "C"

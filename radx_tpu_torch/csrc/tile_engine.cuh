@@ -331,9 +331,12 @@ __device__ __forceinline__ void rows_to_global(const Planes& x, const Map& map,
 
 // ---------------------------------------------------------------------------
 // A sort's first load and last store (csrc/bitonic_io.cu).  The first chunk
-// sort of a sort reads the caller's columns, not planes made beforehand:
-// each plane's rows come from a source, biased, padded and numbered as the
-// load reads them; the last launch of a sort writes the keys back unbiased.
+// sort of a sort (the network's chunk_sort, the radix sort's
+// chunk_sort_cyclic) reads the caller's columns, not planes made
+// beforehand: each plane's rows come from a source, biased, padded and
+// numbered as the load reads them; the last launch of a network sort
+// writes the keys back unbiased (the radix sort's last, radix_concat,
+// does so in csrc/radix.cu).
 // Both are overloads of rows_from_global / rows_to_global picked by the map
 // type, so top_pass and tile_pass run them with no change of their own.
 // ---------------------------------------------------------------------------
@@ -365,24 +368,45 @@ struct Sources {
   static constexpr bool kRuns = true;
   PlaneSource s[P];
   int64_t base;
+  __device__ __forceinline__ int64_t operator()(int row) const {
+    return base + row;
+  }
 };
 
-// A thread's rows from the sources.  A run of W rows (wlo = 0) of a column
-// moves as int4 vectors where it lies inside one column, below n, at a
-// 16-byte aligned address; a run that holds row n or the split, or lies at
-// an unaligned address (a caller's view such as keys[3:]), goes row by row,
+// The first load of chunk_sort_cyclic's source form: tile row i of radix
+// chunk c is source row base + Cyclic{lb, c, n_chunks}(i) (base: the
+// piece's first row; the kernel sets the tile's cyclic map).  A run of W
+// <= 16 rows lies inside one 1024-row cyclic tile, so its source rows are
+// consecutive, as Sources' are.
+template <int P>
+struct CyclicSources {
+  static constexpr bool kRuns = true;
+  PlaneSource s[P];
+  int64_t base;
+  Cyclic cyclic;
+  __device__ __forceinline__ int64_t operator()(int row) const {
+    return base + cyclic(row);
+  }
+};
+
+// A thread's rows from the sources; src(row) is tile row `row`'s source
+// row.  The first phase of a chunk sort has wlo = 0 (tile_plan; the entry
+// points refuse another plan), so a thread's rows are gb .. gb + W - 1,
+// consecutive source rows from src(gb): the map runs once a thread, not
+// once a row (the cyclic map's 64-bit product).  A run of a column moves
+// as int4 vectors where it lies inside one column, below n, at a 16-byte
+// aligned address; a run that holds row n or the split, or lies at an
+// unaligned address (a caller's view such as keys[3:]), goes row by row,
 // so no load reads past a column's end.  An index is computed, never read.
-template <int P, int W>
-__device__ __forceinline__ void rows_from_global(int (&v)[P][W],
-                                                 const Planes& /*unused*/,
-                                                 const Sources<P>& src,
-                                                 int gb, int wlo, int t,
-                                                 bool vec) {
+template <int P, int W, typename Src>
+__device__ __forceinline__ void rows_from_sources(int (&v)[P][W],
+                                                  const Src& src, int gb,
+                                                  int t, bool vec) {
+  const int64_t r0 = src(gb);
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const PlaneSource& s = src.s[j];
-    if (vec && wlo == 0 && !s.index) {
-      const int64_t r0 = src.base + gb;
+    if (vec && !s.index) {
       const bool second = r0 >= s.split;
       const int* q = second ? s.col1 + (r0 - s.split) : s.col0 + r0;
       if (r0 + W <= s.n && (second || r0 + W <= s.split) &&
@@ -401,10 +425,27 @@ __device__ __forceinline__ void rows_from_global(int (&v)[P][W],
     }
 #pragma unroll
     for (int u = 0; u < W; ++u) {
-      const int row = gb | (u << wlo);
-      if (row < t) v[j][u] = source_row(s, src.base + row);
+      if (gb + u < t) v[j][u] = source_row(s, r0 + u);
     }
   }
+}
+
+template <int P, int W>
+__device__ __forceinline__ void rows_from_global(int (&v)[P][W],
+                                                 const Planes& /*unused*/,
+                                                 const Sources<P>& src,
+                                                 int gb, int /*wlo: 0*/,
+                                                 int t, bool vec) {
+  rows_from_sources<P, W>(v, src, gb, t, vec);
+}
+
+template <int P, int W>
+__device__ __forceinline__ void rows_from_global(int (&v)[P][W],
+                                                 const Planes& /*unused*/,
+                                                 const CyclicSources<P>& src,
+                                                 int gb, int /*wlo: 0*/,
+                                                 int t, bool vec) {
+  rows_from_sources<P, W>(v, src, gb, t, vec);
 }
 
 // The last store of a sort (chunk_sort's source form, finish's unbiasing

@@ -59,6 +59,10 @@ _SIGNATURES = {
                         _P),
     # in, out, np, ncmp, n, log_t, log_c, plan, phases, top, stream
     "radx_chunk_sort_cyclic": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P),
+    # planes, np, ncmp, n, log_t, log_c, sources, row0, plan, phases, top,
+    # stream
+    "radx_chunk_sort_cyclic_src": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I,
+                                   _I, _P),
     # in, out, np, ncmp, n, log_t, log_s, log_c, plan, phases, top, stream
     "radx_slot_merge": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P),
     # keys, n, rows, log_tile, shift, bias, out, totals, stream
@@ -73,6 +77,10 @@ _SIGNATURES = {
     # merged, sorted, out, np, ncmp, start, src, n_seg, n_merged, total,
     # stream
     "radx_radix_concat": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
+    # merged, sorted, out, np, ncmp, start, src, n_seg, n_merged, total,
+    # key, key_rows, key_xor, stream
+    "radx_radix_concat_out": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P,
+                              _I, _I, _P),
     # keys, values, n, bins, n_valid (or null), sums, counts, stream
     "radx_dense_sums": (_P, _P, _I, _I, _P, _P, _P, _P),
     # keys, ovals, n, bins, is_min, n_valid (or null), ext, counts, stream

@@ -60,10 +60,15 @@ A sort's first and last launches have forms of their own
     out of place (``chunk_sort_sources``);
   * ``finish/unbias`` — ``finish`` whose last store writes plane 0 XORed
     with 0x80000000, in place or into the caller's output of its real rows
-    (``key_out``).
+    (``key_out``);
+  * ``chunk_sort_cyclic/src`` — the radix sort's ``chunk_sort_cyclic``
+    whose first load reads the sources through the block-cyclic map
+    (``chunk_sort_cyclic_sources``); the radix sort's last launch is
+    ``radix_concat``'s unbiasing form (kernels/msd.py).
 
 ``sort_planes(..., sources=, key_out=)`` (``sort_sources`` for a plane
-list) runs them at a sort's edges: the planes may come from
+list) runs them at a sort's edges, ``sort_chunks_ascending_cyclic(...,
+sources=)`` at the radix sort's first: the planes may come from
 ``torch.empty``, and no PyTorch pass makes or unbiases them.
 
 ``_overhang`` is the valley merge's top half-cleaner
@@ -174,6 +179,12 @@ def source_kernels(ncmp: int, planes: int) -> tuple[str, ...]:
     return f"chunk_sort/src{sfx}", f"finish/unbias{sfx}"
 
 
+def radix_source_kernel(ncmp: int, planes: int) -> str:
+    """Launch name of the radix sort's first launch made from sources
+    (``SOURCE_MODES``): ``chunk_sort_cyclic`` reading the sources."""
+    return f"chunk_sort_cyclic/src{_suffix(ncmp, planes)}"
+
+
 def sort_kernels(ncmp: int, planes: int, distances: int | None = None,
                  unbias: bool = True) -> tuple[str, ...]:
     """Launch names of a sort made from sources, as ``mode_kernels``:
@@ -190,7 +201,8 @@ LEX_PLANES = tuple(range(2, MAX_PLANES + 1))
 LEX_KERNELS = tuple(k for p in LEX_PLANES for k in mode_kernels(2, p))
 MODES = ((1, 1), (1, 2), *((2, p) for p in LEX_PLANES))
 RADIX_KERNELS = tuple(k for m in MODES for k in radix_kernels(*m))
-SOURCE_KERNELS = tuple(k for m in SOURCE_MODES for k in source_kernels(*m))
+SOURCE_KERNELS = tuple(k for m in SOURCE_MODES
+                       for k in (*source_kernels(*m), radix_source_kernel(*m)))
 KERNELS = (KEY_KERNELS + RIDER_KERNELS + LEX_KERNELS + RADIX_KERNELS
            + SOURCE_KERNELS)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -373,6 +385,12 @@ class Source(NamedTuple):
     add: tuple = (0, 0)
     split: int = 0
     pad: int | None = 0
+
+
+def source_device(sources) -> torch.device:
+    """The device of the sources' columns (a sort's sources hold one at
+    least: its keys)."""
+    return next(c.device for s in sources for c in s.cols)
 
 
 def _column(c):
@@ -934,6 +952,42 @@ def chunk_sort_cyclic(src, dst, ncmp, chunk, tile):
     return dst
 
 
+def chunk_sort_cyclic_sources(dst, ncmp, chunk, tile, sources, row0=0):
+    """``chunk_sort_cyclic`` whose first load reads ``sources`` (one
+    ``Source`` a plane; the planes' row e is source row row0 + e) and
+    writes ``dst``, which is not read: radix phase 1 of a sort whose planes
+    are made in its own first launch.  Keys, rider and lex2
+    (``SOURCE_MODES``); the plan at compile time where
+    ``compile_time_plan`` says so."""
+    if chunk < CYCLIC_TILE or tile > chunk:
+        raise ValueError(f"chunk {chunk} must be >= {CYCLIC_TILE} and >= "
+                         f"the tile {tile}")
+    _edge_mode(dst, ncmp)
+    if chunk % tile or dst[0].numel() % chunk:
+        raise ValueError(f"tile {tile} / chunk {chunk} do not divide "
+                         f"{dst[0].numel()} rows")
+    if not _on_cuda(dst, tile, tile=True):
+        _check_sources(sources, dst)
+        made = source_planes_ref(sources, row0, dst[0].numel(), dst[0].device)
+        for d, o in zip(dst, chunk_sort_cyclic_ref(made, ncmp, chunk, tile)):
+            d.copy_(o)
+        return dst
+    log_t = _log2(tile)
+    _launch_cyclic_src(dst, ncmp, chunk, tile, sources, row0,
+                       compile_time_plan("chunk_sort_cyclic", len(dst), log_t,
+                                         log_t))
+    return dst
+
+
+def _launch_cyclic_src(dst, ncmp, chunk, tile, sources, row0, top):
+    """One launch of chunk_sort_cyclic's source form on the compile-time
+    plan (``top``) or the run-time one."""
+    log_t = _log2(tile)
+    _launch("chunk_sort_cyclic/src", "radx_chunk_sort_cyclic_src", dst, ncmp,
+            log_t, _log2(chunk), _source_fields(sources, dst), row0,
+            *_plan_arg(log_t, 1, log_t, max_fusion(len(dst))), top=top)
+
+
 def _launch_slot(src, dst, ncmp, chunk, slot, tile, top):
     """One slot_merge launch on the compile-time plan (``top``) or the
     run-time one."""
@@ -1056,16 +1110,23 @@ def _keywords(planes, ncmp):
 
 
 def sort_chunks_ascending_cyclic(planes, ncmp, chunk, chunk_elems,
-                                 finish_elems):
+                                 finish_elems, sources=None, row0=0):
     """Radix phase 1 (port of ``sort_chunks_ascending_cyclic``): new planes
     in which every radix chunk of ``chunk`` rows holds the CYCLIC_TILE-row
     tiles {g * n_chunks + c} of ``planes``, sorted ascending.  The tiles
     (``chunk_elems`` for the stages in shared memory, ``finish_elems`` for
     the finish passes) are those of the mode's network; the inputs are left
-    untouched."""
+    untouched.  With ``sources`` (one ``Source`` a plane, from source row
+    ``row0``), ``planes`` are the new planes themselves, whose rows the
+    first launch reads from the sources (``chunk_sort_cyclic_sources``):
+    they are written, never read, and may come from ``torch.empty``."""
     c = min(chunk_elems, chunk)
-    out = [torch.empty_like(p) for p in planes]
-    chunk_sort_cyclic(planes, out, ncmp, chunk, c)
+    if sources is None:
+        out = [torch.empty_like(p) for p in planes]
+        chunk_sort_cyclic(planes, out, ncmp, chunk, c)
+    else:
+        out = planes
+        chunk_sort_cyclic_sources(out, ncmp, chunk, c, sources, row0)
     k, rd, lx = _keywords(out, ncmp)
     _sort_pipeline(k, c, finish_elems, presorted=True, presorted_log=_log2(c),
                    rider=rd, lex=lx, span=chunk)

@@ -16,7 +16,9 @@ parts of radx_tpu/kernels/msd.py that ``strategy="radix"`` uses
     output as a list of segments: rows [start[s], start[s+1]) come from
     offset src[s] of the merged buckets (s < n_merged) or of the sorted
     chunks, rows from start[-1] (the valid count) on get the fill (K13,
-    ``_concat_kernel``).
+    ``_concat_kernel``); with ``key_out`` its unbiasing form, the radix
+    sort's last launch: plane 0 goes XORed with 0x80000000 to the caller's
+    keys (``radix_concat/unbias<mode>``, keys, rider and lex2).
 
 On a CUDA tensor pack and concat run their kernels of
 ``radx_tpu_torch/csrc/radix.cu`` (``radix_pack<mode>``,
@@ -53,8 +55,15 @@ def mode_kernels(ncmp: int, planes: int) -> tuple[str, ...]:
     return f"radix_pack{sfx}", f"radix_concat{sfx}"
 
 
+def unbias_kernel(ncmp: int, planes: int) -> str:
+    """Launch name of concat's unbiasing form in one mode
+    (``bitonic.SOURCE_MODES``)."""
+    return f"radix_concat/unbias{bitonic._suffix(ncmp, planes)}"
+
+
+UNBIAS_KERNELS = tuple(unbias_kernel(*m) for m in bitonic.SOURCE_MODES)
 KERNELS = ("radix_rank",) + tuple(k for m in bitonic.MODES
-                                  for k in mode_kernels(*m))
+                                  for k in mode_kernels(*m)) + UNBIAS_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(("radix_rank_ref", "radix_rank_model",
                              "radix_pack_ref", "radix_concat_ref"), 0)
@@ -173,13 +182,30 @@ def concat_ref(merged, sorted_, start, src, n_merged, total, ncmp):
     return outs
 
 
-def concat(merged, sorted_, out, start, src, n_merged, ncmp):
+def concat(merged, sorted_, out, start, src, n_merged, ncmp, key_out=None):
     """Write the output planes ``out`` (in place) from the segments:
     rows [start[s], start[s+1]) read from offset src[s] of ``merged`` for
     s < n_merged, else of ``sorted_`` (None when there are no such
-    segments); rows from start[-1] on get the fill."""
+    segments); rows from start[-1] on get the fill.  ``key_out`` = (keys,
+    row), the unbiasing form (keys, rider, lex2: the radix sort's last
+    launch): plane 0 goes XORed with 0x80000000 to keys[row:], the rows
+    that fit (``keys`` may be out[0] itself), and out[0] is not written;
+    it may be None where the mode has other planes (they give the rows)."""
     _planes_of(merged, ncmp)
-    _planes_of(out, ncmp)
+    planes = out
+    if key_out is not None:
+        bitonic._edge_mode(out, ncmp)
+        keys = key_out[0]
+        if keys.dtype != torch.int32:
+            raise ValueError("the keys' output is an int32 tensor")
+        if out[0] is None:
+            if len(out) < 2:
+                raise ValueError("one plane: out[0] gives the rows")
+            planes = out[1:]
+    for p in planes:
+        if p.dtype != torch.int32 or p.shape != planes[0].shape:
+            raise ValueError("planes must be int32 tensors of one shape")
+    bitonic._mode(out, ncmp)
     n_seg = src.numel()
     if (start.dtype != torch.int64 or src.dtype != torch.int64
             or start.numel() != n_seg + 1 or not 0 < n_merged <= n_seg):
@@ -189,13 +215,26 @@ def concat(merged, sorted_, out, start, src, n_merged, ncmp):
             raise ValueError("segments past n_merged need the sorted planes")
     else:
         _planes_of(sorted_, ncmp)
-    total = out[0].numel()
-    if not _on_cuda([*merged, *out, start, src, *(sorted_ or ())]):
-        for o, r in zip(out, concat_ref(merged, sorted_, start, src, n_merged,
-                                        total, ncmp)):
+    total = planes[0].numel()
+    tensors = [*merged, *planes, start, src, *(sorted_ or ())]
+    if not _on_cuda(tensors + ([] if key_out is None else [key_out[0]])):
+        res = concat_ref(merged, sorted_, start, src, n_merged, total, ncmp)
+        stored = 0 if key_out is None else 1
+        for o, r in zip(out[stored:], res[stored:]):
             o.copy_(r)
+        if key_out is not None:
+            bitonic._store_key(key_out, res[0])
         return out
-    _call(mode_kernels(ncmp, len(out))[1], "radx_radix_concat", out[0],
-          _ptrs(merged), _ptrs(sorted_ or merged), _ptrs(out), len(out), ncmp,
-          start.data_ptr(), src.data_ptr(), n_seg, n_merged, total)
+    if key_out is None:
+        _call(mode_kernels(ncmp, len(out))[1], "radx_radix_concat", out[0],
+              _ptrs(merged), _ptrs(sorted_ or merged), _ptrs(out), len(out),
+              ncmp, start.data_ptr(), src.data_ptr(), n_seg, n_merged, total)
+        return out
+    key, rows, xor = bitonic._key_out_args(key_out, [planes[0]],
+                                           bitonic.SIGN)
+    _call(unbias_kernel(ncmp, len(out)), "radx_radix_concat_out", planes[0],
+          _ptrs(merged), _ptrs(sorted_ or merged),
+          _ptrs([key_out[0] if o is None else o for o in out]), len(out),
+          ncmp, start.data_ptr(), src.data_ptr(), n_seg, n_merged, total,
+          key, rows, xor)
     return out

@@ -9,7 +9,8 @@ granularity, on the port's kernels:
      sort_chunks_ascending_cyclic``: K4 in shared memory, then cross / finish
      passes with a span of C);
   2. **counting / partition** — the top-byte histograms of the pre-sort
-     plane (K10) give the exact digit totals; one launch of K11
+     plane (K10; in a sort from sources, of the caller's key column) give
+     the exact digit totals; one launch of K11
      (``rank_runs``) turns them and the sorted regular samples of the
      sorted chunks into the nb - 1 splitters (each sample quantile clamped
      into the digit interval its bucket's target falls in:
@@ -40,6 +41,15 @@ in place of a real one.  So in that mode a splitter equal to the sentinel
 ends the last bucket, and the sentinel-key rows of every sorted chunk are
 copied by K13 straight from the chunk, after the buckets: they never enter a
 slot, and the splitter targets do not count them.
+
+A sort from sources (``sort_radix(..., sources=)``, what ``ops/sort.py``
+runs in keys, rider and lex2) makes its planes in its own first and last
+launches, as the network's sorts do: K4's source form reads the caller's
+columns (biased, padded and numbered at load), the counting step reads
+the key column itself (``source_counts``: K10 with bias 0 over its rows,
+the pads added to digit 255), and K13's unbiasing form writes the keys
+back; the output planes are allocated after K12 (``Outputs``), and the
+sorted chunks are dropped there where no tail reads them.
 
 Geometry (``plan``) is the JAX package's, field for field, in keys instead
 of (rows, 128) tiles: C grows from the mode's chunk tile until C^2 >= 2048 n
@@ -189,17 +199,55 @@ def choose_splitters(keys, flat_input, p: Plan, n_valid: int, sample_tiles,
                            totals, p, n_keys)
 
 
+def source_counts(s: bitonic.Source, p: Plan, n_valid: int, row0: int,
+                  tail: bool):
+    """(digit totals, sentinel keys or None) of the pre-sort plane's first
+    n_valid rows in a sort whose planes its first launch makes from
+    sources: read from the key source ``s`` over its own rows [row0, row0 +
+    n_valid), equal bit for bit to ``digit_totals`` and ``sentinel_keys``
+    of the plane it makes.  The columns' rows are counted by K10 with the
+    bias that gives the plane's digits (0 for the caller's uint32 keys:
+    their own top byte); the rows past the source hold its pad (the
+    biased 0xFFFFFFFF: digit 255, a sentinel key), added to its digit and,
+    with ``tail``, to the sentinel keys (a PyTorch reduction over the
+    columns' rows)."""
+    dev = bitonic.source_device([s])
+    bias = (s.xor ^ _SIGN_U32) & 0xFFFFFFFF
+    totals = torch.zeros(256, dtype=torch.int32, device=dev)
+    pads = torch.zeros((), dtype=torch.int64, device=dev) if tail else None
+    off = 0
+    for col in s.cols:  # the column's rows in [row0, row0 + n_valid)
+        a, b = max(off, row0), min(off + col.numel(), row0 + n_valid)
+        if a < b:
+            rows = col[a - off: b - off]
+            totals += radix.histograms(rows, p.C, 24, bias, totals=True)[-1]
+            if tail:
+                pads += (rows == (msd._PAD ^ s.xor)).sum()
+        off += col.numel()
+    fill = max(row0 + n_valid - s.n, 0)
+    if fill:
+        totals[((s.pad ^ _SIGN_U32) >> 24) & 255] += fill
+        if tail and s.pad == msd._PAD:
+            pads += fill
+    return totals, pads
+
+
 def rank_args(keys, flat_input, p: Plan, n_valid: int, sample_tiles,
-              tail: bool) -> tuple:
+              tail: bool, row0: int = 0) -> tuple:
     """The arguments of ``rank_runs`` in a radix sort: the sorted chunks
     ``keys``, their samples (heads, and sorted on the network of
     ``sample_tiles``), the digit totals of the pre-sort plane
-    ``flat_input`` (K10), and with ``tail`` its sentinel keys."""
-    totals = digit_totals(flat_input, p, n_valid)[-1]
+    ``flat_input`` (K10), and with ``tail`` its sentinel keys.  In a sort
+    from sources ``flat_input`` is the key ``bitonic.Source`` and the
+    counts come from its rows from ``row0`` (``source_counts``)."""
+    if isinstance(flat_input, bitonic.Source):
+        totals, pads = source_counts(flat_input, p, n_valid, row0, tail)
+    else:
+        totals = digit_totals(flat_input, p, n_valid)[-1]
+        pads = sentinel_keys(flat_input, n_valid) if tail else None
     heads = sample_heads(keys, p)
     return (keys, heads, sort_samples(heads, sample_tiles), totals, p,
-            n_valid, sentinel_keys(flat_input, n_valid) if tail else None,
-            tail)
+            n_valid, pads, tail)
 
 
 class Bounds(NamedTuple):
@@ -423,34 +471,97 @@ def rank_runs_model(keys, heads, samples, totals, p: Plan, n_valid: int,
                   torch.tensor(int(overflow), dtype=torch.int64), start, src)
 
 
-def sort_radix(planes, chunk, num_cmp, cfg, n_valid=None):
+class Outputs(NamedTuple):
+    """The output planes that a sort from sources allocates itself, of
+    ``total`` rows each: the radix sort after K12's pack, when its largest
+    buffers are gone, the network before its first launch.  With
+    ``key_rows``, the last launch stores plane 0 as its first key_rows keys
+    unbiased: in place where they are the whole plane, else into a tensor
+    of key_rows rows, which takes plane 0's place in the result (the radix
+    sort then allocates no plane 0)."""
+
+    total: int
+    key_rows: int | None = None
+
+    def make(self, planes: int, device, whole_key: bool):
+        """(planes, key_out): the new planes and the keys' store
+        (``bitonic.sort_sources``' / ``msd.concat``'s).  Where the keys go
+        to a tensor of their own and ``whole_key`` is false (the radix
+        sort's K13 needs no plane 0), plane 0 is None, or with one plane
+        the keys' tensor itself."""
+        def new(rows):
+            return torch.empty(rows, dtype=torch.int32, device=device)
+
+        own = self.key_rows not in (None, self.total)
+        keys = new(self.key_rows) if own else None
+        first = (new(self.total) if whole_key or not own
+                 else keys if planes == 1 else None)
+        out = [first, *(new(self.total) for _ in range(planes - 1))]
+        if self.key_rows is None:
+            return out, None
+        return out, (keys if own else first, 0)
+
+    @staticmethod
+    def result(planes, key_out):
+        """The sorted planes, plane 0 the stored keys where ``key_out``."""
+        return planes if key_out is None else [key_out[0], *planes[1:]]
+
+
+def sort_radix(planes, chunk, num_cmp, cfg, n_valid=None, sources=None,
+               row0=0, key_out=None):
     """Radix-distribution-sort int32 planes in place: ascending by plane 0,
     then plane 1 when num_cmp == 2; further planes ride along.  The length
     is a power of two with ``plan(len, chunk)`` not None; rows past
     ``n_valid`` (default all) hold the sentinel fill (``msd._fill``) and come
     out as the fill.  ``cfg`` gives the network tiles of the mode.
 
+    ``sources`` (one ``bitonic.Source`` a plane, from source row ``row0``;
+    keys, rider and lex2): the sort makes its planes in its own first and
+    last launches.  K4 reads the planes' rows from the sources, biased,
+    padded and numbered as it loads them (``chunk_sort_cyclic_sources``),
+    the counting step reads the key source (``source_counts``), and
+    ``planes`` are written by K13, never read: planes from ``torch.empty``
+    (the arbitrary-N last piece), or ``Outputs``, the planes this function
+    allocates after K12's pack.  ``key_out`` = (out, row): K13 stores
+    plane 0's keys unbiased there (``msd.concat``), as ``Outputs.key_rows``
+    does for planes it allocates.
+
     Returns (planes, overflow): with overflow True a run overflowed its
-    slot, nothing was written and the caller sorts the planes otherwise."""
-    total = planes[0].numel()
+    slot, nothing was written (no plane allocated) and the caller sorts the
+    planes otherwise (from the same sources, where given)."""
+    total = planes.total if isinstance(planes, Outputs) else planes[0].numel()
     p = plan(total, chunk)
     if p is None:
         raise ValueError(f"no radix plan for {total} keys in chunks of {chunk}")
     n_valid = total if n_valid is None else int(n_valid)
-    tiles = cfg.mode_tiles(len(planes), num_cmp)
-    tail = num_cmp == 1 and len(planes) == 2
+    np_ = len(planes if sources is None else sources)
+    tiles = cfg.mode_tiles(np_, num_cmp)
+    tail = num_cmp == 1 and np_ == 2
 
-    sorted_ = bitonic.sort_chunks_ascending_cyclic(planes, num_cmp, p.C,
-                                                   *tiles)
-    b = rank_runs(*rank_args(sorted_[0], planes[0], p, n_valid,
-                             cfg.mode_tiles(1, 1), tail))
+    if sources is None:
+        sorted_ = bitonic.sort_chunks_ascending_cyclic(planes, num_cmp, p.C,
+                                                       *tiles)
+        counted = planes[0]
+    else:
+        dev = bitonic.source_device(sources)
+        sorted_ = bitonic.sort_chunks_ascending_cyclic(
+            [torch.empty(total, dtype=torch.int32, device=dev)
+             for _ in sources], num_cmp, p.C, *tiles, sources=sources,
+            row0=row0)
+        counted = sources[0]
+    b = rank_runs(*rank_args(sorted_[0], counted, p, n_valid,
+                             cfg.mode_tiles(1, 1), tail, row0))
     if bool(b.overflow):  # the one host read
         return planes, True
 
     packed = msd.pack(sorted_, b.bounds, p.C, p.slot, p.nb_pad, num_cmp)
+    if not tail:  # only the rider mode's sentinel rows come from sorted_
+        sorted_ = None
     merged = bitonic.merge_slots_ascending(packed, num_cmp, p.C, p.slot,
                                            *tiles)
     del packed
-    msd.concat(merged, sorted_ if tail else None, planes, b.start, b.src,
-               p.nb_pad, num_cmp)
-    return planes, False
+    if isinstance(planes, Outputs):
+        planes, key_out = planes.make(np_, merged[0].device, False)
+    msd.concat(merged, sorted_, planes, b.start, b.src, p.nb_pad, num_cmp,
+               key_out)
+    return Outputs.result(planes, key_out), False

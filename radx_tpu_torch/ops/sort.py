@@ -4,13 +4,16 @@ It owns buffer preparation — the sign bias that maps unsigned order onto
 signed int32 order, the sentinel pads up to a power of two (or, for large
 ragged sizes, to the whole pieces of the arbitrary-N paths), the index plane
 that makes a sort stable — and dispatches to a strategy.  Where the
-network sorts keys, (key, rider) or (key, index) planes, its own first and
-last launches make them (``_source_load``, ``bitonic.sort_sources``): the
-first chunk sort reads the caller's columns and writes the biased, padded
-planes into buffers from ``torch.empty``; the last launch writes the keys
-back unbiased.  ``"lax"`` and the radix sort keep the PyTorch preparation
-(``_key_plane``, ``_iota``, ``_rider_planes``, ``_unbias``; counted in
-``PREP_CALLS`` on a card).  The strategies:
+network or the radix sort sorts keys, (key, rider) or (key, index) planes,
+the sort's own first and last launches make them (``_source_load``,
+``_engine(..., sources=)``): the first chunk sort (the network's, or the
+radix sort's cyclic one) reads the caller's columns and writes the biased,
+padded planes into buffers from ``torch.empty``; the last launch (the
+network's finish, or the radix sort's concatenation) writes the keys back
+unbiased.  ``"lax"`` keeps the PyTorch preparation (``_key_plane``,
+``_iota``, ``_rider_planes``, ``_unbias``; counted in ``PREP_CALLS`` on a
+card), and so do the sorts outside this slice (``unique``, ``top_k``,
+``sort_u64``, LazyTable's carried columns).  The strategies:
 
   * ``"bitonic"`` (default) — the hand-written CUDA bitonic network
     (kernels/bitonic.py): keys only, (key, rider), or lexicographic over
@@ -84,10 +87,10 @@ def _pad_len(n: int, min_total: int = 1024) -> int:
 
 
 # Calls of the PyTorch preparation of a sort's planes on CUDA tensors: the
-# paths that ``_source_load`` leaves to it ("lax", the radix sort, modes
-# with no source form, and the callers outside this module that build
-# their planes themselves).  Where the network's first and last launches
-# make the planes, none of these runs.
+# paths that ``_source_load`` leaves to it ("lax", modes with no source
+# form, and the callers outside this module that build their planes
+# themselves).  Where a sort's own first and last launches make the
+# planes, none of these runs.
 PREP_CALLS = dict.fromkeys(("_key_plane", "_unbias", "_iota",
                             "_rider_planes", "_payload_plane",
                             "_local_sort_planes"), 0)
@@ -116,28 +119,22 @@ def _unbias(plane: torch.Tensor, n: int) -> torch.Tensor:
     return (plane[:n] ^ _SIGN).view(torch.uint32)
 
 
-def _source_load(cfg: SortConfig, planes: int, num_cmp: int, total: int,
+def _source_load(cfg: SortConfig, planes: int, num_cmp: int,
                  network: bool = False) -> bool:
-    """The one rule that picks how a sort's planes are made: by the
-    network's first launch reading the caller's columns and its last one
-    writing the keys unbiased (``bitonic.sort_sources``), or by PyTorch
-    before the first kernel (``_key_plane``, ``_iota``, ``_rider_planes``;
-    ``_unbias`` after the last).  The network's launches make them in a
-    mode that has their source form (``bitonic.SOURCE_MODES``) wherever
-    the network sorts the planes: under ``"bitonic"``, for the callers that
-    sort on the network under every strategy (``network``: the joins'
-    union, the distributed sort's local sort), and under ``"radix"`` where
-    ``radix_sort.plan`` does not take the ``total`` rows.  ``"lax"``
-    (``torch.sort``) and the radix sort (which reads the planes before its
-    first kernel) keep PyTorch's preparation."""
+    """The one rule that picks how a sort's planes are made: by the sort's
+    own first launch reading the caller's columns and its last one writing
+    the keys unbiased (``_engine(..., sources=)``: the network's chunk sort
+    and finish, ``bitonic.sort_sources``, or the radix sort's cyclic chunk
+    sort and concatenation), or by PyTorch before the first kernel
+    (``_key_plane``, ``_iota``, ``_rider_planes``; ``_unbias`` after the
+    last).  The sort's launches make them in a mode that has their source
+    form (``bitonic.SOURCE_MODES``) under ``"bitonic"`` and ``"radix"``,
+    and for the callers that sort on the network under every strategy
+    (``network``: the joins' union, the distributed sort's local sort).
+    ``"lax"`` (``torch.sort``) keeps PyTorch's preparation."""
     if (num_cmp, planes) not in bitonic.SOURCE_MODES:
         return False
-    if network or cfg.strategy == "bitonic":
-        return True
-    if cfg.strategy == "lax":
-        return False
-    chunk, _ = cfg.mode_tiles(planes, num_cmp)
-    return radix_sort.plan(total, radix_sort.pick_chunk(total, chunk)) is None
+    return network or cfg.strategy != "lax"
 
 
 def _empty(total: int, device) -> torch.Tensor:
@@ -165,7 +162,8 @@ def _lex_groups(planes):
         yield [*cmp, *group]
 
 
-def _engine(planes, cfg: SortConfig, num_cmp: int, n_valid: int):
+def _engine(planes, cfg: SortConfig, num_cmp: int, n_valid: int,
+            sources=None, row0: int = 0, key_out=None):
     """Sort int32 planes in place by plane 0 (then plane 1 when num_cmp is
     2; the rest ride along) — the port of radx_tpu/ops/sort.py::_engine.
 
@@ -174,28 +172,46 @@ def _engine(planes, cfg: SortConfig, num_cmp: int, n_valid: int):
     set, leaves the planes untouched, and the network sorts them.  Rows past
     ``n_valid`` are sentinel pads.  The network runs on the mode's tiles.
     (The JAX ``unique`` flag has no counterpart: every exchange here is
-    tie-safe.)"""
-    chunk, fin = cfg.mode_tiles(len(planes), num_cmp)
+    tie-safe.)
+
+    ``sources`` (one ``bitonic.Source`` a plane, from source row ``row0``;
+    ``_source_load``): the sort's own first launch makes the planes from
+    the caller's columns and its last one stores plane 0's keys unbiased
+    to ``key_out`` = (out, row), as ``bitonic.sort_sources`` does; the
+    planes are then written, never read: given, or a
+    ``radix_sort.Outputs`` that the sort allocates (the radix sort after
+    its pack, the network before its first launch).  On overflow nothing
+    has been prepared, and the network sorts from the same sources.
+    Returns the sorted planes (with ``Outputs.key_rows`` plane 0 the
+    stored keys)."""
+    p = len(planes if sources is None else sources)
+    chunk, fin = cfg.mode_tiles(p, num_cmp)
     if cfg.strategy == "radix":
-        total = planes[0].numel()
+        total = (planes.total if isinstance(planes, radix_sort.Outputs)
+                 else planes[0].numel())
         r_chunk = radix_sort.pick_chunk(total, chunk)
         if radix_sort.plan(total, r_chunk) is not None:
-            _, overflow = radix_sort.sort_radix(planes, r_chunk, num_cmp, cfg,
-                                                n_valid)
+            out, overflow = radix_sort.sort_radix(
+                planes, r_chunk, num_cmp, cfg, n_valid, sources, row0,
+                key_out)
             if not overflow:
-                return planes
-    k, rider, lex = bitonic._keywords(planes, num_cmp)
-    bitonic.sort_planes(k, chunk, fin, rider=rider, lex=lex)
-    return planes
+                return out
+    if sources is None:
+        k, rider, lex = bitonic._keywords(planes, num_cmp)
+        bitonic.sort_planes(k, chunk, fin, rider=rider, lex=lex)
+        return planes
+    if isinstance(planes, radix_sort.Outputs):
+        planes, key_out = planes.make(p, bitonic.source_device(sources), True)
+    bitonic.sort_sources(sources, planes, num_cmp, chunk, fin, row0=row0,
+                         key_out=key_out)
+    return radix_sort.Outputs.result(planes, key_out)
 
 
 def _sort_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor:
     total = _pad_len(n)
-    if _source_load(cfg, 1, 1, total):
-        plane = _empty(total, keys.device)
-        out = _key_output(plane, n)
-        bitonic.sort_sources([bitonic.key_source(keys.contiguous())], [plane],
-                             1, *cfg.mode_tiles(1, 1), key_out=(out, 0))
+    if _source_load(cfg, 1, 1):
+        (out,) = _engine(radix_sort.Outputs(total, n), cfg, 1, n,
+                         [bitonic.key_source(keys.contiguous())])
         return out.view(torch.uint32)
     plane = _key_plane(keys, total)
     if cfg.strategy == "lax":
@@ -242,10 +258,9 @@ def _sort_rider(keys: torch.Tensor, payload: torch.Tensor, cfg: SortConfig,
     if _use_decomposition(n, cfg):
         return _sort_rider_arbn(keys, payload, cfg, n, neutral)
     total = _pad_len(n)
-    if _source_load(cfg, 2, 1, total):
-        kp, pp = _empty(total, keys.device), _empty(total, keys.device)
-        bitonic.sort_sources(_rider_sources(keys, payload, neutral), [kp, pp],
-                             1, *cfg.mode_tiles(2, 1), key_out=(kp, 0))
+    if _source_load(cfg, 2, 1):
+        kp, pp = _engine(radix_sort.Outputs(total, total), cfg, 1, total,
+                         _rider_sources(keys, payload, neutral))
         return kp.view(torch.uint32), pp
     kp, pp = _rider_planes(keys, payload, total, neutral)
     if cfg.strategy == "lax":
@@ -286,11 +301,11 @@ def _sort_pieces(planes, sizes, chunk: int, fin: int, cfg: SortConfig,
     buffer, so every step works in place.  Sentinel pads that spill into
     the descending pieces are just large keys: the merges push them to the
     tail.  With ``sources`` (``_source_load``), every piece's first launch
-    reads its own stretch of them (only the last piece holds pads) and the
-    planes are written, not read, so they may be ``torch.empty``; every
-    piece sorts on the network; ``key_out`` (out, row): the last launches
-    (the last valley merge's, or the one piece's) write the keys unbiased
-    there (``bitonic.sort_sources``)."""
+    reads its own stretch of them (only the last piece holds pads: the last
+    piece's radix sort counts its digits there too) and the planes are
+    written, not read, so they may be ``torch.empty``; ``key_out`` (out,
+    row): the last launches (the last valley merge's, or the one piece's)
+    write the keys unbiased there (``bitonic.sort_sources``)."""
     offsets, off = [], 0
     for sz in sizes:
         offsets.append(off)
@@ -304,15 +319,16 @@ def _sort_pieces(planes, sizes, chunk: int, fin: int, cfg: SortConfig,
             continue
         k, rider, lex = bitonic._keywords(piece, num_cmp)
         bitonic.sort_planes(k, chunk, fin, True, rider=rider, lex=lex)
-    if sources is not None:
+    last_out = None if heads else key_out
+    if not network:
+        _engine(last, cfg, num_cmp, last[0].numel(), sources, offsets[-1],
+                last_out)
+    elif sources is not None:
         bitonic.sort_sources(sources, last, num_cmp, chunk, fin,
-                             row0=offsets[-1],
-                             key_out=None if heads else key_out)
-    elif network:
+                             row0=offsets[-1], key_out=last_out)
+    else:
         k, rider, lex = bitonic._keywords(last, num_cmp)
         bitonic.sort_planes(k, chunk, fin, rider=rider, lex=lex)
-    else:
-        _engine(last, cfg, num_cmp, last[0].numel())
     for o in reversed(offsets[:-1]):
         k, rider, lex = bitonic._keywords([p[o:] for p in planes], num_cmp)
         bitonic.merge_valley_ascending(k, chunk, fin, rider=rider, lex=lex,
@@ -326,7 +342,7 @@ def _sort_arbn_keys(keys: torch.Tensor, cfg: SortConfig, n: int) -> torch.Tensor
     ``_sort_pieces``.  Total pad <= n/32 + C."""
     c = cfg.chunk_elems
     blocks, sizes = _decompose_blocks(n, c)
-    if _source_load(cfg, 1, 1, sizes[-1] * c):
+    if _source_load(cfg, 1, 1):
         plane = _empty(blocks * c, keys.device)
         out = _key_output(plane, n)
         _sort_pieces([plane], sizes, c, cfg.finish_elems, cfg, 1,
@@ -349,7 +365,7 @@ def _sort_rider_arbn(keys: torch.Tensor, payload: torch.Tensor,
     chunk, fin = cfg.mode_tiles(2, 1)
     blocks, sizes = _decompose_blocks(n, chunk)
     total = blocks * chunk
-    if _source_load(cfg, 2, 1, sizes[-1] * chunk):
+    if _source_load(cfg, 2, 1):
         kp, pp = _empty(total, keys.device), _empty(total, keys.device)
         _sort_pieces([kp, pp], sizes, chunk, fin, cfg, 1,
                      sources=_rider_sources(keys, payload, neutral),
@@ -510,14 +526,11 @@ def _stable_planes(keys: torch.Tensor, payloads, cfg: SortConfig, total: int,
     ``unbias``: the key plane comes back as the n sorted uint32 keys (the
     sort's last launch writes them, where the network makes the planes)."""
     n = keys.numel()
-    if _source_load(cfg, 2, 2, total):
-        planes = [_empty(total, keys.device), _empty(total, keys.device)]
-        out = _key_output(planes[0], n) if unbias else None
-        bitonic.sort_sources(_stable_sources(keys, total), planes, 2,
-                             *cfg.lex_tiles(2),
-                             key_out=None if out is None else (out, 0))
+    if _source_load(cfg, 2, 2):
+        planes = _engine(radix_sort.Outputs(total, n if unbias else None),
+                         cfg, 2, n, _stable_sources(keys, total))
         if unbias:
-            planes[0] = out.view(torch.uint32)
+            planes[0] = planes[0].view(torch.uint32)
         return [*planes, *_gather_payloads(planes[1][:n], payloads)]
     planes = [_key_plane(keys, total), _iota(total, keys.device)]
     if cfg.strategy == "lax":
@@ -544,7 +557,7 @@ def _sort_arbn_stable(keys: torch.Tensor, payloads, cfg: SortConfig, n: int,
     chunk, fin = cfg.lex_tiles(2)
     blocks, sizes = _decompose_blocks(n, chunk)
     total = blocks * chunk
-    if _source_load(cfg, 2, 2, sizes[-1] * chunk):
+    if _source_load(cfg, 2, 2):
         planes = [_empty(total, keys.device), _empty(total, keys.device)]
         out = _key_output(planes[0], n) if unbias else None
         _sort_pieces(planes, sizes, chunk, fin, cfg, 2,
@@ -607,11 +620,9 @@ def sort_pairs(keys, payload, cfg: SortConfig | None = None,
         return keys.clone(), payload.clone()
     if assume_unique:
         total = _pad_len(n)
-        if _source_load(cfg, 2, 1, total):
-            kp, pp = _empty(total, keys.device), _empty(total, keys.device)
-            out = _key_output(kp, n)
-            bitonic.sort_sources(_rider_sources(keys, payload, 0), [kp, pp],
-                                 1, *cfg.mode_tiles(2, 1), key_out=(out, 0))
+        if _source_load(cfg, 2, 1):
+            out, pp = _engine(radix_sort.Outputs(total, n), cfg, 1, n,
+                              _rider_sources(keys, payload, 0))
             return out.view(torch.uint32), pp[:n].view(payload.dtype)
         kp, pp = _key_plane(keys, total), _payload_plane(payload, total)
         if cfg.strategy == "lax":

@@ -289,8 +289,7 @@ def _shard_body(tr, shards, payloads, n, m, slot, cfg, stable, hier=None,
     for k, me in enumerate(tr.local):
         dev = shards[k].device
         n_planes = 1 + stable + len(payloads[k])
-        if sort_ops._source_load(cfg, n_planes, num_cmp, _pow2_pad(m),
-                                 network=True):
+        if sort_ops._source_load(cfg, n_planes, num_cmp, network=True):
             sources = [bitonic.key_source(shards[k].contiguous())]
             if stable:
                 sources.append(bitonic.index_source(

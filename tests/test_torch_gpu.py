@@ -771,12 +771,13 @@ def test_radix_sort_matches_torch_sort(cuda, n):
     got = sort(keys, RADIX)
     assert torch.equal(got.view(torch.int32),
                        torch_sort_u32(keys).view(torch.int32))
-    assert tm.LAUNCHES["radix_concat"] == 1
+    assert tm.LAUNCHES["radix_concat/unbias"] == 1
     same = torch.full((n,), 7, dtype=torch.uint32, device=cuda)
     tm.reset_counts()
     assert torch.equal(sort(same, RADIX).view(torch.int32),
                        same.view(torch.int32))  # overflow: the network
-    assert tm.LAUNCHES["radix_rank"] == 1 and tm.LAUNCHES["radix_concat"] == 0
+    assert tm.LAUNCHES["radix_rank"] == 1
+    assert tm.LAUNCHES["radix_concat/unbias"] == 0
 
 
 # --- slice 9: the streaming operators and the in-process mesh ----------------
@@ -1148,3 +1149,131 @@ def test_sorts_from_sources_on_the_card(cuda):
     assert torch.equal(out.view(torch.int32), torch_sort_u32(keys).view(
         torch.int32))
     assert not any(ts.PREP_CALLS.values())
+
+
+# --- the radix sort's first and last launches (K4's source form, K13's
+# unbiasing form) ---------------------------------------------------------------
+
+
+def _radix_sources(cuda, mode, n, off):
+    """Sources of a radix sort of ``N`` rows: n random keys (1% 0xFFFFFFFF:
+    a real run of the pads' key below a slot) ``off`` rows past a 16-byte
+    boundary; a rider, or the index made from the row."""
+    keys = _col(cuda, n, off, n + off)
+    keys[::7] = _keys(cuda, n, 11)[::7]
+    keys[::101] = -1
+    if mode == "keys":
+        return 1, [tb.key_source(keys)]
+    if mode == "rider":
+        return 1, [tb.key_source(keys),
+                   tb.column_source(_col(cuda, n, 3 - off, 5), -7)]
+    return 2, [tb.key_source(keys), tb.index_source(N)]
+
+
+@pytest.mark.parametrize("mode", ["keys", "rider", "lex2"])
+@pytest.mark.parametrize("n, off", [(N, 0), (N - 17, 1), (N - 1000, 3)])
+def test_radix_edges_match_plain(cuda, mode, n, off):
+    """K4's source form on both plans against ``chunk_sort_cyclic_ref`` of
+    ``source_planes_ref``'s planes (radix chunks of 2^17, the mode's tile),
+    and K13's unbiasing form against ``concat_ref``, plane 0 XORed, in
+    place and into the first N - 3 rows, on the merged buckets of a sort
+    from those sources (counted from the key source)."""
+    from radx_tpu_torch.kernels import msd as tm
+    from radx_tpu_torch.kernels import radix_sort as trs
+
+    ncmp, sources = _radix_sources(cuda, mode, n, off)
+    p = len(sources)
+    c, f = RADIX.mode_tiles(p, ncmp)
+    lc = c.bit_length() - 1
+    made = tb.source_planes_ref(sources, 0, N, cuda)
+    want = tb.chunk_sort_cyclic_ref(made, ncmp, R_CHUNK, c)
+    for top in {False, tb.compile_time_plan("chunk_sort_cyclic", p, lc, lc)}:
+        out = [torch.full((N,), 5, dtype=torch.int32, device=cuda)
+               for _ in range(p)]
+        _reset_all()
+        tb._launch_cyclic_src(out, ncmp, R_CHUNK, c, sources, 0, top)
+        _assert_planes_equal(out, want)
+        assert tb.LAUNCHES[tb.radix_source_kernel(ncmp, p)] == 1
+        assert tb.TOP_LAUNCHES[tb.radix_source_kernel(ncmp, p)] == int(top)
+    plan = trs.plan(N, R_CHUNK)
+    tail = ncmp == 1 and p == 2
+    nv = N if tail else n
+    sorted_ = tb.sort_chunks_ascending_cyclic(
+        [torch.empty_like(x) for x in made], ncmp, plan.C, c, f,
+        sources=sources)
+    b = trs.rank_runs(*trs.rank_args(sorted_[0], sources[0], plan, nv,
+                                     RADIX.mode_tiles(1, 1), tail))
+    assert not bool(b.overflow)
+    packed = tm.pack(sorted_, b.bounds, plan.C, plan.slot, plan.nb_pad, ncmp)
+    merged = tb.merge_slots_ascending(packed, ncmp, plan.C, plan.slot, c, f)
+    src = sorted_ if tail else None
+    ref = tm.concat_ref(merged, src, b.start, b.src, plan.nb_pad, N, ncmp)
+    for rows in (N, N - 3):
+        out = [torch.full((N,), 5, dtype=torch.int32, device=cuda)
+               for _ in range(p)]
+        keys = out[0] if rows == N else torch.full(
+            (rows,), 5, dtype=torch.int32, device=cuda)
+        if rows != N:
+            out[0] = keys if p == 1 else None
+        tm.reset_counts()
+        tm.concat(merged, src, out, b.start, b.src, plan.nb_pad, ncmp,
+                  (keys, 0))
+        torch.cuda.synchronize()
+        assert tm.LAUNCHES[tm.unbias_kernel(ncmp, p)] == 1
+        assert torch.equal(keys, ref[0][:rows] ^ tb.SIGN), rows
+        assert all(torch.equal(a, w) for a, w in zip(out[1:], ref[1:]))
+
+
+def test_radix_sorts_from_sources_on_the_card(cuda):
+    """sort, sort_pairs, argsort and groupby under strategy="radix" on the
+    card from their sources (2^23 rows: radix chunks of 2^17, slots of
+    2048): no PyTorch preparation, K4's source form first and (where the
+    keys come back) K13's unbiasing form last, every result against torch;
+    the keys sort's peak memory: the input, then at most the sorted chunks
+    and the packed slots, or the packed slots and the merged buckets, or
+    the merged buckets and the output (no plane of the keys' size
+    prepared beside them)."""
+    from radx_tpu_torch import argsort, groupby, sort_pairs
+    from radx_tpu_torch.kernels import msd as tm
+    from radx_tpu_torch.kernels import radix_sort as trs
+    from radx_tpu_torch.ops import sort as ts
+
+    n = 1 << 23
+    k = _keys(cuda, n, 3).view(torch.uint32)
+    v = _keys(cuda, n, 4)
+    kb = k.view(torch.int32) ^ (-(1 << 31))
+    o = torch.sort(kb, stable=True)
+    ts.reset_prep_counts()
+    _reset_all()
+    tm.reset_counts()
+    got = sort(k, RADIX)
+    gk, gv = sort_pairs(k, v, RADIX)
+    ga = argsort(k, RADIX)
+    torch.cuda.synchronize()
+    assert not any(ts.PREP_CALLS.values()) and _no_plain_calls()
+    assert tb.LAUNCHES["chunk_sort_cyclic/src"] == 1
+    assert tb.LAUNCHES["chunk_sort_cyclic/src/lex2"] == 2
+    assert tm.LAUNCHES["radix_concat/unbias"] == 1
+    assert tm.LAUNCHES["radix_concat/unbias/lex2"] == 1  # argsort: none
+    assert tm.LAUNCHES["radix_concat/lex2"] == 1
+    assert torch.equal(got.view(torch.int32), o.values ^ (-(1 << 31)))
+    assert torch.equal(gk.view(torch.int32), o.values ^ (-(1 << 31)))
+    assert torch.equal(gv, v[o.indices]) and torch.equal(ga.long(),
+                                                         o.indices)
+    g = (k.view(torch.int32) & 1023).view(torch.uint32)
+    uk, sums, ng = groupby(g[: n - 999], v[: n - 999], "sum", RADIX)
+    assert tm.LAUNCHES["radix_concat/unbias/rider"] == 1 and int(ng) == 1024
+    want = torch.zeros(1024, dtype=torch.int64, device=cuda).index_add_(
+        0, g[: n - 999].view(torch.int32).long(), v[: n - 999].long())
+    assert torch.equal(sums[:1024].long() & 0xFFFFFFFF, want & 0xFFFFFFFF)
+    assert not any(ts.PREP_CALLS.values())
+    p = trs.plan(n, trs.pick_chunk(n, RADIX.chunk_elems))
+    slots = 4 * p.nb_pad * p.C
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = sort(k, RADIX)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < max(
+        4 * n + slots, 2 * slots) + (8 << 20)
+    assert torch.equal(out.view(torch.int32), o.values ^ (-(1 << 31)))

@@ -29,7 +29,6 @@ import torch
 
 from radx_tpu_torch import SortConfig
 from radx_tpu_torch.kernels import bitonic as tb
-from radx_tpu_torch.kernels import radix_sort as trs
 from radx_tpu_torch.ops import join as tj
 from radx_tpu_torch.ops import sort as ts
 from radx_tpu_torch.parallel import dist_sort as tds
@@ -372,19 +371,19 @@ def test_shard_sort_from_sources_equals_the_padded_shard(stable):
 
 def test_the_rule_by_strategy_and_mode():
     rule = ts._source_load
+    radix = SortConfig(strategy="radix")
     for planes, ncmp in ((1, 1), (2, 1), (2, 2)):
-        assert rule(SortConfig(), planes, ncmp, 1 << 20)
-        assert not rule(SortConfig(strategy="lax"), planes, ncmp, 1 << 20)
-        assert rule(SortConfig(strategy="lax"), planes, ncmp, 1 << 20,
-                    network=True)
-        radix = SortConfig(strategy="radix")
-        chunk = radix.mode_tiles(planes, ncmp)[0]
-        for total in (1 << 12, 1 << 20, 1 << 26):
-            plans = trs.plan(total, trs.pick_chunk(total, chunk)) is not None
-            assert rule(radix, planes, ncmp, total) == (not plans), total
-            assert rule(radix, planes, ncmp, total, network=True)
+        assert rule(SortConfig(), planes, ncmp)
+        assert not rule(SortConfig(strategy="lax"), planes, ncmp)
+        assert rule(SortConfig(strategy="lax"), planes, ncmp, network=True)
+        # the radix sort makes its planes in its own first and last
+        # launches too (and its overflow fallback, the network, from the
+        # same sources), whether or not its plan takes the rows
+        assert rule(radix, planes, ncmp)
+        assert rule(radix, planes, ncmp, network=True)
     for planes, ncmp in ((3, 2), (4, 2), (8, 2)):
-        assert not rule(SortConfig(), planes, ncmp, 1 << 20, network=True)
+        assert not rule(SortConfig(), planes, ncmp, network=True)
+        assert not rule(radix, planes, ncmp)
     assert tb.SOURCE_MODES == ((1, 1), (1, 2), (2, 2))
     assert tb.source_kernels(2, 2) == ("chunk_sort/src/lex2",
                                        "finish/unbias/lex2")
